@@ -13,18 +13,22 @@ run with a non-zero exit code:
    and power limit as ``nvidia-smi`` gives them, and the torch/CUDA versions.
 2. build   -- compiles ``sdvl_tpu_torch/csrc/detect.cu`` with ``nvcc`` for
    ``sm_90a`` and loads it.
-3. kernel  -- holds the fused FAST + Shi-Tomasi kernel against its plain
-   torch version on the card at the shapes the stream gives it (the three
-   detection levels of the first query frame), at a small 64x96 level and at
-   a ragged 123x171 one, and times both with CUDA events: the device time
-   of one launch (many launches replayed from a CUDA graph) and the time of
-   one eager call as the stream issues it.
+3. kernel  -- holds the detection kernel (score maps and per-cell winners of
+   all levels in one launch) against its plain torch version on the card:
+   the three detection levels of the first query frame in one launch (at
+   cell 32, then 16 and 64), each level alone, a small 64x96 level and a
+   ragged 123x171 one (scalar staging). Maps must have equal finite masks
+   and scores to rounding, cell winners must be equal. It times, with CUDA
+   events, the device time of one launch (many launches replayed from a
+   CUDA graph), one eager call of the launch and of the wrapper with its
+   cell decode, the plain version, and one eager ``detect_pyramid`` call on
+   the first query frame, plain route against fused.
 4. slice   -- ``SdvlStream.localizer`` at the tum_f1 preset shape (640x480,
    5 levels, ORB gate, 200 match lanes, 100 keyframe / 4096 point slots) on
    the committed map snapshot, the 24 committed query frames through
    ``feed_chunk`` with the recorded RANSAC noise, ``result()``; checks
    relocalization, tracking, accuracy against ground truth, that the map is
-   untouched and that every frame launched the kernel three times.
+   untouched and that every frame launched the kernel exactly once.
 5. prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -157,14 +161,10 @@ def graph_ms(fn, launches: int = 200, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def check_kernel(name: str, img: torch.Tensor) -> dict:
-    """Kernel against plain version on one level; raises on disagreement."""
-    from sdvl_tpu_torch.ops.cuda import detect
-
-    H, W = img.shape
-    got = detect.fast_shi_tomasi_map(img, FAST_T, ST_T)
-    torch.cuda.synchronize()
-    want = detect.fast_shi_tomasi_map_plain(img, FAST_T, ST_T)
+def check_map(name: str, got: torch.Tensor, want: torch.Tensor):
+    """One level's kernel map against the plain map; raises on
+    disagreement. Returns (corners, mask mismatches, max abs error)."""
+    H, W = want.shape
     assert got.shape == want.shape == (H, W) and got.dtype == torch.float32
     fg, fw = torch.isfinite(got), torch.isfinite(want)
     # border: all -inf
@@ -188,29 +188,93 @@ def check_kernel(name: str, img: torch.Tensor) -> dict:
     tol = 1e-2 + 1e-4 * want[both].abs()   # summation order may differ
     assert bool((err <= tol).all()), (
         f"{name}: score error {float(err.max())} beyond rtol 1e-4 atol 1e-2")
-    max_err = float(err.max())
-    def run_kernel():
-        return detect.fast_shi_tomasi_map(img, FAST_T, ST_T)
+    return n_both, n_diff, float(err.max())
 
-    def run_plain():
-        return detect.fast_shi_tomasi_map_plain(img, FAST_T, ST_T)
 
-    ms, plain_ms = graph_ms(run_kernel), graph_ms(run_plain, launches=10)
-    call_ms, plain_call_ms = time_ms(run_kernel), time_ms(run_plain, inner=2)
-    bytes_ms = 2 * H * W * 4 / PEAK_BYTES_PER_S * 1e3
-    ops_ms = OPS_PER_PIXEL * H * W / PEAK_F32_OPS_PER_S * 1e3
-    say("kernel", f"{name} {H}x{W}: corners {n_both}, mask mismatches "
-                  f"{n_diff} (all at threshold), max_abs_err {max_err:.3g}; "
-                  f"device time (graph replay) kernel {ms:.5f} ms, plain "
-                  f"{plain_ms:.4f} ms; per eager call kernel {call_ms:.4f} "
-                  f"ms, plain {plain_call_ms:.4f} ms; "
-                  f"bound {max(bytes_ms, ops_ms):.5f} ms "
-                  f"(bytes {bytes_ms:.5f}, operations {ops_ms:.5f})")
-    return dict(shape=[H, W], max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                call_ms=call_ms, plain_call_ms=plain_call_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                n_corners=n_both, n_mask_mismatch=n_diff)
+def check_launch(name: str, levels, cell: int = 32, timed: bool = True) -> dict:
+    """One launch of the kernel over ``levels`` against the plain version
+    (per-level plain map plus ``grid_best``): maps as in ``check_map``, cell
+    winners (position, validity, level) exactly equal, scores to rounding.
+    With ``timed``, also the times of the launch, of the wrapper and of the
+    plain version, and the bound. Raises on disagreement."""
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    shapes = [list(l.shape) for l in levels]
+    got = detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T)
+    torch.cuda.synchronize()
+    want = detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T, ST_T)
+    n_both = n_diff = 0
+    max_err = 0.0
+    for l, (g, w) in enumerate(zip(got[0], want[0])):
+        c, d, e = check_map(f"{name} level {l}", g, w)
+        n_both, n_diff, max_err = n_both + c, n_diff + d, max(max_err, e)
+    _, xy, score, valid, level = got
+    _, pxy, pscore, pvalid, plevel = want
+    assert torch.equal(valid, pvalid), f"{name}: cell validity differs"
+    assert torch.equal(xy, pxy), f"{name}: cell winners differ"
+    assert torch.equal(level, plevel), f"{name}: cell levels differ"
+    n_cells = int(valid.numel())
+    cell_err = float((score - pscore).abs().max()) if n_cells else 0.0
+    assert cell_err <= 1e-2 + 1e-4 * float(pscore.abs().max()), (
+        f"{name}: cell score error {cell_err}")
+    max_err = max(max_err, cell_err)
+    out = dict(shape=shapes, cell=cell, levels_per_launch=len(levels),
+               n_cells=n_cells, n_valid_cells=int(valid.sum()),
+               max_abs_err=max_err, n_corners=n_both,
+               n_mask_mismatch=n_diff)
+    msg = (f"{name} {shapes} cell {cell}: corners {n_both}, mask mismatches "
+           f"{n_diff}, cells {n_cells} ({out['n_valid_cells']} valid, "
+           f"winners equal), max_abs_err {max_err:.3g}")
+    if timed:
+        def run_kernel():
+            return detect._launch(levels, cell, FAST_T, ST_T)
+
+        def run_wrapper():
+            return detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T)
+
+        def run_plain():
+            return detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T,
+                                                      ST_T)
+
+        ms, plain_ms = graph_ms(run_kernel), graph_ms(run_plain, launches=10)
+        call_ms, wrapper_ms = time_ms(run_kernel), time_ms(run_wrapper)
+        plain_call_ms = time_ms(run_plain, inner=2)
+        px = sum(h * w for h, w in shapes)
+        bytes_ms = (2 * px * 4 + 8 * n_cells) / PEAK_BYTES_PER_S * 1e3
+        ops_ms = OPS_PER_PIXEL * px / PEAK_F32_OPS_PER_S * 1e3
+        out.update(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
+                   wrapper_call_ms=wrapper_ms, plain_call_ms=plain_call_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        msg += (f"; device time (graph replay) kernel {ms:.5f} ms, plain "
+                f"{plain_ms:.4f} ms; per eager call kernel {call_ms:.4f} ms, "
+                f"wrapper with cell decode {wrapper_ms:.4f} ms, plain "
+                f"{plain_call_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.5f} "
+                f"ms (bytes {bytes_ms:.5f}, operations {ops_ms:.5f})")
+    say("kernel", msg)
+    return out
+
+
+def time_detect_pyramid(cfg, pyr) -> dict:
+    """One eager ``detect_pyramid`` call as the step makes it (no lock),
+    plain route against fused, in turns: plain, fused, fused, plain."""
+    from sdvl_tpu_torch.ops import fast
+
+    s = cfg.sdvl
+
+    def run(use_fused):
+        return lambda: fast.detect_pyramid(
+            pyr, levels=s.max_fast_levels, cell=s.cell_size,
+            fast_threshold=s.fast_threshold,
+            st_threshold=s.min_feature_score, max_features=s.num_features,
+            use_fused=use_fused)
+
+    t = [time_ms(run(f), reps=10, inner=5) for f in (False, True, True, False)]
+    out = dict(plain_ms=[t[0], t[3]], fused_ms=[t[1], t[2]])
+    say("kernel", f"detect_pyramid on the first query frame, ms per eager "
+                  f"call: plain route {t[0]:.4f} / {t[3]:.4f}, fused "
+                  f"{t[1]:.4f} / {t[2]:.4f}")
+    return out
 
 
 def umeyama_ate(est: np.ndarray, gt: np.ndarray) -> float:
@@ -293,27 +357,33 @@ def main() -> int:
                  f"{time.perf_counter() - t0:.1f} s ({' '.join(detect.NVCC_FLAGS)})")
 
     # ---------------------------------------------------------- 3 kernel
+    cfg = preset_config()
     query = dict(np.load(QUERY_NPZ))
     frame0 = torch.from_numpy(query["frames"][0]).to(dev)
     pyr = pyramid.build_pyramid(frame0, 5)
-    checks = {}
-    for l in range(3):
-        checks[f"level{l}"] = check_kernel(f"level{l}", pyr[l])
-    checks["small"] = check_kernel(
-        "small", torch.from_numpy(blocky_image(0, (64, 96))).to(dev))
-    checks["ragged"] = check_kernel(
-        "ragged", torch.from_numpy(blocky_image(1, (123, 171))).to(dev))
+    levels = pyr[:cfg.sdvl.max_fast_levels]
+    checks = {"pyramid": check_launch("pyramid", levels)}
+    for cell in (16, 64):
+        check_launch("pyramid", levels, cell=cell, timed=False)
+    for l, lev in enumerate(levels):
+        checks[f"level{l}"] = check_launch(f"level{l}", [lev])
+    checks["small"] = check_launch(
+        "small", [torch.from_numpy(blocky_image(0, (64, 96))).to(dev)])
+    checks["ragged"] = check_launch(
+        "ragged", [torch.from_numpy(blocky_image(1, (123, 171))).to(dev)])
     for bad in (torch.zeros((480, 640), dtype=torch.float64, device=dev),
                 torch.zeros((480, 640), device=dev)[:, ::2]):
-        try:
-            detect.fast_shi_tomasi_map(bad)
-        except ValueError:
-            pass
-        else:
-            raise AssertionError("wrapper accepted a tensor it cannot take")
+        for call in (lambda: detect.fast_shi_tomasi_map(bad),
+                     lambda: detect.fast_shi_tomasi_cells([levels[0], bad])):
+            try:
+                call()
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("wrapper accepted a tensor it cannot take")
+    dp = time_detect_pyramid(cfg, pyr)
 
     # ----------------------------------------------------------- 4 slice
-    cfg = preset_config()
     n = len(query["frames"])
     _, cold_s, _, _ = run_slice(cfg, query, count_launches=False)
     say("slice", f"first run (cold: cuBLAS/cuSOLVER set-up, allocator): "
@@ -334,7 +404,7 @@ def main() -> int:
     extent = float(np.linalg.norm(np.ptp(p_gt, axis=0)))
     ate = umeyama_ate(p_est, p_gt)
     assert ate < 0.05 * max(extent, 1e-6), f"ATE {ate} vs extent {extent}"
-    assert launches == 3 * n, f"kernel launches {launches} != 3 x {n}"
+    assert launches == n, f"kernel launches {launches} != one per frame ({n})"
     n_corners = int(loc.last_corners.valid.sum())
     assert n_corners > 0, "fused detection found no corner on the last frame"
     d_jax = float(np.linalg.norm(
@@ -346,7 +416,7 @@ def main() -> int:
                  f"{frac:.2f} of RUNNING frames >= {min_matches} matches, "
                  f"ATE {ate:.5f} over extent {extent:.4f} "
                  f"({100 * ate / extent:.2f} %), map bit-identical, "
-                 f"kernel launches {launches} = 3 x {n}, corners on last "
+                 f"kernel launches {launches} = 1 x {n}, corners on last "
                  f"frame {n_corners}")
     say("slice", f"against the recorded JAX run (CPU, plain detection): "
                  f"states equal {same_state}, max |n_matches diff| {dm}, "
@@ -355,23 +425,25 @@ def main() -> int:
                  f"(one stream, eager, one host read per frame) on {card}")
 
     # --------------------------------------------------------- 5 kernels
-    l0 = checks["level0"]
+    p3 = checks["pyramid"]
     kernels = {"kernels": [{
-        "name": "fast_shi_tomasi_map",
+        "name": "fast_shi_tomasi_cells",
         "route": "cuda",
         "source": "sdvl_tpu_torch/csrc/detect.cu",
         "replaces": "sdvl_tpu/ops/pallas/detect.py:211",
         "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
-        "ms": l0["ms"],
-        "plain_ms": l0["plain_ms"],
-        "call_ms": l0["call_ms"],
-        "plain_call_ms": l0["plain_call_ms"],
-        "bound_ms": l0["bound_ms"],
-        "bound_by": l0["bound_by"],
+        "ms": p3["ms"],
+        "plain_ms": p3["plain_ms"],
+        "call_ms": p3["call_ms"],
+        "wrapper_call_ms": p3["wrapper_call_ms"],
+        "plain_call_ms": p3["plain_call_ms"],
+        "bound_ms": p3["bound_ms"],
+        "bound_by": p3["bound_by"],
         "library_ms": None,
-        "shape": l0["shape"],
+        "shape": p3["shape"],
         "by_shape": checks,
+        "detect_pyramid_ms": dp,
         "frames": n,
         "frames_per_s": n / seconds,
         "card": card,

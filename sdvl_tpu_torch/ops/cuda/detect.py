@@ -1,31 +1,42 @@
-"""Fused FAST-9/16 + Shi-Tomasi score map: CUDA kernel, wrapper, plain version.
+"""Fused FAST-9/16 + Shi-Tomasi detection with per-cell selection: CUDA
+kernel, wrapper, plain version.
 
 Replaces the TPU kernel ``sdvl_tpu/ops/pallas/detect.py::fast_shi_tomasi_map``
-(its row-tiled call for H > 80 and its single-block call alike). The kernel is
-``csrc/detect.cu``, CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use
-into ``sdvl_tpu_torch/_build/`` and bound through ``ctypes``.
+(its row-tiled call for H > 80 and its single-block call alike) together with
+the per-cell selection that consumes its output (``_grid_best`` of
+``sdvl_tpu/ops/fast.py``). The kernel is ``csrc/detect.cu``, CUDA C++ for
+``sm_90a``, built with ``nvcc`` at first use into ``sdvl_tpu_torch/_build/``
+and bound through ``ctypes``. One launch covers all levels of a frame.
 
-Output contract, for an (H, W) float32 level: the Shi-Tomasi min-eigenvalue
-score where the pixel passes the FAST segment test, lies at least 4 px inside
-the image and scores above ``st_threshold``; ``-inf`` elsewhere.
+Output contract, for each (H, W) float32 level:
+
+* the score map: the Shi-Tomasi min-eigenvalue score where the pixel passes
+  the FAST segment test, lies at least 4 px inside the image and scores above
+  ``st_threshold``; ``-inf`` elsewhere;
+* one corner slot per cell of the cropped ``(H // cell) x (W // cell)`` grid:
+  its best pixel by :func:`grid_best`'s rule (highest score, then the
+  smallest in-cell index; an all ``-inf`` cell gives index 0), at level-0
+  coordinates, valid where its score is above ``st_threshold``.
 
 Bound on an H100 (3.35 TB/s): memory -- one float32 read and one float32
-write of the level, 2.46 MB at 480x640, against ~80 float operations per
-pixel. The kernel stages each tile and its halo in shared memory once and
-keeps the Sobel derivatives there too, so global memory sees exactly that one
-read and one write (see the note in ``csrc/detect.cu``).
+write of every level plus 8 bytes per cell, 3.23 MB at the three preset
+levels, against ~77 float operations per pixel. What the kernel does about
+it is in the note of ``csrc/detect.cu``.
 
-:func:`fast_shi_tomasi_map` takes the plain torch version for a CPU tensor
-only. For a CUDA tensor it launches the kernel or raises.
+:func:`fast_shi_tomasi_cells` and :func:`fast_shi_tomasi_map` take the plain
+torch version for CPU tensors only. For CUDA tensors they launch the kernel
+or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
+from typing import Sequence
 
 import torch
 
@@ -35,6 +46,10 @@ _CIRCLE = (
 )
 _ARC = 9
 _BORDER = 4
+MAX_LEVELS = 4      # csrc/detect.cu MAX_LEVELS
+MAX_CELL = 32768    # in-cell index cy * cell + cx must fit 31 bits
+_INT32_MIN = -(1 << 31)
+_LOW32 = 0xFFFFFFFF
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -45,8 +60,8 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Number of kernel launches made by fast_shi_tomasi_map (a plain integer; the
-# smoke run zeroes it, drives the stream and reads it back).
+# Number of kernel launches (a plain integer; the smoke run zeroes it, drives
+# the stream and reads it back).
 launch_count = 0
 
 _lib = None
@@ -68,15 +83,17 @@ def _find_nvcc() -> str:
     )
 
 
-def build_library(verbose: bool = False) -> str:
-    """Compile ``csrc/detect.cu`` into ``_build/libsdvl_detect.so`` and
-    return its path. Raises when the compiler is missing or fails."""
+def build_library(verbose: bool = False, source: str = SOURCE,
+                  name: str = "libsdvl_detect.so") -> str:
+    """Compile ``source`` (default ``csrc/detect.cu``) into
+    ``_build/<name>`` and return its path. Raises when the compiler is
+    missing or fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, "libsdvl_detect.so")
+    out = os.path.join(BUILD_DIR, name)
     cmd = [_find_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", out, SOURCE]
+    cmd += ["-o", out, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -88,48 +105,141 @@ def build_library(verbose: bool = False) -> str:
     return out
 
 
+def bind_library(path: str):
+    """Load a built kernel library and declare its C entry point."""
+    lib = ctypes.CDLL(path)
+    fn = lib.sdvl_detect_levels
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library(verbose: bool = False):
     """Build (once per process) and load the kernel library."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_library(verbose=verbose))
-            fn = lib.sdvl_fast_shi_tomasi
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind_library(build_library(verbose=verbose))
     return _lib
 
 
-def _fast_shi_tomasi_cuda(img: torch.Tensor, fast_threshold: float,
-                          st_threshold: float) -> torch.Tensor:
+def _launch(levels: Sequence[torch.Tensor], cell: int, fast_threshold: float,
+            st_threshold: float, lib=None):
+    """One kernel launch over ``levels`` (CUDA tensors), with ``lib`` or the
+    package's library. Returns the maps and the (sum of cells,) int64 key
+    buffer (``cell`` = 0: no cells)."""
     global launch_count
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise ValueError(
-            "fast_shi_tomasi_map on CUDA takes a contiguous (H, W) float32 "
-            f"tensor, got {tuple(img.shape)} {img.dtype} "
-            f"contiguous={img.is_contiguous()}"
-        )
-    H, W = img.shape
-    if H < 2 * _BORDER + 1 or W < 2 * _BORDER + 1:
-        raise ValueError(f"image {H}x{W} smaller than the 9x9 stencil")
-    lib = load_library()
-    out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
+    n = len(levels)
+    if not 1 <= n <= MAX_LEVELS:
+        raise ValueError(f"the kernel takes 1 to {MAX_LEVELS} levels, got {n}")
+    if not 0 <= cell <= MAX_CELL:
+        raise ValueError(f"cell {cell} outside 1..{MAX_CELL}")
+    dev = levels[0].device
+    dims, n_cells = [], 0
+    for img in levels:
+        if (img.dtype != torch.float32 or img.dim() != 2
+                or not img.is_contiguous() or img.device != dev):
+            raise ValueError(
+                "the detection kernel takes contiguous (H, W) float32 "
+                f"tensors on one device, got {tuple(img.shape)} {img.dtype} "
+                f"{img.device} contiguous={img.is_contiguous()}"
+            )
+        H, W = img.shape
+        if H < 2 * _BORDER + 1 or W < 2 * _BORDER + 1:
+            raise ValueError(f"image {H}x{W} smaller than the 9x9 stencil")
+        # 16-byte cp.async staging needs an aligned base and row pitch
+        dims += [H, W, int(W % 4 == 0 and img.data_ptr() % 16 == 0)]
+        if cell:
+            n_cells += (H // cell) * (W // cell)
+    lib = lib or load_library()
+    maps = [torch.empty_like(img) for img in levels]
+    keys = torch.empty(n_cells, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdvl_fast_shi_tomasi(
-            img.data_ptr(), out.data_ptr(), H, W,
-            float(fast_threshold), float(st_threshold), stream,
+        err = lib.sdvl_detect_levels(
+            (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
+            (ctypes.c_void_p * n)(*[m.data_ptr() for m in maps]),
+            (ctypes.c_int * (3 * n))(*dims), n, cell,
+            float(fast_threshold), float(st_threshold), keys.data_ptr(),
+            stream,
         )
     if err != 0:
-        raise RuntimeError(f"fast_shi_tomasi kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"detection kernel launch failed: CUDA error {err}")
     launch_count += 1
-    return out
+    return maps, keys
 
 
+# ------------------------------------------------------------ cell keys
+def encode_keys(score: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's 64-bit cell key of each pixel, as the bits of a uint64
+    held in int64: high word the order-preserving bits of ``score`` (-0.0
+    made +0.0; sign clear: bits | 0x80000000, sign set: ~bits), low word the
+    complement of the in-cell index ``idx``. The unsigned maximum over a cell
+    is :func:`grid_best`'s winner."""
+    s = torch.where(score == 0, torch.zeros_like(score), score)
+    b = s.float().view(torch.int32)
+    hi = torch.where(b >= 0, b ^ _INT32_MIN, ~b)
+    return hi.long() * (1 << 32) + (idx.long() ^ _LOW32)
+
+
+def decode_keys(keys: torch.Tensor):
+    """Inverse of :func:`encode_keys`: (score float32, in-cell index int64)."""
+    hi = (keys >> 32).to(torch.int32)
+    bits = torch.where(hi < 0, hi ^ _INT32_MIN, ~hi)
+    return bits.view(torch.float32), (keys & _LOW32) ^ _LOW32
+
+
+@functools.lru_cache(maxsize=64)
+def _cell_grid(shapes, cell: int, device: str):
+    """Per cell of all levels: origin (x, y) in level pixels (int64),
+    level-0 scale (float32, (n, 1)) and level (int32). Built once per
+    shapes; shared, never written to."""
+    origin, scale, level = [], [], []
+    for l, (H, W) in enumerate(shapes):
+        gh, gw = H // cell, W // cell
+        g = torch.arange(gh * gw)
+        origin.append(torch.stack((g % gw, g // gw), -1) * cell)
+        scale.append(torch.full((gh * gw, 1), float(1 << l)))
+        level.append(torch.full((gh * gw,), l, dtype=torch.int32))
+    return tuple(torch.cat(t).to(device) for t in (origin, scale, level))
+
+
+def _cells_from_keys(keys, shapes, cell: int, st_threshold: float):
+    """Corner slots of all levels from the kernel's concatenated keys."""
+    best, idx = decode_keys(keys)
+    origin, scale, level = _cell_grid(shapes, cell, str(keys.device))
+    xy = (origin + torch.stack((idx % cell, idx // cell), -1)) * scale
+    valid = best > st_threshold
+    return xy, torch.where(valid, best, 0.0), valid, level.clone()
+
+
+def grid_best(score_map: torch.Tensor, mask: torch.Tensor, cell: int):
+    """Best-scoring masked pixel per cell. Returns (gh*gw,) xy/score/valid.
+    The image is cropped to a whole number of cells. ``argmax`` takes the
+    first maximum, as the reference's does."""
+    H, W = score_map.shape
+    gh, gw = H // cell, W // cell
+    s = torch.where(mask, score_map,
+                    torch.full_like(score_map, float("-inf")))
+    s = s[: gh * cell, : gw * cell].reshape(gh, cell, gw, cell)
+    s = s.permute(0, 2, 1, 3).reshape(gh * gw, cell * cell)
+    idx = torch.argmax(s, dim=1)
+    best = torch.gather(s, 1, idx[:, None])[:, 0]
+    cy, cx = idx // cell, idx % cell
+    g = torch.arange(gh * gw, device=score_map.device)
+    gy, gx = g // gw, g % gw
+    x = (gx * cell + cx).float()
+    y = (gy * cell + cy).float()
+    valid = torch.isfinite(best)
+    return (torch.stack([x, y], dim=-1),
+            torch.where(valid, best, torch.zeros_like(best)), valid)
+
+
+# ------------------------------------------------------- plain versions
 def _any_arc(flags):
     """Circular run of >= 9 among 16 boolean planes (prefix-AND doubling)."""
     cur, run = list(flags), 1
@@ -162,7 +272,7 @@ def segment_test(f: torch.Tensor, pad: torch.Tensor, r: int,
 def fast_shi_tomasi_map_plain(img: torch.Tensor, fast_threshold: float = 10.0,
                               st_threshold: float = 50.0,
                               half_box: int = 2) -> torch.Tensor:
-    """The kernel's function in torch ops, same output contract.
+    """The kernel's score map in torch ops, same output contract.
 
     Reads outside the image are edge-clamped; they only reach the 4-px
     border, which is ``-inf`` by contract. The float operation order is the
@@ -175,15 +285,10 @@ def fast_shi_tomasi_map_plain(img: torch.Tensor, fast_threshold: float = 10.0,
     R = _BORDER
     pad = F.pad(f[None, None], (R, R, R, R), mode="replicate")[0, 0]
 
-    def sh(x, dy, dx):
-        """x is padded by R: view of pixel (y+dy, x+dx) at (y, x)."""
-        return x[R + dy: R + dy + H, R + dx: R + dx + W]
-
     corner = segment_test(f, pad, R, fast_threshold)
 
     # Sobel-smoothed central differences, on the image padded by 2 so the
     # box window can read them: work on the R-padded plane throughout.
-    Hp, Wp = pad.shape
     fy = torch.zeros_like(pad)
     fx = torch.zeros_like(pad)
     fy[1:-1] = pad[2:] - pad[:-2]
@@ -192,6 +297,7 @@ def fast_shi_tomasi_map_plain(img: torch.Tensor, fast_threshold: float = 10.0,
     dyp = torch.zeros_like(pad)
     dxp[1:-1] = 0.25 * (fx[:-2] + 2.0 * fx[1:-1] + fx[2:])
     dyp[:, 1:-1] = 0.25 * (fy[:, :-2] + 2.0 * fy[:, 1:-1] + fy[:, 2:])
+    Wp = pad.shape[1]
 
     def boxsum(p):
         """p is an R-padded plane; returns the (H, W) box sum over offsets
@@ -218,13 +324,59 @@ def fast_shi_tomasi_map_plain(img: torch.Tensor, fast_threshold: float = 10.0,
     return torch.where(keep, score, torch.full_like(score, float("-inf")))
 
 
+def fast_shi_tomasi_cells_plain(levels: Sequence[torch.Tensor], cell: int = 32,
+                                fast_threshold: float = 10.0,
+                                st_threshold: float = 50.0):
+    """The kernel's function in torch ops on any device: per level the plain
+    score map, then :func:`grid_best` on it. Same outputs as
+    :func:`fast_shi_tomasi_cells`."""
+    maps, xy, score, valid, level = [], [], [], [], []
+    for l, img in enumerate(levels):
+        smap = fast_shi_tomasi_map_plain(img, fast_threshold, st_threshold)
+        p, best, ok = grid_best(smap, torch.isfinite(smap), cell)
+        maps.append(smap)
+        xy.append(p * float(1 << l))
+        score.append(best)
+        valid.append(ok & (best > st_threshold))
+        level.append(torch.full((p.shape[0],), l, dtype=torch.int32,
+                                device=img.device))
+    return (maps, torch.cat(xy), torch.cat(score), torch.cat(valid),
+            torch.cat(level))
+
+
+# ------------------------------------------------------------- wrappers
+def fast_shi_tomasi_cells(levels: Sequence[torch.Tensor], cell: int = 32,
+                          fast_threshold: float = 10.0,
+                          st_threshold: float = 50.0):
+    """Score maps and per-cell corners of up to four pyramid levels.
+
+    Returns ``(maps, xy, score, valid, level)``: the (H_l, W_l) score maps,
+    then one slot per cell of every level in level order -- position at
+    level-0 coordinates (N, 2) float32, score (N,) (0 where invalid), valid
+    (N,) bool, level (N,) int32.
+
+    CUDA tensors: one kernel launch for all levels on the current stream (no
+    synchronisation), counted; then ~15 torch ops decode the cells of all
+    levels together. CPU tensors: the plain version.
+    """
+    if not levels[0].is_cuda:
+        return fast_shi_tomasi_cells_plain(levels, cell, fast_threshold,
+                                           st_threshold)
+    if cell < 1:
+        raise ValueError(f"cell {cell} outside 1..{MAX_CELL}")
+    maps, keys = _launch(levels, cell, fast_threshold, st_threshold)
+    shapes = tuple(tuple(m.shape) for m in maps)
+    return (maps, *_cells_from_keys(keys, shapes, cell, st_threshold))
+
+
 def fast_shi_tomasi_map(img: torch.Tensor, fast_threshold: float = 10.0,
                         st_threshold: float = 50.0) -> torch.Tensor:
-    """Masked Shi-Tomasi score map of one (H, W) float32 level.
+    """Masked Shi-Tomasi score map of one (H, W) float32 level, the
+    counterpart of the TPU function.
 
-    CUDA tensor: launches the hand-written kernel on the current stream (no
+    CUDA tensor: launches the same kernel with one level and no cells (no
     synchronisation) and counts the launch. CPU tensor: the plain version.
     """
     if img.is_cuda:
-        return _fast_shi_tomasi_cuda(img, fast_threshold, st_threshold)
+        return _launch([img], 0, fast_threshold, st_threshold)[0][0]
     return fast_shi_tomasi_map_plain(img, fast_threshold, st_threshold)

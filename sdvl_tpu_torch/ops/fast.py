@@ -1,13 +1,13 @@
 """FAST-9/16 corner detection + Shi-Tomasi scoring + grid selection.
 
-Counterpart of ``sdvl_tpu/ops/fast.py``. Two routes compute the per-pixel
-work: the plain one (:func:`fast_corner_mask` + :func:`shi_tomasi`, the
-reference's default route, borders included) and the fused one
-(``ops/cuda/detect.py``: one hand-written CUDA kernel per level on a CUDA
-tensor), which differs from the plain route only inside a 4-px border that
-grid selection never uses. Everything after the score map -- one corner slot
-per grid cell per level, the level-0 cell lock, the ``max_features`` budget --
-is shared.
+Counterpart of ``sdvl_tpu/ops/fast.py``. Two routes compute one corner slot
+per grid cell per level: the plain one (:func:`fast_corner_mask` +
+:func:`shi_tomasi` + ``_grid_best`` per level, the reference's default route,
+borders included) and the fused one (``ops/cuda/detect.py``: on CUDA tensors
+one hand-written kernel computes the score maps and the cell winners of all
+levels in one launch), which differs from the plain route only inside a 4-px
+border that grid selection never uses. What follows -- the level-0 cell
+lock, the ``max_features`` budget -- is shared.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda import detect as fused
+from .cuda.detect import grid_best as _grid_best
 
 
 class Corners(NamedTuple):
@@ -64,42 +65,14 @@ def shi_tomasi(img: torch.Tensor, half_box: int = 2) -> torch.Tensor:
     return 0.5 * (tr - det_term) * norm * 2.0
 
 
-def _grid_best(score_map: torch.Tensor, mask: torch.Tensor, cell: int):
-    """Best-scoring masked pixel per cell. Returns (gh*gw,) xy/score/valid.
-    The image is cropped to a whole number of cells. ``argmax`` takes the
-    first maximum, as the reference's does."""
-    H, W = score_map.shape
-    gh, gw = H // cell, W // cell
-    s = torch.where(mask, score_map,
-                    torch.full_like(score_map, float("-inf")))
-    s = s[: gh * cell, : gw * cell].reshape(gh, cell, gw, cell)
-    s = s.permute(0, 2, 1, 3).reshape(gh * gw, cell * cell)
-    idx = torch.argmax(s, dim=1)
-    best = torch.gather(s, 1, idx[:, None])[:, 0]
-    cy, cx = idx // cell, idx % cell
-    g = torch.arange(gh * gw, device=score_map.device)
-    gy, gx = g // gw, g % gw
-    x = (gx * cell + cx).float()
-    y = (gy * cell + cy).float()
-    valid = torch.isfinite(best)
-    return (torch.stack([x, y], dim=-1),
-            torch.where(valid, best, torch.zeros_like(best)), valid)
-
-
 def detect_level(img: torch.Tensor, level: int, cell: int = 32,
                  fast_threshold: float = 10.0, st_threshold: float = 50.0,
-                 locked_cells: Optional[torch.Tensor] = None,
-                 use_fused: bool = False) -> Corners:
-    """Detect corners on one pyramid level; one slot per grid cell.
-    Positions are reported in level-0 pixel coordinates. ``use_fused``
-    routes the dense pass through the fused score-map kernel."""
-    if use_fused:
-        smap = fused.fast_shi_tomasi_map(img, fast_threshold, st_threshold)
-        xy, best, valid = _grid_best(smap, torch.isfinite(smap), cell)
-    else:
-        corner = fast_corner_mask(img, fast_threshold)
-        score = shi_tomasi(img)
-        xy, best, valid = _grid_best(score, corner, cell)
+                 locked_cells: Optional[torch.Tensor] = None) -> Corners:
+    """Detect corners on one pyramid level with the plain route; one slot
+    per grid cell. Positions are reported in level-0 pixel coordinates."""
+    corner = fast_corner_mask(img, fast_threshold)
+    score = shi_tomasi(img)
+    xy, best, valid = _grid_best(score, corner, cell)
     valid = valid & (best > st_threshold)
     if locked_cells is not None:
         valid = valid & ~locked_cells
@@ -131,15 +104,21 @@ def detect_pyramid(pyr: Sequence[torch.Tensor], levels: int = 3,
     LEVEL-0 grid cells already holding tracked features, applied to each
     corner's level-0 position after per-cell selection. ``max_features``
     keeps the best-scoring corners only (a stable top-k: equal scores keep
-    index order, as the reference's ``top_k``).
+    index order, as the reference's ``top_k``). ``use_fused`` computes all
+    levels' cell winners with one call of the fused kernel.
     """
-    parts = [
-        detect_level(pyr[l], l, cell=cell, fast_threshold=fast_threshold,
-                     st_threshold=st_threshold, use_fused=use_fused)
-        for l in range(levels)
-    ]
-    out = Corners(*(torch.cat([getattr(p, f) for p in parts])
-                    for f in Corners._fields))
+    if use_fused:
+        _, xy, score, valid, level = fused.fast_shi_tomasi_cells(
+            pyr[:levels], cell, fast_threshold, st_threshold)
+        out = Corners(xy=xy, score=score, level=level, valid=valid)
+    else:
+        parts = [
+            detect_level(pyr[l], l, cell=cell, fast_threshold=fast_threshold,
+                         st_threshold=st_threshold)
+            for l in range(levels)
+        ]
+        out = Corners(*(torch.cat([getattr(p, f) for p in parts])
+                        for f in Corners._fields))
     if lock_xy is not None:
         H0, W0 = pyr[0].shape
         gw0, gh0 = W0 // cell, H0 // cell

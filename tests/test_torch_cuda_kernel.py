@@ -7,14 +7,17 @@ machine that has none:
     python -m pytest --noconftest tests/test_torch_cuda_kernel.py -q
 
 Tolerance: the kernel keeps the plain version's float operation order and is
-built without multiply-add contraction, so finite masks must be equal and
-scores agree to rounding (rtol 1e-4 / atol 1e-2 allows another summation
-order, should a later kernel choose one).
+built without multiply-add contraction, so finite masks must be equal, the
+cell winners (position, validity) equal, and scores agree to rounding (rtol
+1e-4 / atol 1e-2 allows another summation order, should a later kernel
+choose one).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from sdvl_tpu_torch.ops import pyramid
 from sdvl_tpu_torch.ops.cuda import detect
 from torch_port_helpers import T, blocky_image
 
@@ -29,6 +32,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _assert_maps_equal(got, want):
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    both = torch.isfinite(got)
+    torch.testing.assert_close(got[both], want[both], rtol=1e-4, atol=1e-2)
+    assert not bool(torch.isfinite(got[:4]).any())
+    assert not bool(torch.isfinite(got[:, -4:]).any())
+    return int(both.sum())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(120, 160), (64, 96), (123, 171),
                                    (480, 640)])
@@ -39,12 +52,73 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     torch.cuda.synchronize()
     assert detect.launch_count == before + 1
     want = detect.fast_shi_tomasi_map_plain(img, FAST_T, ST_T)
-    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
-    both = torch.isfinite(got)
-    assert int(both.sum()) > 100
-    torch.testing.assert_close(got[both], want[both], rtol=1e-4, atol=1e-2)
-    assert not bool(torch.isfinite(got[:4]).any())
-    assert not bool(torch.isfinite(got[:, -4:]).any())
+    assert _assert_maps_equal(got, want) > 100
+
+
+def _levels(case, dev):
+    """The stream's three levels (a 480x640 pyramid), a small level, a
+    ragged one (scalar staging: W % 4 != 0) and an aligned shape at a base
+    that is not 16-byte aligned (scalar staging too)."""
+    if case == "stream":
+        img = T(blocky_image(11, (480, 640))).to(dev)
+        return pyramid.build_pyramid(img, 3)
+    if case == "small":
+        return [T(blocky_image(12, (64, 96))).to(dev)]
+    if case == "ragged":
+        return [T(blocky_image(13, (123, 171))).to(dev)]
+    img = T(blocky_image(14, (120, 160))).to(dev)
+    buf = torch.empty(img.numel() + 1, device=dev)
+    view = buf[1:].view(120, 160)
+    view.copy_(img)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return [view]
+
+
+def _assert_cells_equal(got, want):
+    maps, xy, score, valid, level = got
+    pmaps, pxy, pscore, pvalid, plevel = want
+    n = sum(_assert_maps_equal(a, b) for a, b in zip(maps, pmaps))
+    assert n > 100
+    assert torch.equal(valid, pvalid) and torch.equal(level, plevel)
+    assert torch.equal(xy, pxy)
+    torch.testing.assert_close(score, pscore, rtol=1e-4, atol=1e-2)
+    assert int(valid.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [16, 32, 64])
+@pytest.mark.parametrize("case", ["stream", "small", "ragged", "misaligned"])
+def test_cells_match_plain_on_card(cuda_device, case, cell):
+    """All levels in one launch: maps, and cell winners exactly the plain
+    version's (per-level plain map plus ``grid_best``)."""
+    levels = _levels(case, cuda_device)
+    before = detect.launch_count
+    got = detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T)
+    torch.cuda.synchronize()
+    assert detect.launch_count == before + 1
+    want = detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T, ST_T)
+    _assert_cells_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [16, 32])
+def test_cells_tie_image_on_card(cuda_device, cell):
+    """A texture that repeats every 8 px puts equal maxima in every cell,
+    across the blocks of a cell too: the first in-cell index must win."""
+    rng = np.random.default_rng(15)
+    patch = rng.uniform(0, 50, (8, 8)).astype(np.float32)
+    patch[2:5, 2:5] += 150.0                 # a bright square: corners
+    img = T(patch).repeat(30, 40).to(cuda_device)          # 240x320
+    got = detect.fast_shi_tomasi_cells([img], cell, FAST_T, ST_T)
+    want = detect.fast_shi_tomasi_cells_plain([img], cell, FAST_T, ST_T)
+    _assert_cells_equal(got, want)
+    # ties really occur: a cell's best score appears more than once in it
+    smap = want[0][0]
+    H, W = smap.shape
+    s = smap[: H // cell * cell, : W // cell * cell].reshape(
+        H // cell, cell, W // cell, cell).permute(0, 2, 1, 3).flatten(2)
+    best = s.max(dim=2, keepdim=True).values
+    assert bool(((s == best) & torch.isfinite(best)).sum(2).gt(1).any())
 
 
 @pytest.mark.cuda
@@ -55,3 +129,11 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
                 torch.zeros((8, 96), device=cuda_device)):
         with pytest.raises(ValueError):
             detect.fast_shi_tomasi_map(bad)
+        with pytest.raises(ValueError):
+            detect.fast_shi_tomasi_cells(
+                [torch.zeros((64, 96), device=cuda_device), bad], 32)
+    ok = torch.zeros((64, 96), device=cuda_device)
+    for levels, cell in (([ok] * 5, 32), ([ok], 0), ([ok], -1),
+                         ([ok, ok.cpu()], 32)):
+        with pytest.raises(ValueError):
+            detect.fast_shi_tomasi_cells(levels, cell)

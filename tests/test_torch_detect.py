@@ -4,10 +4,13 @@ The plain torch version of the fused FAST + Shi-Tomasi score map is held
 against the TPU kernel it replaces,
 ``sdvl_tpu.ops.pallas.detect.fast_shi_tomasi_map(..., interpret=True)``, as
 ``tests/test_pallas_detect.py`` runs it on the CPU -- on the row-tiled call
-(120x160) and the single-block call (64x96). The CUDA kernel itself cannot
-run here (no GPU, no nvcc); ``chip_smoke.py`` and
-``tests/test_torch_cuda_kernel.py`` hold it against the same plain version on
-the card.
+(120x160) and the single-block call (64x96) -- and its per-cell result
+against the reference's ``_grid_best`` on the Pallas maps of three levels.
+The kernel's cell keys are checked through their torch encoding: the
+unsigned maximum of the keys of a cell, decoded as the CUDA path decodes it,
+must be ``_grid_best``'s winner. The CUDA kernel itself cannot run here (no
+GPU, no nvcc); ``chip_smoke.py`` and ``tests/test_torch_cuda_kernel.py`` hold
+it against the same plain version on the card.
 
 Tolerances: the plain version keeps the Pallas kernel's float operation order,
 so scores agree to rounding; rtol 1e-4 / atol 1e-2 is what the reference's own
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from sdvl_tpu.ops import fast as jfast
+from sdvl_tpu.ops import pyramid as jpyr
 from sdvl_tpu.ops.pallas.detect import fast_shi_tomasi_map as pallas_map
 from sdvl_tpu_torch.ops import fast as tfast
 from sdvl_tpu_torch.ops.cuda import detect
@@ -99,20 +103,27 @@ def test_plain_matches_plain_route_interior():
 
 
 def test_wrapper_takes_plain_version_on_cpu_only():
-    """On a CPU tensor the wrapper runs the plain version and counts no
+    """On CPU tensors the wrappers run the plain versions and count no
     launch; the CUDA branch has no fallback (it builds and launches or
     raises), which this machine can only check by reading the dispatch."""
     img = T(blocky_image(6, (64, 96)))
     before = detect.launch_count
     out = detect.fast_shi_tomasi_map(img, FAST_T, ST_T)
+    cells = detect.fast_shi_tomasi_cells([img, img[::2, ::2].contiguous()],
+                                         16, FAST_T, ST_T)
     assert detect.launch_count == before
     torch.testing.assert_close(
         out, detect.fast_shi_tomasi_map_plain(img, FAST_T, ST_T),
         rtol=0, atol=0)
+    want = detect.fast_shi_tomasi_cells_plain(
+        [img, img[::2, ::2].contiguous()], 16, FAST_T, ST_T)
+    for a, b in zip(cells[1:], want[1:]):
+        assert torch.equal(a, b)
     import inspect
 
-    src = inspect.getsource(detect.fast_shi_tomasi_map) + inspect.getsource(
-        detect._fast_shi_tomasi_cuda)
+    src = "".join(inspect.getsource(f) for f in (
+        detect.fast_shi_tomasi_map, detect.fast_shi_tomasi_cells,
+        detect._launch, detect._cells_from_keys))
     assert "try" not in src and "except" not in src
 
 
@@ -121,6 +132,149 @@ def test_kernel_source_is_in_the_package():
 
     assert os.path.isfile(detect.SOURCE)
     text = open(detect.SOURCE).read()
-    assert 'extern "C" int sdvl_fast_shi_tomasi' in text
+    assert 'extern "C" int sdvl_detect_levels' in text
+    assert text.count("__global__") == 1 and "cp.async.cg.shared.global" in text
     assert "__global__" in text and "__shared__" in text
     assert "compute_90a" in " ".join(detect.NVCC_FLAGS)
+
+
+# ---------------------------------------------------------------- cells
+def _jax_cells(levels, cell):
+    """The reference's fused route per level: Pallas map (interpret mode),
+    ``_grid_best``, the score threshold, level-0 scale."""
+    xy, score, valid = [], [], []
+    for l, lev in enumerate(levels):
+        smap = pallas_map(jnp.asarray(lev), FAST_T, ST_T, interpret=True)
+        p, best, ok = jfast._grid_best(smap, jnp.isfinite(smap), cell)
+        xy.append(np.asarray(p) * float(1 << l))
+        score.append(np.asarray(best))
+        valid.append(np.asarray(ok & (best > ST_T)))
+    return np.concatenate(xy), np.concatenate(score), np.concatenate(valid)
+
+
+@pytest.fixture(scope="module")
+def three_levels():
+    """The first three levels of the reference's pyramid of a 120x160
+    image, as numpy arrays fed to both sides."""
+    img = blocky_image(8, (120, 160))
+    return [np.asarray(p) for p in jpyr.build_pyramid(jnp.asarray(img), 3)]
+
+
+@pytest.mark.parametrize("cell", [16, 32])
+def test_plain_cells_match_pallas_grid_best(three_levels, cell):
+    """Plain cell result of all levels against ``_grid_best`` on the Pallas
+    maps. At cell 32 the 30x40 level has no cell row, so no slot."""
+    xy_j, score_j, valid_j = _jax_cells(three_levels, cell)
+    maps, xy, score, valid, level = detect.fast_shi_tomasi_cells(
+        [T(l) for l in three_levels], cell, FAST_T, ST_T)
+    counts = [(h // cell) * (w // cell) for h, w in
+              (l.shape for l in three_levels)]
+    assert xy.shape == (sum(counts), 2) and score.shape == valid.shape
+    if cell == 32:
+        assert counts[2] == 0
+    np.testing.assert_array_equal(
+        N(level), np.repeat(np.arange(3), counts).astype(np.int32))
+    assert [tuple(m.shape) for m in maps] == [l.shape for l in three_levels]
+    v = N(valid)
+    np.testing.assert_array_equal(v, valid_j)
+    assert v.sum() >= 4
+    np.testing.assert_array_equal(N(xy)[v], xy_j[v])
+    np.testing.assert_allclose(N(score), score_j, rtol=1e-4, atol=1e-2)
+
+
+def _tie_map():
+    """24x44 map, cell 8 (a 3 x 5 grid; columns 40-43 are the remnant):
+    cell 0 has the score 70 at in-cell indices 11 and 42 (and 60 at 0 and
+    63), cell 1 is all -inf, cell 2 holds -0.0 (index 17) and +0.0 (index
+    24) only, cells 3, 4 and 10 one finite pixel each; the remnant holds a
+    higher score that must not count."""
+    m = np.full((24, 44), -np.inf, np.float32)
+    m[1, 3] = m[5, 2] = 70.0
+    m[0, 0] = m[7, 7] = 60.0
+    m[2, 17] = -0.0
+    m[3, 16] = 0.0
+    m[4, 25] = 55.0
+    m[1, 36] = 80.0
+    m[0, 41] = 99.0
+    m[23, 0] = 65.0
+    return m
+
+
+def _emulated_kernel_keys(smap: np.ndarray, cell: int) -> torch.Tensor:
+    """The kernel's key buffer in numpy: the unsigned max of the pixels'
+    keys per cell of the cropped grid."""
+    H, W = smap.shape
+    gh, gw = H // cell, W // cell
+    yy, xx = np.mgrid[: gh * cell, : gw * cell]
+    idx = (yy % cell) * cell + xx % cell
+    keys = N(detect.encode_keys(T(smap[: gh * cell, : gw * cell]),
+                                T(idx))).view(np.uint64)
+    out = np.zeros(gh * gw, np.uint64)
+    np.maximum.at(out, ((yy // cell) * gw + xx // cell).ravel(), keys.ravel())
+    return torch.from_numpy(out.view(np.int64))
+
+
+def test_cell_ties_and_empty_cells():
+    """Equal maxima: the first in-cell index wins; an all -inf cell gives
+    index 0 and is invalid; -0.0 ties +0.0 (first index). Both the plain
+    rule and the kernel's key maximum, decoded as the CUDA path decodes it,
+    give the same slots."""
+    smap = _tie_map()
+    cell = 8
+    xy, best, valid = detect.grid_best(T(smap), torch.isfinite(T(smap)), cell)
+    assert N(xy)[0].tolist() == [3.0, 1.0]       # index 11, not 42
+    assert N(xy)[1].tolist() == [8.0, 0.0] and not bool(valid[1])
+    assert N(xy)[2].tolist() == [17.0, 2.0]      # -0.0 at index 17 first
+    assert N(xy)[4].tolist() == [36.0, 1.0]      # 80, not the remnant's 99
+    assert N(valid).sum() == 5
+    keys = _emulated_kernel_keys(smap, cell)
+    kxy, kscore, kvalid, klevel = detect._cells_from_keys(
+        keys, ((24, 44),), cell, -1.0)
+    np.testing.assert_array_equal(N(kxy), N(xy))
+    np.testing.assert_array_equal(N(kvalid), N(valid))
+    np.testing.assert_array_equal(N(kscore), N(best))
+    assert (N(klevel) == 0).all()
+
+
+def test_key_encoding_round_trip_and_order():
+    rng = np.random.default_rng(9)
+    s = np.concatenate([rng.normal(0, 1e3, 200), [0.0, -0.0, np.inf,
+                        -np.inf, 1e-40, -1e-40, 3.4e38, -3.4e38]]
+                       ).astype(np.float32)
+    idx = rng.integers(0, 1 << 30, s.size)
+    keys = detect.encode_keys(T(s), T(idx))
+    got_s, got_i = detect.decode_keys(keys)
+    np.testing.assert_array_equal(N(got_i), idx)
+    want = np.where(s == 0, np.float32(0.0), s)     # -0.0 decodes as +0.0
+    np.testing.assert_array_equal(N(got_s).view(np.uint32),
+                                  want.view(np.uint32))
+    # unsigned key order = (score, then smaller index) order
+    u = N(keys).view(np.uint64)
+    order = np.argsort(u, kind="stable")
+    ss, ii = s[order].astype(np.float64), idx[order]
+    assert (np.diff(ss) >= 0).all()
+    same = np.diff(ss) == 0
+    assert (np.diff(ii)[same] <= 0).all()
+    # -0.0 and +0.0 tie: the key of the smaller index is larger
+    k = N(detect.encode_keys(T(np.float32([-0.0, 0.0])), T([5, 6]))
+          ).view(np.uint64)
+    assert k[0] > k[1]
+    # every real key is above the zeroed buffer
+    assert (u > 0).all()
+
+
+def test_kernel_keys_decode_to_plain_cells(three_levels):
+    """The CUDA path's decode on emulated kernel keys of the plain maps
+    equals the plain cell result of all levels, bit for bit."""
+    cell = 16
+    levels = [T(l) for l in three_levels]
+    maps, xy, score, valid, level = detect.fast_shi_tomasi_cells_plain(
+        levels, cell, FAST_T, ST_T)
+    keys = torch.cat([_emulated_kernel_keys(N(m), cell) for m in maps])
+    shapes = tuple(tuple(m.shape) for m in maps)
+    kxy, kscore, kvalid, klevel = detect._cells_from_keys(
+        keys, shapes, cell, ST_T)
+    assert int(valid.sum()) >= 4
+    for a, b in ((kxy, xy), (kscore, score), (kvalid, valid),
+                 (klevel, level)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -7,6 +7,8 @@ Hamming distances); interpolated and filtered values to a few float32 ulps
 of 255 (XLA contracts multiply-adds, torch does not).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,15 +168,32 @@ def test_plain_detection_route(shape):
     np.testing.assert_allclose(st, sj, rtol=1e-4, atol=1e-2)
 
 
-@pytest.mark.parametrize("use_lock,max_features", [(False, None), (True, None),
-                                                   (True, 20), (False, 12)])
-def test_detect_pyramid(use_lock, max_features):
+_PYRAMID_CASES = [(False, None), (True, None), (True, 20), (False, 12)]
+
+
+@pytest.mark.parametrize(
+    "use_lock,max_features,fused",
+    [c + (False,) for c in _PYRAMID_CASES]
+    + [c + (True,) for c in _PYRAMID_CASES],
+    ids=[f"{a}-{b}" for a, b in _PYRAMID_CASES]
+    + [f"fused-{a}-{b}" for a, b in _PYRAMID_CASES])
+def test_detect_pyramid(use_lock, max_features, fused, monkeypatch):
+    """Plain route against ``use_pallas=False``; fused route (one call of
+    the fused kernel's wrapper for all levels, its plain version here)
+    against ``use_pallas=True`` with the Pallas kernel in interpret mode."""
     img = blocky_image(2, (120, 160))
     pj = jpyr.build_pyramid(jnp.asarray(img), 4)
     pt = tpyr.build_pyramid(T(img), 4)
     rng = np.random.default_rng(4)
     kw = dict(levels=3, cell=32, fast_threshold=10.0, st_threshold=50.0,
               max_features=max_features)
+    if fused:
+        from sdvl_tpu.ops.pallas import detect as pallas_detect
+
+        monkeypatch.setattr(
+            pallas_detect, "fast_shi_tomasi_map",
+            functools.partial(pallas_detect.fast_shi_tomasi_map,
+                              interpret=True))
     lock = {}
     lock_t = {}
     if use_lock:
@@ -185,8 +204,8 @@ def test_detect_pyramid(use_lock, max_features):
         ok = rng.uniform(size=12) < 0.8
         lock = dict(lock_xy=jnp.asarray(xy), lock_valid=jnp.asarray(ok))
         lock_t = dict(lock_xy=T(xy), lock_valid=T(ok))
-    cj = jfast.detect_pyramid(pj, **kw, **lock)
-    ct = tfast.detect_pyramid(pt, **kw, **lock_t)
+    cj = jfast.detect_pyramid(pj, **kw, **lock, use_pallas=fused)
+    ct = tfast.detect_pyramid(pt, **kw, **lock_t, use_fused=fused)
     vj = np.asarray(cj.valid)
     np.testing.assert_array_equal(N(ct.valid), vj)
     assert vj.sum() >= 5
