@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch/CUDA port: localization-only serving on one card.
+"""GPU smoke run of the PyTorch/CUDA port: full SLAM mode and serving, on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU, ``nvcc`` and
 PyTorch built for CUDA:
@@ -23,28 +23,52 @@ run with a non-zero exit code:
    CUDA graph), one eager call of the launch and of the wrapper with its
    cell decode, the plain version, and one eager ``detect_pyramid`` call on
    the first query frame, plain route against fused.
-4. slice   -- ``SdvlStream.localizer`` at the tum_f1 preset shape (640x480,
+4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
+   (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
+   keyframe / 4096 point / 512 candidate slots, fused detection) from an
+   empty map over the 40 ``PlaneScene`` frames, rendered here with
+   ``sdvl_tpu_torch.io.synthetic`` and checked against the SHA-256 stored
+   in ``tests/data/torch_slam_record.npz``, fed the JAX run's random draws
+   from that file. Three runs: cold, warm (timed per frame, kernel launches
+   counted) and one counting synchronisations. Each is held against the
+   recorded JAX run: bootstrap frame, states and keyframe flags equal,
+   ``n_matches`` within 2 on at most 15 % of RUNNING frames, camera
+   centres within 1 % of the trajectory extent, Sim(3)-aligned ATE under
+   3 % of the extent, keyframe count within 1. The preset run makes no
+   keyframe after the bootstrap in 40 frames, so the warm and counting
+   runs go on over 45 more frames of the same trajectory (pose noise from
+   a seeded NumPy generator), which insert keyframes: RUNNING throughout,
+   ATE under 3 %. Then the port's own map is saved with
+   ``save_stream_snapshot`` and served by ``SdvlStream.localizer`` on
+   ``frames[8:32]``: RUNNING within 5 frames and on the last 5, ATE under
+   5 %.
+5. slice   -- ``SdvlStream.localizer`` at the tum_f1 preset shape (640x480,
    5 levels, ORB gate, 200 match lanes, 100 keyframe / 4096 point slots) on
    the committed map snapshot, the 24 committed query frames through
    ``feed_chunk`` with the recorded RANSAC noise, ``result()``; checks
    relocalization, tracking, accuracy against ground truth, that the map is
    untouched and that every frame launched the kernel exactly once.
-5. prints one JSON line ``{"kernels": [...]}`` and, last,
-   ``{"ok": true, "device": {...}}``.
+6. prints one JSON line ``{"kernels": [...]}`` and, last,
+   ``{"ok": true, "device": {...}}``. The kernel's ``launches``, ``frames``
+   and ``frames_per_s`` are the slam phase's warm run; ``launches_by_path``
+   and ``frames_by_path`` give each path's count beside its frames.
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
-``sdvl_tpu``. The map and query fixtures under ``tests/data/`` are made by
+``sdvl_tpu``. The fixtures under ``tests/data/`` are made by
 ``tests/make_torch_fixtures.py``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -52,6 +76,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAP_NPZ = os.path.join(ROOT, "tests", "data", "torch_localize_map.npz")
 QUERY_NPZ = os.path.join(ROOT, "tests", "data", "torch_localize_query.npz")
+SLAM_NPZ = os.path.join(ROOT, "tests", "data", "torch_slam_record.npz")
 
 FAST_T, ST_T = 10.0, 50.0
 
@@ -78,8 +103,8 @@ def gpu_line() -> str:
     return out[0].strip()
 
 
-def preset_config():
-    """The tum_f1 preset shape, localization-only, fused detection on."""
+def preset_config(localize_only: bool = True):
+    """The tum_f1 preset shape, fused detection on."""
     from sdvl_tpu_torch.pipeline.config import (CameraConfig, Config,
                                                 SdvlConfig)
 
@@ -88,7 +113,7 @@ def preset_config():
         max_points=4096, max_candidates=512, fast_threshold=10.0,
         cell_size=32, pyramid_levels=5, max_fast_levels=3,
         min_avg_shift=10.0, min_keyframe_its=15, min_init_corners=40,
-        map_scale=4.0, localize_only=True, use_fused_detect=True,
+        map_scale=4.0, localize_only=localize_only, use_fused_detect=True,
     )
     return Config(
         camera=CameraConfig(width=640, height=480, fx=517.3, fy=516.5,
@@ -308,6 +333,303 @@ def map_leaves(m):
     return out
 
 
+SLAM_EXTRA_FRAMES = 45
+
+
+def render_preset_frames(rec):
+    """The recorded run's 40 preset frames, rendered by the port's copy of
+    the synthetic scene from the recorded ground-truth poses, then the
+    ``SLAM_EXTRA_FRAMES`` that follow on the same trajectory, as uint8.
+    Fails unless the first 40 frames' SHA-256 equals the recorded one (the
+    JAX run's frames). Returns (frames, ground-truth poses)."""
+    from sdvl_tpu_torch.io.synthetic import PlaneScene
+
+    scene = PlaneScene(fx=517.3, fy=516.5, cx=318.6, cy=255.3,
+                       width=640, height=480, plane_z=4.0)
+    rec_poses = rec["poses_gt"]
+    n = len(rec_poses)
+    traj = np.stack(scene.trajectory(n + SLAM_EXTRA_FRAMES,
+                                     translation_amp=1.0))
+    d_traj = float(np.abs(traj[:n] - rec_poses).max())
+    assert d_traj <= 1e-6, f"trajectory differs from the record by {d_traj}"
+    poses = np.concatenate([rec_poses, traj[n:]])
+    frames = [np.clip(scene.render(p), 0, 255).astype(np.uint8)
+              for p in poses]
+    h = hashlib.sha256()
+    for f in frames[:n]:
+        h.update(np.ascontiguousarray(f).tobytes())
+    want = bytes(rec["frames_sha256"]).decode()
+    assert h.hexdigest() == want, (
+        f"rendered frames differ from the recorded run's: SHA-256 "
+        f"{h.hexdigest()} != {want}")
+    return frames, poses
+
+
+def slam_draws(rec, n_hyp: int = 64, n_lanes: int = 200):
+    """The recorded JAX run's random draws as a ``Draws`` provider. A
+    recorded frame the JAX run did not track has no pose noise: asking for
+    it means the port's states diverged. Frames past the record draw
+    standard Gumbel noise from a NumPy generator seeded by the frame
+    index."""
+    from sdvl_tpu_torch.pipeline.stream import Draws
+
+    n_rec = len(rec["jax_state"])
+    recorded = {int(i): g for i, g in zip(rec["pose_frames"],
+                                          rec["pose_gumbel"])}
+
+    def pose(i):
+        if i < n_rec:
+            return recorded.get(i)
+        rng = np.random.default_rng(i)
+        return rng.gumbel(size=(n_hyp, n_lanes)).astype(np.float32)
+
+    return Draws(pose=pose, homography=rec["homography_gumbel"],
+                 plane=rec["plane_gumbel"])
+
+
+def prefix(r, n: int):
+    """The first ``n`` frames of a ``SlamResult`` (the trajectory is in the
+    final world frame, which the bootstrap set once)."""
+    import copy
+
+    out = copy.copy(r)
+    for name in ("poses_raw", "states", "quality", "n_matches", "n_attempts",
+                 "is_keyframe", "n_corners", "median_shift", "trajectory"):
+        setattr(out, name, getattr(r, name)[:n])
+    return out
+
+
+def first_divergence(r, rec) -> str:
+    """The first frame where the run's state, keyframe flag or match count
+    (beyond 2) departs from the recorded JAX run."""
+    n = min(r.n_frames, len(rec["jax_state"]))
+    for i in range(n):
+        diffs = []
+        if r.states[i] != rec["jax_state"][i]:
+            diffs.append(f"state {r.states[i]} vs {rec['jax_state'][i]}")
+        if r.is_keyframe[i] != rec["jax_is_keyframe"][i]:
+            diffs.append(f"keyframe {r.is_keyframe[i]} vs "
+                         f"{rec['jax_is_keyframe'][i]}")
+        if abs(int(r.n_matches[i]) - int(rec["jax_n_matches"][i])) > 2:
+            diffs.append(f"n_matches {r.n_matches[i]} vs "
+                         f"{rec['jax_n_matches'][i]}")
+        if diffs:
+            return f"frame {i}: " + ", ".join(diffs)
+    return "none"
+
+
+def check_slam_run(r, rec) -> dict:
+    """Hold one SLAM run against the recorded JAX run (the criteria of
+    ``tests/test_stream_fsm.py``); raises on disagreement."""
+    from sdvl_tpu_torch.io import evaluate
+
+    n = len(rec["jax_state"])
+    r = prefix(r, n)
+    div = first_divergence(r, rec)
+    assert r.n_frames == n and r.poses_raw.shape == (n, 7), r.n_frames
+    assert np.isfinite(r.trajectory).all(), "non-finite pose"
+    boot_j = int(np.argmax(rec["jax_is_keyframe"]))
+    boot_t = int(np.argmax(r.is_keyframe))
+    assert boot_t == boot_j, f"bootstrap at {boot_t}, JAX {boot_j}; {div}"
+    assert (r.states == rec["jax_state"]).all(), f"states differ; {div}"
+    assert (r.is_keyframe == rec["jax_is_keyframe"]).all(), (
+        f"keyframe flags differ; {div}")
+    running = rec["jax_state"] == 2
+    dm = np.abs(r.n_matches - rec["jax_n_matches"])[running]
+    assert dm.max() <= 2 and (dm > 0).mean() <= 0.15, (
+        f"n_matches differ: {dm.tolist()}; {div}")
+    c_gt = evaluate.positions_from_poses(rec["poses_gt"])
+    c_j = evaluate.positions_from_poses(rec["jax_trajectory"])
+    c_t = evaluate.positions_from_poses(r.trajectory)
+    start = int(np.argmax(running))
+    extent = float(np.linalg.norm(np.ptp(c_gt[start:], axis=0)))
+    d_cent = float(np.linalg.norm(c_t - c_j, axis=1)[start:].max())
+    assert d_cent <= 0.01 * extent, (
+        f"camera centres {d_cent} from JAX's, extent {extent}")
+    ate = evaluate.ate_rmse(c_t[start:], c_gt[start:], with_scale=True)
+    assert ate < 0.03 * extent, f"ATE {ate} vs extent {extent}"
+    n_kf = int(r.is_keyframe.sum()) + 1   # the bootstrap inserts two
+    assert abs(n_kf - int(rec["jax_n_keyframes"])) <= 1, (
+        n_kf, int(rec["jax_n_keyframes"]))
+    return dict(bootstrap_frame=boot_t, n_keyframes=n_kf,
+                max_centre_dist=d_cent, extent=extent, ate=ate,
+                ate_pct=100 * ate / extent,
+                frames_with_match_diff=int((dm > 0).sum()),
+                max_match_diff=int(dm.max()))
+
+
+def check_extension(r, stream, poses, n_rec: int) -> dict:
+    """The frames past the record: RUNNING throughout, keyframes inserted,
+    ATE under 3 % of the extent over every tracked frame."""
+    from sdvl_tpu_torch.io import evaluate
+
+    assert (r.states[n_rec:] == 2).all(), r.states[n_rec:].tolist()
+    kf_ext = int(r.is_keyframe[n_rec:].sum())
+    assert kf_ext >= 1, "no keyframe inserted past the record"
+    start = int(np.argmax(r.states == 2))
+    c_gt = evaluate.positions_from_poses(poses[start:])
+    c_t = evaluate.positions_from_poses(r.trajectory[start:])
+    extent = float(np.linalg.norm(np.ptp(c_gt, axis=0)))
+    ate = evaluate.ate_rmse(c_t, c_gt, with_scale=True)
+    assert ate < 0.03 * extent, f"ATE {ate} vs extent {extent}"
+    return dict(frames=r.n_frames, keyframes_past_record=kf_ext,
+                n_keyframes=int(stream.m.n_keyframes),
+                n_points=int(stream.m.pt_valid.sum()),
+                ate_pct=100 * ate / extent, extent=extent)
+
+
+def run_slam(cfg, frames, rec, time_frames: bool, count_syncs: bool = False):
+    """One full-SLAM stream over the frames, frame by frame. Returns
+    (result, stream, per-frame seconds, per-frame synchronisation counts,
+    kernel launches)."""
+    from sdvl_tpu_torch.ops.cuda import detect
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+
+    st = SdvlStream(cfg, seed=0, device="cuda", gumbel_provider=slam_draws(rec))
+    torch.cuda.synchronize()
+    seconds, syncs = [], []
+    detect.launch_count = 0
+    try:
+        for f in frames:
+            t0 = time.perf_counter()
+            if count_syncs:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        st.feed(f)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                # the Python line that synchronised, per sync
+                syncs.append([
+                    f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message)])
+            else:
+                st.feed(f)
+            if time_frames:
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    except Exception:
+        if st._infos:
+            say("slam", "stopped; first divergence from the JAX record: "
+                + first_divergence(st.result(), rec))
+        raise
+    launches = detect.launch_count
+    return st.result(), st, seconds, syncs, launches
+
+
+def state_groups(r) -> dict:
+    """Frame masks by what the frame ran: FIRST, SECOND (waiting or
+    bootstrapping), RUNNING without and with a keyframe."""
+    before = np.concatenate([[0], r.states[:-1]])
+    return {
+        "first": before == 0,
+        "second": before == 1,
+        "running": (before >= 2) & ~r.is_keyframe,
+        "keyframe": (before >= 2) & r.is_keyframe,
+    }
+
+
+def per_state(r, values) -> dict:
+    """Mean of per-frame ``values`` by :func:`state_groups`."""
+    v = np.asarray(values, np.float64)
+    return {k: {"frames": int(m.sum()),
+                "mean": float(v[m].mean()) if m.any() else None}
+            for k, m in state_groups(r).items()}
+
+
+def run_slam_phase(card: str) -> dict:
+    """Phase 4 (see the module docstring)."""
+    from sdvl_tpu_torch.io import evaluate
+    from sdvl_tpu_torch.io.snapshot import save_stream_snapshot
+    from sdvl_tpu_torch.ops.cuda import detect
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+
+    rec = dict(np.load(SLAM_NPZ))
+    n_rec = len(rec["jax_state"])
+    t0 = time.perf_counter()
+    frames, poses = render_preset_frames(rec)
+    say("slam", f"rendered {len(frames)} frames at {frames[0].shape} in "
+                f"{time.perf_counter() - t0:.1f} s, SHA-256 of the first "
+                f"{n_rec} equal to the recorded run's")
+    cfg = preset_config(localize_only=False)
+    n = len(frames)
+
+    r0, _, s0, _, _ = run_slam(cfg, frames[:n_rec], rec, time_frames=True)
+    c0 = check_slam_run(r0, rec)
+    say("slam", f"cold run: first frame {1e3 * s0[0]:.1f} ms, {n_rec} frames "
+                f"in {sum(s0):.2f} s; {c0}")
+    r, st, secs, _, launches = run_slam(cfg, frames, rec, time_frames=True)
+    chk = check_slam_run(r, rec)
+    ext = check_extension(r, st, poses, n_rec)
+    assert launches == n, f"kernel launches {launches} != one per frame ({n})"
+    ms = per_state(r, [1e3 * x for x in secs])
+    say("slam", f"states {r.states.tolist()}")
+    say("slam", f"keyframes {r.is_keyframe.astype(int).tolist()}")
+    say("slam", f"n_matches {r.n_matches.tolist()}")
+    say("slam", f"JAX n_matches {rec['jax_n_matches'].tolist()}")
+    say("slam", f"warm run, first {n_rec} frames against the record: {chk}")
+    say("slam", f"warm run, all {n} frames: {ext}; kernel launches "
+                f"{launches} = 1 x {n}")
+    say("slam", f"ms per frame by state (warm, synchronised per frame): "
+                + ", ".join(f"{k} {v['mean']:.1f} ({v['frames']} frames)"
+                            for k, v in ms.items() if v["frames"])
+                + f"; first frame of the cold run {1e3 * s0[0]:.1f} ms; "
+                  f"{n / sum(secs):.3f} frames/s on {card}")
+    r2, st2, _, sites, _ = run_slam(cfg, frames, rec, time_frames=False,
+                                    count_syncs=True)
+    check_slam_run(r2, rec)
+    check_extension(r2, st2, poses, n_rec)
+    syncs = [len(x) for x in sites]
+    sy = per_state(r2, syncs)
+    say("slam", "synchronisations per frame (set_sync_debug_mode): "
+                + ", ".join(f"{k} {v['mean']:.2f}" for k, v in sy.items()
+                            if v["frames"])
+                + f"; {syncs}")
+    by_site = {}
+    for i in (0, 1, 2, 10):      # FIRST, SECOND, bootstrap, RUNNING frames
+        by_site[i] = {x: sites[i].count(x) for x in sorted(set(sites[i]))}
+    kf = [i for i in np.nonzero(r2.is_keyframe)[0] if i > n_rec]
+    if kf:
+        i = int(kf[0])
+        by_site[i] = {x: sites[i].count(x) for x in sorted(set(sites[i]))}
+    say("slam", f"where they are, by frame: {by_site}")
+
+    # the port's own map, served
+    cfg_loc = preset_config(localize_only=True)
+    query = frames[8:32]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slam_map.npz")
+        save_stream_snapshot(st, path)
+        loc = SdvlStream.localizer(cfg_loc, path, seed=1, device="cuda")
+        torch.cuda.synchronize()
+        detect.launch_count = 0
+        t0 = time.perf_counter()
+        loc.feed_chunk(np.stack(query), block=True)
+        loc_s = time.perf_counter() - t0
+        loc_launches = detect.launch_count
+    rl = loc.result()
+    running = rl.states == 2
+    assert np.isfinite(rl.poses_raw).all()
+    assert int(np.argmax(running)) <= 5, "no relocalization within 5 frames"
+    assert running[-5:].all(), "not RUNNING on the last 5 frames"
+    p_gt = evaluate.positions_from_poses(poses[8:32])[running]
+    p_est = evaluate.positions_from_poses(rl.trajectory)[running]
+    extent = float(np.linalg.norm(np.ptp(p_gt, axis=0)))
+    ate = evaluate.ate_rmse(p_est, p_gt, with_scale=True)
+    assert ate < 0.05 * extent, f"served ATE {ate} vs extent {extent}"
+    assert loc_launches == len(query), loc_launches
+    say("slam", f"served the port's own map: states {rl.states.tolist()}, "
+                f"ATE {ate:.5f} over {extent:.4f} ({100 * ate / extent:.2f} "
+                f"%), {len(query)} frames in {loc_s:.3f} s, kernel launches "
+                f"{loc_launches}")
+    return dict(launches=launches, loc_launches=loc_launches,
+                loc_frames=len(query), check=chk,
+                extension=ext, ms_by_state=ms, syncs_by_state=sy,
+                sync_sites=by_site, first_frame_ms=1e3 * s0[0], frames=n,
+                frames_per_s=n / sum(secs), served_ate_pct=100 * ate / extent)
+
+
 def run_slice(cfg, query, count_launches: bool):
     """One localizer run over the query frames. Returns (result,
     seconds, launches, stream)."""
@@ -383,7 +705,10 @@ def main() -> int:
                 raise AssertionError("wrapper accepted a tensor it cannot take")
     dp = time_detect_pyramid(cfg, pyr)
 
-    # ----------------------------------------------------------- 4 slice
+    # ------------------------------------------------------------ 4 slam
+    slam = run_slam_phase(card)
+
+    # ----------------------------------------------------------- 5 slice
     n = len(query["frames"])
     _, cold_s, _, _ = run_slice(cfg, query, count_launches=False)
     say("slice", f"first run (cold: cuBLAS/cuSOLVER set-up, allocator): "
@@ -424,14 +749,26 @@ def main() -> int:
     say("slice", f"{n} frames in {seconds:.4f} s = {n / seconds:.2f} frames/s "
                  f"(one stream, eager, one host read per frame) on {card}")
 
-    # --------------------------------------------------------- 5 kernels
+    # --------------------------------------------------------- 6 kernels
     p3 = checks["pyramid"]
     kernels = {"kernels": [{
         "name": "fast_shi_tomasi_cells",
         "route": "cuda",
         "source": "sdvl_tpu_torch/csrc/detect.cu",
         "replaces": "sdvl_tpu/ops/pallas/detect.py:211",
-        "launches": launches,
+        # launches, frames and frames_per_s all come from the SLAM phase's
+        # warm run; the other paths' counts are beside it, each with its
+        # own frame count
+        "launches": slam["launches"],
+        "frames": slam["frames"],
+        "frames_per_s": slam["frames_per_s"],
+        "launches_by_path": {"slam": slam["launches"],
+                             "slam_map_served": slam["loc_launches"],
+                             "localizer": launches},
+        "frames_by_path": {"slam": slam["frames"],
+                           "slam_map_served": slam["loc_frames"],
+                           "localizer": n},
+        "localizer_frames_per_s": n / seconds,
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         "ms": p3["ms"],
         "plain_ms": p3["plain_ms"],
@@ -444,8 +781,7 @@ def main() -> int:
         "shape": p3["shape"],
         "by_shape": checks,
         "detect_pyramid_ms": dp,
-        "frames": n,
-        "frames_per_s": n / seconds,
+        "slam": slam,
         "card": card,
     }]}
     print(card, flush=True)

@@ -65,6 +65,14 @@ def project_unit_plane(pts_cam: torch.Tensor) -> torch.Tensor:
     return pts_cam[..., :2] / safe_z[..., None]
 
 
+def pixel_error_angle(intr: Intrinsics) -> float:
+    """Angle subtended by one pixel, ``2 atan(1 / (2 fx))``; feeds the
+    depth-filter tau. Computed in float32, as the reference does."""
+    fx = np.float32(intr.fx)
+    return float(np.float32(2.0) * np.arctan(np.float32(1.0)
+                                             / (np.float32(2.0) * fx)))
+
+
 def in_bounds(intr: Intrinsics, px: torch.Tensor, margin: float = 0.0,
               level: int = 0) -> torch.Tensor:
     """Bounds test at a pyramid level."""

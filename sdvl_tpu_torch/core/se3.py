@@ -27,6 +27,11 @@ def translation(pose: torch.Tensor) -> torch.Tensor:
     return pose[..., 4:7]
 
 
+def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Pose from a rotation matrix ``(..., 3, 3)`` and a translation."""
+    return torch.cat([quat_from_matrix(R), t], dim=-1)
+
+
 def rotation(pose: torch.Tensor) -> torch.Tensor:
     """Rotation matrix ``(..., 3, 3)`` of the pose."""
     return matrix_from_quat(pose[..., :4])
@@ -94,6 +99,42 @@ def matrix_from_quat(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Shepperd conversion, branch-free: all four candidate solutions are
+    computed and the numerically strongest is selected per element."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def _safe_sqrt(x):
+        return torch.sqrt(x.clamp_min(1e-12))
+
+    s0 = _safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                      (m10 - m01) / s0], -1)
+    s1 = _safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                      (m02 + m20) / s1], -1)
+    s2 = _safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                      (m12 + m21) / s2], -1)
+    s3 = _safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                      0.25 * s3], -1)
+
+    cond0 = tr > 0
+    cond1 = (m00 > m11) & (m00 > m22)
+    cond2 = m11 > m22
+    q = torch.where(
+        cond0[..., None], q0,
+        torch.where(cond1[..., None], q1,
+                    torch.where(cond2[..., None], q2, q3)),
+    )
+    q = q / _norm(q).clamp_min(1e-12)
+    return torch.where(q[..., :1] < 0, -q, q)
 
 
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -189,3 +230,8 @@ def log(pose: torch.Tensor) -> torch.Tensor:
 def boxplus(pose: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative update ``exp(xi) * pose`` used by all GN solvers."""
     return compose(exp(xi), pose)
+
+
+def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b^{-1}``: the motion taking frame b's camera to frame a's."""
+    return compose(a, inverse(b))

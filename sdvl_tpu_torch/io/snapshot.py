@@ -1,20 +1,23 @@
-"""Loading a stream's state: the JAX package's snapshot, or numpy.
+"""Saving and loading a stream's state, in the JAX package's snapshot format.
 
-Counterpart of the loading half of ``sdvl_tpu/io/snapshot.py``. A stream
-snapshot (``FORMAT_VERSION 1``, written by the JAX package's
-``save_stream_snapshot``) is one ``.npz`` whose keys are ``map.<field>``,
-``map.kf_pyr.<i>``, ``carry.<field>``, ``carry.pyr1.<i>`` and
-``carry.last_pyr.<i>``; counters added after snapshots existed
+Counterpart of the stream half of ``sdvl_tpu/io/snapshot.py``. A stream
+snapshot (``FORMAT_VERSION 1``) is one ``.npz`` whose keys are
+``map.<field>``, ``map.kf_pyr.<i>``, ``carry.<field>``, ``carry.pyr1.<i>``
+and ``carry.last_pyr.<i>``; counters added after snapshots existed
 (``n_evicted``, ``n_pruned``) load as 0 when missing.
 
-Conversions on the way in (see ``state/map_state.py``): uint32 ORB
-descriptor words and the PRNG key become int64 (values kept), index-valued
-int32 fields become int64. Saving arrives with the full SLAM mode.
+Conversions (see ``state/map_state.py``): on the way in, uint32 ORB
+descriptor words and the PRNG key become int64 (values kept) and
+index-valued int32 fields become int64; on the way out they are written
+back with the reference's dtypes (uint32 words and key, int32 indices), so
+a snapshot written by the port loads, and resumes, in either package.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import tempfile
 from typing import Mapping
 
 import numpy as np
@@ -98,3 +101,66 @@ def load_stream_arrays(path: str, device="cuda"):
             raise ValueError(f"snapshot format {host.get('format_version')}")
         return (map_from_numpy(_arrays_from_npz("map", MapState, z), dev),
                 carry_from_numpy(_arrays_from_npz("carry", SlamCarry, z), dev))
+
+
+def _saved_dtype(name: str, t: torch.Tensor):
+    """The reference's numpy dtype of a field the port holds as ``t``."""
+    if name in ("pt_desc", "cand_desc", "key"):
+        return np.uint32
+    if t.dtype == torch.int64:
+        return np.int32
+    return None
+
+
+def _tree_to_arrays(prefix: str, tree) -> dict:
+    out = {}
+    for name, val in tree._asdict().items():
+        leaves = val if isinstance(val, tuple) else (val,)
+        arrays = []
+        for leaf in leaves:
+            a = leaf.detach().cpu().numpy()
+            dt = _saved_dtype(name, leaf)
+            arrays.append(a if dt is None else a.astype(dt))
+        if isinstance(val, tuple):
+            for i, a in enumerate(arrays):
+                out[f"{prefix}.{name}.{i}"] = a
+        else:
+            out[f"{prefix}.{name}"] = arrays[0]
+    return out
+
+
+def save_stream_snapshot(stream, path: str) -> None:
+    """Checkpoint a stream's MapState and SlamCarry to ``path``, atomically
+    (a temporary file in the same directory, then a rename). One
+    device->host copy of every field: checkpoint at sequence boundaries,
+    not inside the per-frame loop."""
+    arrays = _tree_to_arrays("map", stream.m)
+    arrays.update(_tree_to_arrays("carry", stream.carry))
+    arrays["host_json"] = np.frombuffer(
+        json.dumps({"format_version": FORMAT_VERSION,
+                    "kind": "stream"}).encode(), dtype=np.uint8)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez_compressed(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_stream_snapshot(stream, path: str):
+    """Restore a stream's MapState and SlamCarry from ``path`` onto the
+    stream's device; the capacities must match its config. Returns the
+    stream."""
+    m, carry = load_stream_arrays(path, device=stream.device)
+    if m.capacities != stream.m.capacities:
+        raise ValueError(
+            f"snapshot capacities {m.capacities} != config "
+            f"{stream.m.capacities}")
+    stream.m = m
+    stream.carry = carry
+    return stream

@@ -1,8 +1,9 @@
-"""Affine patch warping between views -- batched.
+"""Affine patch warping between views, ZMSSD scoring and grid search.
 
-Counterpart of ``sdvl_tpu/ops/patch.py``; holds what map-point matching uses
-(:func:`warp_matrix_affine`, :func:`search_level_from_warp`). The ZMSSD
-scorer and the exhaustive grid search arrive with the epipolar matcher.
+Counterpart of ``sdvl_tpu/ops/patch.py``: the first-order affine warp and
+the search level that map-point matching uses, the zero-mean SSD scorer, and
+the exhaustive integer-offset ZMSSD search that the two-view bootstrap runs
+before LK.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 
 from ..core import camera as cam
 from ..core import se3
+from . import interp
 
 
 def warp_matrix_affine(intr, px_ref: torch.Tensor, level_ref: torch.Tensor,
@@ -47,3 +49,35 @@ def search_level_from_warp(A: torch.Tensor, max_level: int = 4) -> torch.Tensor:
     det = (A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]).abs()
     lvl = torch.ceil(torch.log2((det / 3.0).clamp_min(1e-6)) * 0.5)
     return torch.nan_to_num(lvl, nan=0.0).clamp(0, max_level).long()
+
+
+def grid_search(img: torch.Tensor, ref_patches: torch.Tensor,
+                xy: torch.Tensor, radius: int, step: float = 1.0):
+    """Exhaustive integer-offset patch search around ``xy``, batched.
+
+    Scores the ZMSSD of ``ref_patches`` (N, s, s) against the
+    (2*radius+1)^2 offset grid in ``img``; returns the best position and
+    its score, ``(xy_best (N, 2), score_best (N,))`` (the first grid
+    position on a tie, row-major with y outer).
+    """
+    dev = xy.device
+    g = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=dev) * step
+    oy, ox = torch.meshgrid(g, g, indexing="ij")
+    offs = torch.stack([ox, oy], dim=-1).reshape(-1, 2)          # (G, 2)
+    pos = xy[:, None, :] + offs[None]                            # (N, G, 2)
+    s = ref_patches.shape[-1]
+    cur = interp.extract_patches(img, pos.reshape(-1, 2), s // 2)
+    cur = cur.reshape(xy.shape[0], offs.shape[0], s, s)          # (N, G, s, s)
+    score = zmssd(ref_patches[:, None], cur)                     # (N, G)
+    best = torch.argmin(score, dim=1)
+    xy_best = torch.gather(pos, 1, best[:, None, None].expand(-1, 1, 2))[:, 0]
+    return xy_best, torch.gather(score, 1, best[:, None])[:, 0]
+
+
+def zmssd(ref_patch: torch.Tensor, cur_patch: torch.Tensor) -> torch.Tensor:
+    """Zero-mean SSD between patches (lower is better); broadcasts over
+    leading dims."""
+    r = ref_patch - torch.mean(ref_patch, dim=(-2, -1), keepdim=True)
+    c = cur_patch - torch.mean(cur_patch, dim=(-2, -1), keepdim=True)
+    return torch.sum((r - c) ** 2, dim=(-2, -1))

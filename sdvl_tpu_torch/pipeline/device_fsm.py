@@ -1,21 +1,30 @@
-"""The per-frame state machine of the stream, localization-only serving mode.
+"""The per-frame state machine of the stream: full SLAM mode and serving.
 
-Counterpart of ``sdvl_tpu/pipeline/device_fsm.py`` for
-``localize_only=True``: a stream starts LOST against a loaded, frozen map,
-relocalizes against its keyframes and then tracks; no bootstrap and no
-mapping stage run. The full SLAM step (``localize_only=False``: FIRST/SECOND
-bootstrap states, keyframe insertion, local BA, depth filters) is not ported
-yet and :func:`make_step` refuses it.
-
-States: 0 FIRST_FRAME, 1 SECOND_FRAME, 2 RUNNING, 3 LOST.
+Counterpart of ``sdvl_tpu/pipeline/device_fsm.py``. States: 0 FIRST_FRAME,
+1 SECOND_FRAME, 2 RUNNING, 3 LOST. In full SLAM mode a stream starts in
+FIRST, keeps a first frame with enough corners, bootstraps from two views in
+SECOND (homography, triangulation, two-view BA, ground-plane alignment),
+then tracks and maintains the map in RUNNING (point statistics, keyframe
+insertion with local BA and pruning, the depth-filter update). With
+``localize_only`` a stream starts LOST against a loaded, frozen map and only
+tracks; no bootstrap and no mapping stage run.
 
 Branches. The reference compiles every decision into one device program
-(``lax.switch``/``lax.cond``). Eager torch has no such thing, and the LOST
-branch is a 64-lane alignment race that must not run on every frame, so the
-step reads ``carry.state`` and ``carry.lost_frames`` back to the host ONCE
-per frame (one 2-element transfer) and takes a Python branch. Every other
-decision (tracking quality, good/bad path) is a ``where`` select on the
-device.
+(``lax.switch``/``lax.cond``). Eager torch has no such thing, and the
+branches not taken must not run, so the step reads small scalars back to
+the host and takes Python branches:
+
+* every frame: ``(state, lost_frames)``, one 2-element read;
+* SECOND frames: ``success`` of the bootstrap (seed the map or not);
+* RUNNING/LOST frames in full SLAM mode: ``(good, is_kf)`` after tracking
+  (run the keyframe stage, and the map update, only where they are kept).
+
+FIRST's decisions, and the good/bad path of serving, are ``where`` selects.
+
+Random draws come in as arguments: the pose RANSAC's Gumbel noise per
+tracking frame, and the bootstrap's two (the homography and ground-plane
+RANSACs, the same on every attempt, as the reference derives them from a
+key that does not change).
 """
 
 from __future__ import annotations
@@ -28,9 +37,10 @@ from .. import const
 from ..core import camera as cam
 from ..core import se3
 from ..ops import fast as fast_ops
-from ..ops import interp, pyramid
-from ..state.map_state import MapState, empty_map
-from . import relocalize, tracker
+from ..ops import interp, orb, pyramid
+from ..state.map_state import (MapState, alloc_slots, empty_map, scatter,
+                               set_row, store_pyramid)
+from . import bootstrap, depth_filter, mapper, matcher, relocalize, tracker
 from .config import Config, intrinsics
 
 STATE_FIRST = 0
@@ -47,16 +57,16 @@ class SlamCarry(NamedTuple):
     """Inter-frame device state."""
 
     state: torch.Tensor        # () int32, STATE_*
-    key: torch.Tensor          # (2,) int64: the reference's uint32 PRNG key,
-                               #   carried for snapshot fidelity; the port
-                               #   draws from a torch.Generator instead
+    key: torch.Tensor          # (2,) int64: the reference's uint32 PRNG key
+                               #   (its draws derive from it); the port
+                               #   takes its draws as inputs
     frame_id: torch.Tensor     # () int32
     pose: torch.Tensor         # (7,) last world->cam pose
     xi_model: torch.Tensor     # (6,) constant-velocity model
     frames_since_kf: torch.Tensor  # () int32
     kf_matches: torch.Tensor   # () int32 matches high-water mark
     lost_frames: torch.Tensor  # () int32 consecutive bad frames
-    # first-frame snapshot for two-view bootstrap (unused while serving)
+    # first-frame snapshot for the two-view bootstrap
     pyr1: Tuple[torch.Tensor, ...]
     c1_xy: torch.Tensor        # (N, 2)
     c1_valid: torch.Tensor     # (N,)
@@ -143,28 +153,31 @@ def init_carry(cfg: Config, seed: int = 0, device="cuda") -> SlamCarry:
     )
 
 
+class BootNoise(NamedTuple):
+    """The bootstrap's Gumbel noise, drawn once per stream."""
+
+    homography: torch.Tensor   # (n_hyp, N corners) homography RANSAC
+    plane: torch.Tensor        # (iters, P points) ground-plane RANSAC
+
+
 def make_step(cfg: Config, undistort: bool):
-    """Build ``step(m, carry, img, grid, gumbel) ->
+    """Build ``step(m, carry, img, grid, gumbel, boot) ->
     (m, carry, FrameInfo, Corners)``.
 
     ``img`` is the raw (cropped) frame on the device, any integer/float
     dtype (uint8 recommended). ``grid`` is the undistort map (ignored when
     ``undistort`` is False). ``gumbel`` is the (n_hyp, S) Gumbel noise of
-    this frame's pose RANSAC. The frame's detected corners are returned
-    beside the FrameInfo: serving does not consume them, a caller may.
+    this frame's pose RANSAC, or None where the caller has none (a frame
+    that tracks then raises). ``boot`` is the :class:`BootNoise` of the
+    stream (unused while serving). The frame's detected corners are
+    returned beside the FrameInfo.
     """
     s = cfg.sdvl
-    if not s.localize_only:
-        raise NotImplementedError(
-            "the port runs localization-only serving (localize_only=True); "
-            "the full SLAM step is still to be ported: ROADMAP.md Queue 1, "
-            "items 'Bootstrap', 'Mapping stage' and 'Stream in full SLAM "
-            "mode'"
-        )
     intr = intrinsics(cfg)
     levels = s.pyramid_levels
     escalates = (s.reloc_escalate_after >= 0
                  and s.max_keyframes > s.reloc_max_keyframes)
+    orb_radius = s.orb_size // 2
 
     def preprocess(img, grid, lock_xy, lock_valid):
         img = img.float()
@@ -181,6 +194,132 @@ def make_step(cfg: Config, undistort: bool):
         )
         return pyr, corners
 
+    def _info(carry, **kw):
+        dev = carry.pose.device
+        base = FrameInfo(
+            pose=carry.pose,
+            world_tf=se3.identity(device=dev),
+            state=carry.state,
+            quality=const(QUALITY_GOOD, torch.int32, dev),
+            n_matches=const(0, torch.int32, dev),
+            n_attempts=const(0, torch.int32, dev),
+            is_keyframe=const(False, torch.bool, dev),
+            n_corners=const(0, torch.int32, dev),
+            median_shift=const(0.0, torch.float32, dev),
+        )
+        return base._replace(**kw)
+
+    def i32(v, dev):
+        return const(v, torch.int32, dev)
+
+    # ------------------------------------------------------------ FIRST
+    def first_frame(m, carry, pyr, corners):
+        """Keep the frame if it has enough corners, else try again next
+        frame (where selects: nothing is read back)."""
+        dev = carry.pose.device
+        n = torch.sum(corners.valid).to(torch.int32)
+        ok = n >= s.min_init_corners
+        carry = carry._replace(
+            state=torch.where(ok, i32(STATE_SECOND, dev),
+                              i32(STATE_FIRST, dev)),
+            pyr1=tuple(torch.where(ok, a, b)
+                       for a, b in zip(pyr, carry.pyr1)),
+            c1_xy=torch.where(ok, corners.xy, carry.c1_xy),
+            c1_valid=torch.where(ok, corners.valid, carry.c1_valid),
+        )
+        return m, carry, _info(carry, n_corners=n)
+
+    # ------------------------------------------------------------ SECOND
+    def seed_map(m, carry, pyr, corners, boot, noise: BootNoise):
+        """Write both bootstrap keyframes, the triangulated inliers as map
+        points and candidate seeds; two-view BA; ground-plane alignment;
+        match the map into the frame to start tracking."""
+        dev = carry.pose.device
+        zero, one = i32(0, dev), i32(1, dev)
+        kf_pyr = tuple(
+            set_row(set_row(lvl, zero, i1), one, i2)
+            for lvl, i1, i2 in zip(m.kf_pyr, store_pyramid(carry.pyr1),
+                                   store_pyramid(pyr)))
+        kf_pose = set_row(m.kf_pose, zero, se3.identity(device=dev))
+        m = m._replace(
+            kf_pose=set_row(kf_pose, one, boot.pose2),
+            kf_valid=set_row(set_row(m.kf_valid, zero, True), one, True),
+            kf_frame_id=set_row(
+                set_row(m.kf_frame_id, zero, carry.frame_id - 1),
+                one, carry.frame_id),
+            kf_pyr=kf_pyr,
+            n_keyframes=i32(2, dev),
+        )
+        slots, _ok = alloc_slots(~m.pt_valid, boot.inlier)
+        desc1 = orb.descriptors(carry.pyr1[0], boot.px1, radius=orb_radius)
+        m = m._replace(
+            pt_pos=scatter(m.pt_pos, slots, boot.pts_w),
+            pt_desc=scatter(m.pt_desc, slots, desc1),
+            pt_valid=scatter(m.pt_valid, slots, True),
+            pt_anchor_kf=scatter(m.pt_anchor_kf, slots, 0),
+            pt_found=scatter(m.pt_found, slots, 2),
+            pt_fail=scatter(m.pt_fail, slots, 0),
+            obs_mask=scatter(scatter(m.obs_mask, (zero, slots), True),
+                             (one, slots), True),
+            obs_px=scatter(scatter(m.obs_px, (zero, slots), boot.px1),
+                           (one, slots), boot.px2),
+        )
+        depth_med = torch.full((), s.map_scale, dtype=torch.float32,
+                               device=dev)
+        m, _ = depth_filter.seed_candidates(
+            m, intr, pyr, (corners.xy, corners.level, corners.valid), one,
+            depth_med, s.cell_size, orb_radius=orb_radius)
+        # two-view BA over the seed map
+        m = mapper.local_ba(m, intr, one, window=1,
+                            max_points=min(s.max_points, 512))
+        pose = m.kf_pose[1]
+        T = se3.identity(device=dev)
+        if s.align_ground_plane:
+            m, T = mapper.transform_initial_map(m, noise.plane)
+            pose = se3.compose(pose, se3.inverse(T))
+        mr = matcher.match_map_points(m, intr, pyr, pose, cell=s.cell_size,
+                                      use_orb=s.use_orb,
+                                      half=s.patch_size // 2,
+                                      lk_iters=s.max_align_its,
+                                      reproj_px=float(s.search_size),
+                                      max_matches=s.max_matches,
+                                      orb_radius=orb_radius)
+        n_match = torch.sum(mr.ok).clamp_min(1).to(torch.int32)
+        carry = carry._replace(
+            state=i32(STATE_RUNNING, dev),
+            pose=pose,
+            last_idx=mr.pt_idx,
+            last_ok=mr.ok,
+            kf_matches=n_match,
+            frames_since_kf=i32(0, dev),
+            xi_model=torch.zeros(6, dtype=torch.float32, device=dev),
+        )
+        return m, carry, T
+
+    def second_frame(m, carry, pyr, corners, noise: BootNoise):
+        """Flow + homography: restart on flow collapse, wait on low
+        parallax, seed the map on success (one host read: ``success``)."""
+        dev = carry.pose.device
+        boot = bootstrap.init_two_view(
+            intr, carry.pyr1, pyr, carry.c1_xy, carry.c1_valid,
+            noise.homography, map_scale=s.map_scale,
+            thresh_px=s.inlier_error_threshold,
+            min_corners=s.min_init_corners,
+        )
+        success = (boot.ok_flow & (boot.median_shift >= s.min_avg_shift)
+                   & (boot.n_inliers >= s.min_init_corners))
+        if bool(success):
+            m, carry, T = seed_map(m, carry, pyr, corners, boot, noise)
+        else:
+            carry = carry._replace(state=torch.where(
+                boot.ok_flow, i32(STATE_SECOND, dev), i32(STATE_FIRST, dev)))
+            T = se3.identity(device=dev)
+        info = _info(carry, world_tf=T, is_keyframe=success,
+                     n_matches=boot.n_inliers,
+                     median_shift=boot.median_shift)
+        return m, carry, info
+
+    # ----------------------------------------------------------- RUNNING
     def do_reloc(m, carry, pyr, lost_frames: int):
         """Relocalize: the alignment reference becomes the best-matching
         KEYFRAME (its pyramid, pose and observed points), not the previous
@@ -204,9 +343,37 @@ def make_step(cfg: Config, undistort: bool):
         return (carry.last_pyr, carry.last_idx, carry.last_ok,
                 carry.pose, pred)
 
-    def running(m, carry, pyr, is_lost: bool, lost_frames: int, gumbel):
-        """One steady-state tracking step (RUNNING or LOST)."""
+    def with_kf(m, carry, pyr, corners, tr):
+        """The keyframe stage: insert, local BA around the new keyframe,
+        drop points whose support collapsed."""
+        m, slot = mapper.add_keyframe(
+            m, intr, pyr, tr.pose, carry.frame_id,
+            tr.match_pt_idx, tr.match_px, tr.match_ok, tr.match_level,
+            corners.xy, corners.level, corners.valid, s.cell_size,
+            n_search_kf=s.max_search_keyframes,
+            max_reobs=s.max_reobs,
+            scale_min_dist=s.scale_min_dist, map_scale=s.map_scale,
+            use_orb=s.use_orb, epipolar_samples=s.epipolar_samples,
+            patch_half=s.patch_size // 2, lk_iters=s.max_align_its,
+            orb_radius=orb_radius,
+            corner_gate=s.epipolar_corner_gate,
+            corner_thresh=s.min_feature_score,
+        )
+        m = mapper.local_ba(m, intr, slot,
+                            window=min(10, s.max_keyframes - 1),
+                            max_points=min(s.max_points, 512))
+        # redundant-keyframe pruning runs in update_map, every frame
+        return mapper.prune_weak_points(m)
+
+    def running(m, carry, pyr, corners, is_lost: bool, lost_frames: int,
+                gumbel):
+        """One steady-state tracking step (RUNNING or LOST), then, in full
+        SLAM mode on a good frame, the mapping stage."""
         dev = carry.pose.device
+        if gumbel is None:
+            raise ValueError(
+                f"frame {int(carry.frame_id)} tracks but no pose-RANSAC "
+                "noise was provided for it")
         if is_lost:
             ref = do_reloc(m, carry, pyr, lost_frames)
         else:
@@ -227,19 +394,20 @@ def make_step(cfg: Config, undistort: bool):
             patch_half=s.patch_size // 2, lk_iters=s.max_align_its,
             search_px=float(s.search_size), max_matches=s.max_matches,
             align_patch_half=s.align_patch_size // 2,
-            orb_radius=s.orb_size // 2,
+            orb_radius=orb_radius,
             affine_illum=s.use_affine_illum,
         )
-        # a frozen map counts no point successes or failures
-
-        def i32(v):
-            return const(v, torch.int32, dev)
+        if not s.localize_only:
+            # a frozen map counts nothing, and NO frame counts while
+            # relocalizing (else a LOST stretch deletes the map)
+            m = tracker.update_point_stats(m, tr, max_failed=s.max_failed,
+                                           enabled=not is_lost)
 
         ratio = tr.n_matches / tr.n_attempts.clamp_min(1)
         quality = torch.where(
-            tr.n_matches < s.min_matches, i32(QUALITY_BAD),
-            torch.where(ratio < 0.2, i32(QUALITY_INSUFFICIENT),
-                        i32(QUALITY_GOOD)),
+            tr.n_matches < s.min_matches, i32(QUALITY_BAD, dev),
+            torch.where(ratio < 0.2, i32(QUALITY_INSUFFICIENT, dev),
+                        i32(QUALITY_GOOD, dev)),
         )
         good = quality != QUALITY_BAD
 
@@ -250,43 +418,62 @@ def make_step(cfg: Config, undistort: bool):
             carry.xi_model, tr.pose, carry.pose)
         if is_lost:
             xi_model = torch.zeros_like(xi_model)
+        frames_since_kf = carry.frames_since_kf + 1
+        if s.localize_only:
+            is_kf = const(False, torch.bool, dev)
+        else:
+            is_kf = mapper.need_keyframe(tr.n_matches, carry.kf_matches,
+                                         frames_since_kf, s.min_keyframe_its)
+            # the second host read of the frame: which stages to run
+            good_h, is_kf_h = torch.stack([good, is_kf]).tolist()
+            if good_h:
+                if is_kf_h:
+                    m = with_kf(m, carry, pyr, corners, tr)
+                m = mapper.update_map(
+                    m, intr, pyr, tr.pose, n_samples=s.epipolar_samples,
+                    threshold_converged=s.threshold_converged,
+                    max_failed=s.max_failed, use_orb=s.use_orb,
+                    patch_half=s.patch_size // 2, lk_iters=s.max_align_its,
+                    orb_radius=orb_radius,
+                    stale_kf_window=2 * s.max_search_keyframes,
+                    map_scale=s.map_scale, scale_min_dist=s.scale_min_dist,
+                    corner_gate=s.epipolar_corner_gate,
+                    corner_thresh=s.min_feature_score,
+                )
         # bad path: coast on the prediction, count the failure, go LOST at 3
         lost_bad = carry.lost_frames + 1
-        state_bad = torch.where(lost_bad >= 3, i32(STATE_LOST),
-                                i32(STATE_RUNNING))
+        state_bad = torch.where(lost_bad >= 3, i32(STATE_LOST, dev),
+                                i32(STATE_RUNNING, dev))
+        is_kf = good & is_kf
 
         carry = carry._replace(
             pose=torch.where(good, tr.pose, pose_pred),
             xi_model=torch.where(good, xi_model, carry.xi_model),
-            lost_frames=torch.where(good, i32(0), lost_bad),
-            state=torch.where(good, i32(STATE_RUNNING), state_bad),
-            # no keyframes are ever inserted while serving
-            frames_since_kf=torch.where(good, carry.frames_since_kf + 1,
-                                        carry.frames_since_kf),
+            lost_frames=torch.where(good, i32(0, dev), lost_bad),
+            state=torch.where(good, i32(STATE_RUNNING, dev), state_bad),
+            frames_since_kf=torch.where(
+                good, torch.where(is_kf, i32(0, dev), frames_since_kf),
+                carry.frames_since_kf),
             # HIGH-WATER mark of the match count since the last keyframe
             kf_matches=torch.where(
-                good, torch.maximum(carry.kf_matches, tr.n_matches),
-                carry.kf_matches),
+                is_kf, tr.n_matches.clamp_min(1),
+                torch.where(good,
+                            torch.maximum(carry.kf_matches, tr.n_matches),
+                            carry.kf_matches)),
             last_idx=torch.where(good, tr.match_pt_idx, carry.last_idx),
             last_ok=torch.where(good, tr.match_ok, carry.last_ok),
         )
-        info = FrameInfo(
-            pose=carry.pose,
-            world_tf=se3.identity(device=dev),
-            state=carry.state,
-            quality=quality,
-            n_matches=tr.n_matches,
-            n_attempts=tr.n_attempts,
-            is_keyframe=torch.zeros((), dtype=torch.bool, device=dev),
-            n_corners=i32(0),
-            median_shift=torch.zeros((), dtype=torch.float32, device=dev),
-        )
-        return carry, info
+        info = _info(carry, quality=quality, n_matches=tr.n_matches,
+                     n_attempts=tr.n_attempts, is_keyframe=is_kf)
+        return m, carry, info
 
-    def step(m: MapState, carry: SlamCarry, img, grid, gumbel):
+    # -------------------------------------------------------------- step
+    def step(m: MapState, carry: SlamCarry, img, grid, gumbel,
+             boot: BootNoise = None):
         # steady-state cell locking: suppress detector cells that already
         # hold tracked map points, projected at the previous frame's pose.
         # A stale match index is clamped, as the reference's gather does.
+        # In FIRST/SECOND, last_ok is all-False: no lock.
         P = m.pt_valid.shape[0]
         last_idx = carry.last_idx.clamp(0, P - 1)
         pts_cam = se3.transform(carry.pose, m.pt_pos[last_idx])
@@ -296,12 +483,19 @@ def make_step(cfg: Config, undistort: bool):
                       & cam.in_bounds(intr, lock_xy, margin=0))
         pyr, corners = preprocess(img, grid, lock_xy, lock_valid)
 
-        # the one host read of the frame: which branch to take
+        # the first host read of the frame: which branch to take
         state, lost_frames = torch.stack(
             [carry.state, carry.lost_frames]).tolist()
-        # serving starts LOST against a loaded map: all four states track
-        carry, info = running(m, carry, pyr, state == STATE_LOST,
-                              lost_frames, gumbel)
+        state = min(max(state, 0), 3)
+        if not s.localize_only and state == STATE_FIRST:
+            m, carry, info = first_frame(m, carry, pyr, corners)
+        elif not s.localize_only and state == STATE_SECOND:
+            m, carry, info = second_frame(m, carry, pyr, corners, boot)
+        else:
+            # serving starts LOST against a loaded map: all states track
+            m, carry, info = running(m, carry, pyr, corners,
+                                     state == STATE_LOST, lost_frames,
+                                     gumbel)
         carry = carry._replace(last_pyr=pyr, frame_id=carry.frame_id + 1)
         return m, carry, info, corners
 
@@ -309,17 +503,17 @@ def make_step(cfg: Config, undistort: bool):
 
 
 def make_chunk_step(cfg: Config, undistort: bool):
-    """``chunk_step(m, carry, imgs (T,H,W), grid, gumbels)``:
-    a Python loop of :func:`make_step` over a stack of frames that is
-    already on the device (one host->device copy per chunk). ``gumbels`` is
-    the (T, n_hyp, S) noise of its frames. Returns the list of FrameInfo
-    and the last frame's corners."""
+    """``chunk_step(m, carry, imgs (T,H,W), grid, gumbels, boot)``: a Python
+    loop of :func:`make_step` over a stack of frames that is already on the
+    device (one host->device copy per chunk). ``gumbels`` is a sequence of
+    T per-frame pose-RANSAC noise tensors (or None). Returns the list of
+    FrameInfo and the last frame's corners."""
     step = make_step(cfg, undistort)
 
-    def chunk_step(m, carry, imgs, grid, gumbels):
+    def chunk_step(m, carry, imgs, grid, gumbels, boot=None):
         infos, corners = [], None
         for img, g in zip(imgs, gumbels):
-            m, carry, info, corners = step(m, carry, img, grid, g)
+            m, carry, info, corners = step(m, carry, img, grid, g, boot)
             infos.append(info)
         return m, carry, infos, corners
 

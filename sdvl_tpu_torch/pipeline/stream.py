@@ -1,26 +1,29 @@
 """Host-side loop of the stream: feed frames, read results once.
 
-Counterpart of ``sdvl_tpu/pipeline/stream.py`` for localization-only serving
-(:meth:`SdvlStream.localizer`): the stream loads a map snapshot written by
-either package, starts LOST, relocalizes against the frozen keyframes and then
-tracks. The loop
+Counterpart of ``sdvl_tpu/pipeline/stream.py``. ``SdvlStream(cfg)`` runs
+full SLAM mode from an empty map (FIRST -> SECOND -> RUNNING, building the
+map as it tracks); :meth:`SdvlStream.localizer` serves against a map
+snapshot written by either package, starting LOST. The loop
 
   * uploads each frame (uint8), or a whole chunk of frames in one copy,
-  * runs one step per frame (a Python loop; the step reads two scalars back
-    per frame to choose its branch, see ``pipeline/device_fsm.py``),
+  * runs one step per frame (a Python loop; the step reads a few scalars
+    back per frame to choose its branches, see ``pipeline/device_fsm.py``),
   * accumulates per-frame ``FrameInfo`` as device tensors,
   * transfers all of them device->host exactly once, in :meth:`result`.
 
-Pose RANSAC needs Gumbel noise per frame. By default the stream draws it from
-its own ``torch.Generator``; a ``gumbel_provider`` (frame index -> (n_hyp, S)
-array) replaces the draw, which is how a test or a recorded run feeds the
-port the numbers another implementation drew.
+Random draws. The pose RANSAC needs Gumbel noise on every tracking frame,
+the bootstrap twice per stream (homography and ground-plane RANSACs). By
+default the stream draws them from its own ``torch.Generator``: pose noise
+per frame, the bootstrap's once. A ``gumbel_provider`` replaces the draws,
+which is how a test or a recorded run feeds the port the numbers another
+implementation drew: either a callable ``frame index -> (n_hyp, S) array``
+(pose noise only), or a :class:`Draws` holding all three.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,8 +32,8 @@ from .. import require_device
 from ..core import camera as cam
 from ..core import se3
 from .config import Config, intrinsics
-from .device_fsm import (FrameInfo, STATE_LOST, cropped_shape, init_state,
-                         lane_counts, make_chunk_step, make_step)
+from .device_fsm import (BootNoise, FrameInfo, STATE_LOST, cropped_shape,
+                         init_state, lane_counts, make_chunk_step, make_step)
 
 STATE_NAMES = {0: "FIRST_FRAME", 1: "SECOND_FRAME", 2: "RUNNING", 3: "LOST"}
 
@@ -61,10 +64,10 @@ class SlamResult:
 def _rebase_trajectory(poses: np.ndarray, world_tfs: np.ndarray) -> np.ndarray:
     """Express every recorded pose in the FINAL world frame.
 
-    A frame whose ``world_tf`` is not identity re-based the world; poses
-    recorded *before* it are composed with the inverse. Walked backwards
-    with a cumulative correction. (Serving never re-bases, so this is the
-    identity there; it is kept for the full SLAM mode's results.)
+    A frame whose ``world_tf`` is not identity re-based the world (the
+    ground-plane alignment at bootstrap does, once); poses recorded
+    *before* it are composed with the inverse. Walked backwards with a
+    cumulative correction.
     """
     n = poses.shape[0]
     out = np.array(poses, copy=True)
@@ -81,17 +84,35 @@ def _rebase_trajectory(poses: np.ndarray, world_tfs: np.ndarray) -> np.ndarray:
     return out
 
 
+class Draws(NamedTuple):
+    """Every random draw of a stream, supplied from outside.
+
+    ``pose(i)`` is the (n_hyp, S) pose-RANSAC noise of the stream's frame
+    ``i`` (0-based count of frames fed), or None for a frame that draws
+    none (FIRST and SECOND frames); ``homography`` (n_hyp_h, N corners) and
+    ``plane`` (iters, P points) are the bootstrap's, used on every
+    attempt."""
+
+    pose: Callable[[int], Optional[np.ndarray]]
+    homography: np.ndarray
+    plane: np.ndarray
+
+
+# the reference's fixed hypothesis counts of the two bootstrap RANSACs
+HOMOGRAPHY_HYPOTHESES = 128
+PLANE_HYPOTHESES = 64
+
+
 class SdvlStream:
     """Streaming run over the per-frame state machine."""
 
     def __init__(self, config: Config, seed: int = 0, device="cuda",
-                 gumbel_provider: Optional[Callable[[int], np.ndarray]] = None):
+                 gumbel_provider=None):
         self.cfg = config
         self.device = require_device(device)
         s = config.sdvl
         self.crop_h, self.crop_w = cropped_shape(config)
         self._undistort = any(abs(d) > 1e-12 for d in config.camera.dist)
-        # raises NotImplementedError unless localize_only
         self._step = make_step(config, self._undistort)
         self._chunk_step = make_chunk_step(config, self._undistort)
 
@@ -102,10 +123,30 @@ class SdvlStream:
         else:
             self._grid = None
         self._n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
-        self._n_lanes = lane_counts(config)[1]
-        self._gumbel_provider = gumbel_provider
+        n_corners, self._n_lanes = lane_counts(config)
+        if isinstance(gumbel_provider, Draws):
+            self._pose_provider = gumbel_provider.pose
+        else:
+            self._pose_provider = gumbel_provider
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        self._boot = None
+        if not s.localize_only:
+            shapes = ((HOMOGRAPHY_HYPOTHESES, n_corners),
+                      (PLANE_HYPOTHESES, s.max_points))
+            if isinstance(gumbel_provider, Draws):
+                arrays = (gumbel_provider.homography, gumbel_provider.plane)
+                for a, shape in zip(arrays, shapes):
+                    if np.shape(a) != shape:
+                        raise ValueError(
+                            f"bootstrap noise {np.shape(a)}, expected "
+                            f"{shape}")
+                self._boot = BootNoise(*(
+                    torch.from_numpy(np.array(a, np.float32)).to(
+                        self.device) for a in arrays))
+            else:
+                self._boot = BootNoise(*(self._draw(shape)
+                                         for shape in shapes))
         self._n_fed = 0
         self._infos: List[FrameInfo] = []
         self.last_corners = None   # Corners of the newest frame
@@ -146,23 +187,29 @@ class SdvlStream:
         return stream
 
     # ------------------------------------------------------------- feeding
-    def _gumbel(self, first: int, count: int) -> torch.Tensor:
-        """The (count, n_hyp, S) pose-RANSAC noise of the stream's frames
-        ``first .. first + count - 1``: the provider's numbers in one
-        host->device copy, or one draw per frame from the generator."""
-        shape = (self._n_hyp, self._n_lanes)
-        if self._gumbel_provider is not None:
-            g = np.stack([np.asarray(self._gumbel_provider(first + t),
-                                     np.float32) for t in range(count)])
-            if g.shape[1:] != shape:
-                raise ValueError(
-                    f"gumbel noise {g.shape[1:]}, expected {shape}")
-            return torch.from_numpy(g).to(self.device)
+    def _draw(self, shape) -> torch.Tensor:
+        """Standard Gumbel noise of ``shape`` from the stream's generator."""
         tiny = torch.finfo(torch.float32).tiny
-        u = torch.stack([
-            torch.rand(shape, generator=self._gen, device=self.device)
-            for _ in range(count)])
+        u = torch.rand(shape, generator=self._gen, device=self.device)
         return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 1e-7)))
+
+    def _gumbel(self, first: int, count: int) -> List[Optional[torch.Tensor]]:
+        """The pose-RANSAC noise of the stream's frames ``first .. first +
+        count - 1``: the provider's numbers in one host->device copy (None
+        for a frame it has none for), or one draw per frame from the
+        generator."""
+        shape = (self._n_hyp, self._n_lanes)
+        if self._pose_provider is None:
+            return list(self._draw((count,) + shape).unbind(0))
+        got = [self._pose_provider(first + t) for t in range(count)]
+        have = [g for g in got if g is not None]
+        if not have:
+            return [None] * count
+        g = np.stack([np.asarray(a, np.float32) for a in have])
+        if g.shape[1:] != shape:
+            raise ValueError(f"gumbel noise {g.shape[1:]}, expected {shape}")
+        dev = iter(torch.from_numpy(g).to(self.device).unbind(0))
+        return [None if a is None else next(dev) for a in got]
 
     def feed(self, img: np.ndarray, block: bool = False) -> FrameInfo:
         """Process one frame. Returns its FrameInfo as device tensors."""
@@ -170,7 +217,7 @@ class SdvlStream:
             np.asarray(img)[: self.crop_h, : self.crop_w])
         self.m, self.carry, info, self.last_corners = self._step(
             self.m, self.carry, torch.from_numpy(img).to(self.device),
-            self._grid, self._gumbel(self._n_fed, 1)[0])
+            self._grid, self._gumbel(self._n_fed, 1)[0], self._boot)
         self._n_fed += 1
         self._infos.append(info)
         if block:
@@ -186,7 +233,7 @@ class SdvlStream:
         dev_imgs = torch.from_numpy(imgs).to(self.device)
         gumbels = self._gumbel(self._n_fed, len(imgs))
         self.m, self.carry, infos, self.last_corners = self._chunk_step(
-            self.m, self.carry, dev_imgs, self._grid, gumbels)
+            self.m, self.carry, dev_imgs, self._grid, gumbels, self._boot)
         self._n_fed += len(imgs)
         self._infos.extend(infos)
         if block:

@@ -1,8 +1,8 @@
 """Per-frame tracking step: direct alignment -> matching -> robust pose.
 
-Counterpart of ``sdvl_tpu/pipeline/tracker.py``. The success/failure
-bookkeeping on tracked points (``update_point_stats``) arrives with the
-mapping stage: a frozen map counts nothing.
+Counterpart of ``sdvl_tpu/pipeline/tracker.py``, with the success/failure
+bookkeeping on tracked points (:func:`update_point_stats`) that the full
+SLAM mode runs; a frozen map counts nothing.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 from ..core import camera as cam
 from ..core import se3
 from ..solvers import image_align, pose as pose_opt
-from ..state.map_state import MapState
+from ..state.map_state import MapState, scatter
 from . import matcher
 
 
@@ -105,6 +105,27 @@ def track_frame(m: MapState, intr, last_pyr, last_pt_idx: torch.Tensor,
         n_attempts=torch.sum(mr.attempted).to(torch.int32),
         align_error=ia.error,
     )
+
+
+def update_point_stats(m: MapState, tr: TrackResult, max_failed: int = 15,
+                       enabled: bool = True) -> MapState:
+    """Success/failure counters on tracked points: a match counts one
+    success and clears the failure run, an attempted miss counts one
+    failure, and a point with more than ``max_failed`` consecutive failures
+    dies. ``enabled`` (a host bool: the step knows its branch) turns the
+    counting off, as while relocalizing nothing is counted."""
+    if not enabled:
+        return m._replace(pt_valid=m.pt_valid & (m.pt_fail <= max_failed))
+    P = m.pt_valid.shape[0]
+    dump = torch.full_like(tr.match_pt_idx, P)
+    idx_ok = torch.where(tr.match_ok, tr.match_pt_idx, dump)
+    idx_bad = torch.where(tr.match_attempted & ~tr.match_ok,
+                          tr.match_pt_idx, dump)
+    pt_found = scatter(m.pt_found, idx_ok, 1, accumulate=True)
+    pt_fail = scatter(m.pt_fail, idx_ok, 0)
+    pt_fail = scatter(pt_fail, idx_bad, 1, accumulate=True)
+    pt_valid = m.pt_valid & (pt_fail <= max_failed)
+    return m._replace(pt_found=pt_found, pt_fail=pt_fail, pt_valid=pt_valid)
 
 
 def motion_model_update(xi_prev: torch.Tensor, pose_new: torch.Tensor,

@@ -1,0 +1,195 @@
+"""Bundle adjustment via Schur complement, dense Cholesky on the camera system.
+
+Counterpart of ``sdvl_tpu/solvers/ba.py`` for the local-BA sizes the SLAM
+step uses. The observation structure is a dense (P, K) grid of point x camera
+slots with a validity mask; the Schur trick is three batched contractions:
+
+    S  = U - W V^{-1} W^T        (reduced camera system, (6K, 6K) dense)
+    dc = chol_solve(S, b)        (camera updates)
+    dp = V^{-1} (b_p - W^T dc)   (point back-substitution)
+
+Huber weights on unit-plane residuals, two-stage outlier gating (optimize,
+drop edges beyond the gate, optimize again) and Levenberg damping with
+accept/reject as a ``where`` select: the fixed iteration count runs with no
+read back to the host.
+
+A matrix that is not positive definite: ``jnp.linalg.cholesky`` returns NaN
+and the NaN step is then rejected by the cost comparison. ``torch``'s
+``cholesky`` raises (and checks on the host), and ``cholesky_ex`` returns a
+finite partial factor whose step could be accepted; so the port calls
+``cholesky_ex`` and sets the step to NaN where ``info != 0``.
+
+The reference's matrix-free PCG solve (above ``CG_KF_THRESHOLD`` keyframe
+slots, its one ``while_loop``) is not ported: :func:`solve` refuses it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core import camera as cam
+from ..core import geometry, se3
+
+
+class BAProblem(NamedTuple):
+    """Fixed-capacity BA problem.
+
+    poses:     (K, 7) world->cam keyframe poses
+    fixed:     (K,) bool, poses held constant
+    points:    (P, 3) world points
+    obs_uv:    (P, K, 2) unit-plane measurements
+    obs_mask:  (P, K) bool, observation exists
+    """
+
+    poses: torch.Tensor
+    fixed: torch.Tensor
+    points: torch.Tensor
+    obs_uv: torch.Tensor
+    obs_mask: torch.Tensor
+
+
+class BAResult(NamedTuple):
+    poses: torch.Tensor
+    points: torch.Tensor
+    chi2: torch.Tensor          # final robust cost
+    inlier_mask: torch.Tensor   # (P, K) observations that survived gating
+
+
+# keyframe-slot count above which the reference switches the reduced camera
+# system from dense Cholesky to matrix-free PCG
+CG_KF_THRESHOLD = 200
+
+
+def _residuals(poses, points, obs_uv, w_mask):
+    """r (P,K,2), p_cam (P,K,3), front-of-camera mask folded into w."""
+    p_cam = se3.transform(poses[None, :, :], points[:, None, :])
+    uv = cam.project_unit_plane(p_cam)
+    r = obs_uv - uv
+    w = w_mask * (p_cam[..., 2] > 1e-4)
+    return r, p_cam, w.float()
+
+
+def _robust_weights(r, w, huber):
+    """Huber IRLS weights per observation."""
+    n = torch.sqrt(torch.sum(r * r, dim=-1))
+    scale = torch.where(n <= huber, torch.ones_like(n),
+                        huber / n.clamp_min(1e-12))
+    return w * scale
+
+
+def _build_system(poses, points, r, w):
+    """Assemble U, V, W, b_c, b_p for the current linearization."""
+    p_cam = se3.transform(poses[None, :, :], points[:, None, :])
+    Jc = -geometry.jacobian_unit_plane(p_cam)                  # (P,K,2,6)
+    Jp = -geometry.jacobian_point(poses[None, :, :4], p_cam)   # (P,K,2,3)
+
+    U = torch.einsum("pkri,pkrj,pk->kij", Jc, Jc, w)           # (K,6,6)
+    V = torch.einsum("pkri,pkrj,pk->pij", Jp, Jp, w)           # (P,3,3)
+    Wm = torch.einsum("pkri,pkrj,pk->pkij", Jc, Jp, w)         # (P,K,6,3)
+    b_c = torch.einsum("pkri,pkr,pk->ki", Jc, r, w)            # (K,6)
+    b_p = torch.einsum("pkri,pkr,pk->pi", Jp, r, w)            # (P,3)
+    return U, V, Wm, b_c, b_p
+
+
+def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam):
+    """Solve the damped normal equations by marginalizing point blocks.
+    A reduced system that is not positive definite gives a NaN step."""
+    K = U.shape[0]
+    dev = U.device
+    eye3 = torch.eye(3, dtype=V.dtype, device=dev)
+    eye6 = torch.eye(6, dtype=U.dtype, device=dev)
+
+    V_d = V + (lam + 1e-8) * eye3[None]
+    Vinv = torch.linalg.inv_ex(V_d).inverse                    # (P,3,3)
+
+    # S_kl = delta_kl (U_k + lam I) - sum_p W_pk Vinv_p W_pl^T
+    WVinv = torch.einsum("pkij,pjl->pkil", Wm, Vinv)           # (P,K,6,3)
+    S = -torch.einsum("pkil,pmjl->kmij", WVinv, Wm)            # (K,K,6,6)
+    diag = torch.arange(K, device=dev)
+    S[diag, diag] += U + lam * eye6[None]
+
+    rhs = b_c - torch.einsum("pkil,pl->ki", WVinv, b_p)        # (K,6)
+
+    # gauge/fixed handling: zero rows+cols of fixed cameras, identity diag
+    free = (~fixed).to(S.dtype)
+    S = S * free[:, None, None, None] * free[None, :, None, None]
+    S[diag, diag] += (1.0 - free)[:, None, None] * eye6[None]
+    rhs = rhs * free[:, None]
+
+    S_full = S.transpose(1, 2).reshape(K * 6, K * 6)
+    L, info = torch.linalg.cholesky_ex(
+        S_full + 1e-8 * torch.eye(K * 6, dtype=S.dtype, device=dev))
+    dc = torch.cholesky_solve(rhs.reshape(K * 6, 1), L).reshape(K, 6)
+    dc = torch.where(info != 0, torch.full_like(dc, float("nan")), dc)
+
+    # back-substitute points: dp = Vinv (b_p - sum_k W_pk^T dc_k)
+    t = b_p - torch.einsum("pkij,ki->pj", Wm, dc)
+    dp = torch.einsum("pij,pj->pi", Vinv, t)
+    return dc, dp
+
+
+def _robust_chi2(r, w, huber):
+    n2 = torch.sum(r * r, dim=-1)
+    n = torch.sqrt(n2.clamp_min(0.0))
+    rho = torch.where(n <= huber, n2, 2.0 * huber * n - huber * huber)
+    return torch.sum(rho * w)
+
+
+def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
+          gate_thresh: Optional[float] = None) -> BAResult:
+    """Two-stage Levenberg-Marquardt with Schur elimination.
+
+    ``huber`` and ``gate_thresh`` are in unit-plane units (pixels / focal).
+    Stage 1 optimizes with all observations; observations whose squared
+    error exceeds ``gate_thresh**2`` (or with negative depth) are then
+    removed, and stage 2 re-optimizes. Each iteration accepts the step only
+    if the robust cost fell, halving the damping, else quadruples it.
+    """
+    if gate_thresh is None:
+        gate_thresh = huber
+    K = problem.poses.shape[0]
+    if K > CG_KF_THRESHOLD:
+        raise NotImplementedError(
+            f"BA over {K} keyframe slots needs the reference's matrix-free "
+            "PCG solve (above CG_KF_THRESHOLD = 200), which is not ported "
+            "yet: ROADMAP.md, queue 'Left for later'")
+    dev = problem.poses.device
+
+    def lm_run(poses, points, w_mask, iters):
+        r0, _, w0 = _residuals(poses, points, problem.obs_uv, w_mask)
+        prev_chi2 = _robust_chi2(r0, _robust_weights(r0, w0, huber), huber)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+        for _ in range(iters):
+            r, _, w0 = _residuals(poses, points, problem.obs_uv, w_mask)
+            w = _robust_weights(r, w0, huber)
+            U, V, Wm, b_c, b_p = _build_system(poses, points, r, w)
+            dc, dp = _schur_solve(U, V, Wm, b_c, b_p, problem.fixed, lam)
+            new_poses = se3.boxplus(poses, -dc)
+            new_points = points - dp
+            r2, _, w2 = _residuals(new_poses, new_points, problem.obs_uv,
+                                   w_mask)
+            chi2 = _robust_chi2(r2, _robust_weights(r2, w2, huber), huber)
+            accept = chi2 < prev_chi2
+            poses = torch.where(accept, new_poses, poses)
+            points = torch.where(accept, new_points, points)
+            lam = torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-9, 1e3)
+            prev_chi2 = torch.where(accept, chi2, prev_chi2)
+        return poses, points, prev_chi2
+
+    w_mask = problem.obs_mask.float()
+    poses, points, _ = lm_run(problem.poses, problem.points, w_mask,
+                              stage_iters[0])
+
+    # outlier gating between stages
+    r, p_cam, _ = _residuals(poses, points, problem.obs_uv, w_mask)
+    err2 = torch.sum(r * r, dim=-1)
+    keep = (err2 < gate_thresh * gate_thresh) & (p_cam[..., 2] > 1e-4)
+    w_mask2 = w_mask * keep
+
+    poses, points, chi2 = lm_run(poses, points, w_mask2, stage_iters[1])
+    return BAResult(
+        poses=poses, points=points, chi2=chi2,
+        inlier_mask=(w_mask2 > 0) & problem.obs_mask,
+    )

@@ -12,7 +12,10 @@ torch indexes and shifts with:
   reference's uint32 words in their low 32 bits: torch's uint32 has no shifts
   or products, and ``>>`` on int32 is arithmetic.
 
-Slot allocation, covisibility and eviction arrive with the mapping stage.
+Slot allocation is a rank-based scatter (the reference's allocation of a
+new point is "take the next free slot"); rejected items get the index one
+past the end, which :func:`scatter` drops, as the reference's
+``mode="drop"`` scatters do.
 """
 
 from __future__ import annotations
@@ -120,3 +123,103 @@ def empty_map(n_kf: int, n_pts: int, n_cand: int, img_shape: Tuple[int, int],
         for l in range(levels)
     )
     return MapState(**kw)
+
+
+def scatter(t: torch.Tensor, index, values, accumulate: bool = False
+            ) -> torch.Tensor:
+    """``t.at[index].set(values, mode="drop")`` (``.add`` with
+    ``accumulate``), out of place.
+
+    ``index`` is a tuple of integer tensors, one per leading dimension of
+    ``t`` (broadcast against each other); an element whose index is out of
+    range in any dimension (the reference's "drop" slot: the size of that
+    dimension) writes into a dump row that is cut off. With ``accumulate``
+    repeated indices add up, as ``.at[].add`` does; without it the caller
+    makes sure that kept indices do not repeat.
+    """
+    if not isinstance(index, tuple):
+        index = (index,)
+    lead = t.shape[:len(index)]
+    rest = t.shape[len(index):]
+    n = 1
+    for d in lead:
+        n *= d
+    index = torch.broadcast_tensors(*[i.long() for i in index])
+    flat = torch.zeros_like(index[0])
+    drop = torch.zeros_like(index[0], dtype=torch.bool)
+    for i, d in zip(index, lead):
+        flat = flat * d + i.clamp(0, d - 1)
+        drop = drop | (i < 0) | (i >= d)
+    flat = torch.where(drop, torch.full_like(flat, n), flat)
+    out = torch.cat([t.reshape((n,) + rest),
+                     t.new_zeros((1,) + rest)])
+    shape = flat.shape + rest
+    if isinstance(values, torch.Tensor):
+        values = values.to(t.dtype).expand(shape)
+    else:   # a fill, not a host->device copy
+        values = t.new_full(shape, values)
+    out.index_put_((flat,), values, accumulate=accumulate)
+    return out[:n].reshape(t.shape)
+
+
+def set_row(t: torch.Tensor, row: torch.Tensor, value) -> torch.Tensor:
+    """``t.at[row].set(value)``, out of place, for a 0-d in-range row index
+    tensor (no read of the index back to the host)."""
+    if not isinstance(value, torch.Tensor):
+        value = t.new_full(t.shape[1:], value)
+    return t.index_copy(0, row.reshape(1).long(),
+                        value.to(t.dtype).reshape((1,) + t.shape[1:]))
+
+
+def alloc_slots(free: torch.Tensor, incoming_valid: torch.Tensor):
+    """Assign each valid incoming item a free slot index: the i-th valid
+    incoming item takes the i-th free slot (free slots in index order, a
+    stable sort). Returns ``(slots (M,) int64, ok (M,))``; rejected items
+    (invalid, or no free slot left) get ``slots == N``."""
+    N = free.shape[0]
+    order = torch.sort((~free).to(torch.uint8), stable=True)[1]
+    n_free = torch.sum(free)
+    rank = torch.cumsum(incoming_valid.long(), 0) - 1
+    ok = incoming_valid & (rank < n_free) & (rank >= 0)
+    slots = torch.where(ok, order[rank.clamp(0, N - 1)],
+                        torch.full_like(rank, N))
+    return slots, ok
+
+
+def covisibility(m: MapState) -> torch.Tensor:
+    """(K, K) shared-point counts between valid keyframes (diagonal 0)."""
+    obs = m.obs_mask.float()
+    covis = obs @ obs.T
+    v = m.kf_valid.float()
+    covis = covis * v[:, None] * v[None, :]
+    return covis - torch.diag(torch.diag(covis))
+
+
+def covisibility_row(m: MapState, kf: torch.Tensor) -> torch.Tensor:
+    """Row ``kf`` of :func:`covisibility` (float32 counts), without the
+    (K, K) product."""
+    row_obs = m.obs_mask.index_select(0, kf.reshape(1).long())   # (1, P)
+    counts = torch.sum(m.obs_mask & row_obs, dim=1).float()
+    kf_valid_row = m.kf_valid.index_select(0, kf.reshape(1).long())
+    counts = counts * m.kf_valid.float() * kf_valid_row.float()
+    self_ = torch.arange(m.kf_valid.shape[0], device=counts.device) \
+        == kf.reshape(1)
+    return torch.where(self_, torch.zeros_like(counts), counts)
+
+
+def best_connections(m: MapState, kf: torch.Tensor, n: int):
+    """Top-n covisible keyframe slots of ``kf``; equal counts keep slot
+    order (a stable sort, as the reference's ``top_k``). Returns
+    ``(idx (n,) int64, counts (n,) float32)``."""
+    row = covisibility_row(m, kf)
+    counts, idx = torch.sort(row, descending=True, stable=True)
+    return idx[:n], counts[:n]
+
+
+def kf_slot_to_evict(m: MapState, cur_pos: torch.Tensor) -> torch.Tensor:
+    """Furthest valid keyframe from the current camera position (the
+    first one on a tie)."""
+    centers = se3.translation(se3.inverse(m.kf_pose))
+    d = torch.sqrt(torch.sum((centers - cur_pos) ** 2, dim=-1))
+    d = torch.where(m.kf_valid, d, torch.full_like(d, float("-inf")))
+    return torch.argmax(d)

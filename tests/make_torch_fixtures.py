@@ -1,8 +1,8 @@
-"""Build the map and query fixtures that the PyTorch port's GPU smoke run loads.
+"""Build the fixtures that the PyTorch port's GPU smoke run loads.
 
 The GPU machine that runs ``chip_smoke.py`` has neither JAX nor OpenCV, so
-the frozen map and the query frames are produced once, on a CPU, with the JAX
-package, and committed under ``tests/data/``:
+the reference runs are made once, on a CPU, with the JAX package, and
+committed under ``tests/data/``:
 
 * ``torch_localize_map.npz`` -- a ``FORMAT_VERSION 1`` stream snapshot
   (``sdvl_tpu.io.snapshot.save_stream_snapshot``) of a SLAM stream over 40
@@ -13,10 +13,20 @@ package, and committed under ``tests/data/``:
   their ground-truth poses, the JAX localizer's own per-frame result on them
   (fused detection off, ``seed=1``) and the Gumbel noise its pose RANSAC drew
   for each frame, so that the port can be fed the same draws.
+* ``torch_slam_record.npz`` (``--slam-record``, which writes this file
+  only) -- the JAX SLAM stream in full SLAM mode over the same 40 frames at
+  the same preset, fused detection on (the Pallas kernel in interpret
+  mode), so that the card's fused route is held to the same detection
+  function: the SHA-256 of the uint8 frames (the GPU run renders them
+  itself), the ground-truth poses, every random draw of the run (the
+  homography and ground-plane RANSAC noise, and the pose-RANSAC noise of
+  each frame that tracks), the per-frame record and the final map's
+  keyframe count, keyframe frame ids and point count.
 
 Run from the repository root (CPU is enough, a few minutes of XLA compile):
 
     JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py --slam-record
 """
 
 from __future__ import annotations
@@ -68,15 +78,130 @@ def ransac_gumbel(key, frame_id: int, n_hyp: int, n_lanes: int) -> np.ndarray:
     return np.asarray(g)
 
 
+def homography_gumbel(key, n_corners: int, n_hyp: int = 128) -> np.ndarray:
+    """The (n_hyp, n_corners) Gumbel noise of the two-view bootstrap's
+    homography RANSAC on a stream whose carry holds ``key`` (the same on
+    every SECOND-state attempt)."""
+    import jax
+
+    keys = jax.random.split(jax.random.fold_in(key, 0), n_hyp)
+    g = jax.vmap(
+        lambda kk: jax.random.gumbel(kk, (n_corners,), jax.numpy.float32)
+    )(keys)
+    return np.asarray(g)
+
+
+def plane_gumbel(key, n_points: int, iters: int = 64) -> np.ndarray:
+    """The (iters, n_points) Gumbel noise of the ground-plane RANSAC that
+    aligns the freshly seeded map."""
+    import jax
+
+    k1, _ = jax.random.split(jax.random.fold_in(key, 1))
+    keys = jax.random.split(k1, iters)
+    g = jax.vmap(
+        lambda kk: jax.random.gumbel(kk, (n_points,), jax.numpy.float32)
+    )(keys)
+    return np.asarray(g)
+
+
+def frames_sha256(frames) -> str:
+    """SHA-256 over the uint8 frames, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in frames:
+        h.update(np.ascontiguousarray(f, np.uint8).tobytes())
+    return h.hexdigest()
+
+
+def slam_record(out_dir: str) -> str:
+    """Write ``torch_slam_record.npz``; returns its path."""
+    import dataclasses
+    import functools
+
+    import sdvl_tpu.ops.pallas.detect as pallas_detect
+    from sdvl_tpu.pipeline.stream import SdvlStream
+
+    # the Pallas kernel on the CPU: interpret mode (ops/fast.py imports the
+    # function at call time)
+    pallas_detect.fast_shi_tomasi_map = functools.partial(
+        pallas_detect.fast_shi_tomasi_map, interpret=True)
+
+    scene, cfg = preset_setup()
+    cfg = dataclasses.replace(cfg, sdvl=dataclasses.replace(
+        cfg.sdvl, use_pallas_detect=True))
+    poses_gt = scene.trajectory(N_MAP_FRAMES, translation_amp=1.0)
+    frames = [np.clip(scene.render(p), 0, 255).astype(np.uint8)
+              for p in poses_gt]
+
+    slam = SdvlStream(cfg, seed=0, donate=False)
+    for f in frames:
+        slam.feed(f)
+    r = slam.result()
+    print("slam record: states", r.states.tolist())
+    print("slam record: keyframes", r.is_keyframe.astype(int).tolist())
+    print("slam record: matches", r.n_matches.tolist())
+
+    key = slam.carry.key
+    s = cfg.sdvl
+    n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
+    n_lanes = int(slam.carry.last_idx.shape[0])
+    n_corners = int(slam.carry.c1_xy.shape[0])
+    # frames that track (state before the frame RUNNING or LOST) draw
+    # pose-RANSAC noise from fold_in(key, frame_id)
+    before = np.concatenate([[0], r.states[:-1]])
+    pose_frames = np.nonzero(before >= 2)[0].astype(np.int32)
+    pose_noise = np.stack([ransac_gumbel(key, int(i), n_hyp, n_lanes)
+                           for i in pose_frames])
+    # the per-frame world re-basing (non-identity at ground-plane alignment)
+    world_tf = np.asarray(np.concatenate(
+        [i.world_tf[None] for _, i in slam._infos]))
+
+    path = os.path.join(out_dir, "torch_slam_record.npz")
+    np.savez_compressed(
+        path,
+        frames_sha256=np.frombuffer(frames_sha256(frames).encode(),
+                                    dtype=np.uint8),
+        frame_shape=np.asarray(frames[0].shape, np.int32),
+        poses_gt=np.stack(poses_gt).astype(np.float32),
+        homography_gumbel=homography_gumbel(key, n_corners),
+        plane_gumbel=plane_gumbel(key, s.max_points),
+        pose_frames=pose_frames,
+        pose_gumbel=pose_noise.astype(np.float32),
+        jax_pose=r.poses_raw.astype(np.float32),
+        jax_world_tf=world_tf.astype(np.float32),
+        jax_trajectory=r.trajectory.astype(np.float32),
+        jax_state=r.states.astype(np.int32),
+        jax_quality=r.quality.astype(np.int32),
+        jax_n_matches=r.n_matches.astype(np.int32),
+        jax_n_attempts=r.n_attempts.astype(np.int32),
+        jax_is_keyframe=r.is_keyframe,
+        jax_n_corners=r.n_corners.astype(np.int32),
+        jax_median_shift=r.median_shift.astype(np.float32),
+        jax_n_keyframes=np.asarray(slam.m.n_keyframes, np.int32),
+        jax_kf_frame_id=np.asarray(slam.m.kf_frame_id, np.int32),
+        jax_n_points=np.asarray(np.sum(np.asarray(slam.m.pt_valid)),
+                                np.int32),
+    )
+    print(path, os.path.getsize(path) / 1e6, "MB")
+    return path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "data"))
+    ap.add_argument("--slam-record", action="store_true",
+                    help="write torch_slam_record.npz only")
     args = ap.parse_args(argv)
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.slam_record:
+        os.makedirs(args.out, exist_ok=True)
+        slam_record(args.out)
+        return
 
     from sdvl_tpu.io.snapshot import save_stream_snapshot
     from sdvl_tpu.pipeline.stream import SdvlStream

@@ -45,6 +45,9 @@ def test_port_package_mirrors_the_reference_layout():
         "pipeline/matcher.py", "pipeline/tracker.py",
         "pipeline/relocalize.py", "pipeline/device_fsm.py",
         "pipeline/stream.py", "io/snapshot.py",
+        "solvers/homography.py", "solvers/ba.py", "pipeline/bootstrap.py",
+        "pipeline/depth_filter.py", "pipeline/mapper.py",
+        "io/synthetic.py", "io/evaluate.py",
     ]
     for rel in pairs:
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu", rel)), rel

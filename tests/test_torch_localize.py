@@ -220,13 +220,6 @@ def test_cuda_without_a_card_raises(mapped):
         t_load(snap)
 
 
-def test_full_slam_mode_not_ported(mapped):
-    _, cfg_t, _, _, _ = mapped
-    assert cfg_t.sdvl.localize_only is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStream(cfg_t, device="cpu")
-
-
 def test_default_noise_comes_from_the_generator(mapped):
     """Without a provider the stream draws its RANSAC noise from its own
     torch.Generator: same seed, same run; and it still localizes."""

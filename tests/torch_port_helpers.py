@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from make_torch_fixtures import ransac_gumbel  # noqa: F401  (re-exported)
+from make_torch_fixtures import (homography_gumbel, plane_gumbel,  # noqa: F401
+                                 ransac_gumbel)  # (re-exported)
 
 
 def T(x, dtype=None) -> torch.Tensor:
@@ -98,3 +99,47 @@ def mapped_stream(n=30, extra=0):
     for f in frames[:n]:
         slam.feed(f)
     return cfg_j, cfg_t, frames, poses_gt, slam
+
+
+def with_knobs(cfg, **knobs):
+    """``cfg`` with ``knobs`` set on its ``sdvl`` section."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, sdvl=dataclasses.replace(cfg.sdvl,
+                                                             **knobs))
+
+
+def jax_draws(cfg_t, key):
+    """A port ``Draws`` holding the numbers a JAX stream whose carry holds
+    ``key`` draws: pose-RANSAC noise of frame ``i`` of a fresh stream, and
+    the bootstrap's homography and ground-plane noise."""
+    import functools
+
+    from sdvl_tpu_torch.pipeline.device_fsm import lane_counts
+    from sdvl_tpu_torch.pipeline.stream import Draws
+
+    s = cfg_t.sdvl
+    n_corners, n_lanes = lane_counts(cfg_t)
+    n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
+    pose = functools.lru_cache(maxsize=None)(
+        lambda i: ransac_gumbel(key, i, n_hyp, n_lanes))
+    return Draws(pose=pose, homography=homography_gumbel(key, n_corners),
+                 plane=plane_gumbel(key, s.max_points))
+
+
+def slam_pair(cfg_j, cfg_t, frames, seed=0):
+    """The JAX SLAM stream and the port's (CPU, fed the JAX draws) over the
+    same frames, frame by frame. Returns (jax stream, jax result, port
+    stream, port result)."""
+    from sdvl_tpu.pipeline.stream import SdvlStream as JStream
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
+
+    js = JStream(cfg_j, seed=seed, donate=False)
+    for f in frames:
+        js.feed(f)
+    rj = js.result()
+    ts = TStream(cfg_t, seed=seed, device="cpu",
+                 gumbel_provider=jax_draws(cfg_t, js.carry.key))
+    for f in frames:
+        ts.feed(f)
+    return js, rj, ts, ts.result()
