@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch/CUDA port: full SLAM mode and serving, on one card.
+"""GPU smoke run of the PyTorch/CUDA port: full SLAM mode, serving and the
+command-line program, on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU, ``nvcc`` and
 PyTorch built for CUDA:
@@ -22,7 +23,8 @@ run with a non-zero exit code:
    events, the device time of one launch (many launches replayed from a
    CUDA graph), one eager call of the launch and of the wrapper with its
    cell decode, the plain version, and one eager ``detect_pyramid`` call on
-   the first query frame, plain route against fused.
+   the first query frame, through the kernel against through its plain
+   version.
 4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
    (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
    keyframe / 4096 point / 512 candidate slots, fused detection) from an
@@ -48,10 +50,32 @@ run with a non-zero exit code:
    ``feed_chunk`` with the recorded RANSAC noise, ``result()``; checks
    relocalization, tracking, accuracy against ground truth, that the map is
    untouched and that every frame launched the kernel exactly once.
-6. prints one JSON line ``{"kernels": [...]}`` and, last,
+6. cli     -- the command-line program, ``sdvl_tpu_torch.cli.run.main``
+   in process on the card, over 85 ``PlaneScene`` frames (plus 6 for a
+   resumed session) rendered through the lens of ``configs/tum_f1.cfg``
+   (its intrinsics and d1..d5) and written as binary PGM files with image
+   lists. Five runs, each counting the kernel's launches (one per frame),
+   the synchronisations inside each frame's call and printing frames/s:
+   (1) ``--stream --global-ba --output --snapshot`` with the config as
+   shipped (1000 keyframe slots): RUNNING from the bootstrap on, Sim(3) ATE
+   under 3 % of the extent before and after global BA, global BA on the PCG
+   path, 85 finite TUM rows, the snapshot loads in ``SdvlStream``; (2) the
+   same at 100 slots: states and keyframe flags equal run 1's, centres
+   within 1e-4 of the extent; then ``mapper.global_ba`` on its final map
+   at 100 slots (Cholesky) and padded to 1000 (PCG): poses within 5e-4,
+   points within 5e-3; (3) the host driver with ``--trace --snapshot``:
+   trajectory within 1e-4 of run 2's, ``n_matches`` within 1 on at most
+   15 % of RUNNING frames, the trace holds ``preprocess`` and ``track``;
+   (4) ``--async-mapping``: the criteria of
+   ``tests/test_runtime_async.py``; (5) ``--resume`` of run 3's snapshot
+   over 6 more frames, and ``--stream --localize`` of run 1's map on frames
+   8-31 (RUNNING within 5 frames and on the last 5, ATE under 5 %).
+7. prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``. The kernel's ``launches``, ``frames``
    and ``frames_per_s`` are the slam phase's warm run; ``launches_by_path``
-   and ``frames_by_path`` give each path's count beside its frames.
+   and ``frames_by_path`` give each path's count beside its frames (the
+   cli phase's stream, host and async runs as ``cli_stream``, ``cli_host``,
+   ``cli_async``).
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 ``sdvl_tpu``. The fixtures under ``tests/data/`` are made by
@@ -60,9 +84,11 @@ It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,7 +130,7 @@ def gpu_line() -> str:
 
 
 def preset_config(localize_only: bool = True):
-    """The tum_f1 preset shape, fused detection on."""
+    """The tum_f1 preset shape."""
     from sdvl_tpu_torch.pipeline.config import (CameraConfig, Config,
                                                 SdvlConfig)
 
@@ -113,7 +139,7 @@ def preset_config(localize_only: bool = True):
         max_points=4096, max_candidates=512, fast_threshold=10.0,
         cell_size=32, pyramid_levels=5, max_fast_levels=3,
         min_avg_shift=10.0, min_keyframe_its=15, min_init_corners=40,
-        map_scale=4.0, localize_only=localize_only, use_fused_detect=True,
+        map_scale=4.0, localize_only=localize_only,
     )
     return Config(
         camera=CameraConfig(width=640, height=480, fx=517.3, fy=516.5,
@@ -281,23 +307,32 @@ def check_launch(name: str, levels, cell: int = 32, timed: bool = True) -> dict:
 
 
 def time_detect_pyramid(cfg, pyr) -> dict:
-    """One eager ``detect_pyramid`` call as the step makes it (no lock),
-    plain route against fused, in turns: plain, fused, fused, plain."""
+    """One eager ``detect_pyramid`` call as the step makes it (no lock), the
+    kernel against the same call with the kernel's plain version in the
+    wrapper's place, in turns: plain, kernel, kernel, plain."""
     from sdvl_tpu_torch.ops import fast
+    from sdvl_tpu_torch.ops.cuda import detect
 
     s = cfg.sdvl
 
-    def run(use_fused):
-        return lambda: fast.detect_pyramid(
+    def call():
+        return fast.detect_pyramid(
             pyr, levels=s.max_fast_levels, cell=s.cell_size,
             fast_threshold=s.fast_threshold,
-            st_threshold=s.min_feature_score, max_features=s.num_features,
-            use_fused=use_fused)
+            st_threshold=s.min_feature_score, max_features=s.num_features)
 
-    t = [time_ms(run(f), reps=10, inner=5) for f in (False, True, True, False)]
+    def plain():
+        kernel = detect.fast_shi_tomasi_cells
+        detect.fast_shi_tomasi_cells = detect.fast_shi_tomasi_cells_plain
+        try:
+            return call()
+        finally:
+            detect.fast_shi_tomasi_cells = kernel
+
+    t = [time_ms(f, reps=10, inner=5) for f in (plain, call, call, plain)]
     out = dict(plain_ms=[t[0], t[3]], fused_ms=[t[1], t[2]])
     say("kernel", f"detect_pyramid on the first query frame, ms per eager "
-                  f"call: plain route {t[0]:.4f} / {t[3]:.4f}, fused "
+                  f"call: plain version {t[0]:.4f} / {t[3]:.4f}, kernel "
                   f"{t[1]:.4f} / {t[2]:.4f}")
     return out
 
@@ -655,6 +690,416 @@ def run_slice(cfg, query, count_launches: bool):
     return r, seconds, launches, loc
 
 
+# ------------------------------------------------------------------ cli
+TUM_F1_CFG = os.path.join(ROOT, "configs", "tum_f1.cfg")
+CLI_FRAMES = 85
+CLI_RESUME_FRAMES = 6
+CLI_QUERY = (8, 32)          # frames served by the localizer run
+MATCHES = re.compile(r"matches\s+(\d+)/\s*(\d+)")
+
+
+def write_cli_sequence(cfg_path: str, out_dir: str):
+    """``CLI_FRAMES + CLI_RESUME_FRAMES`` ``PlaneScene`` frames rendered by
+    the port's ``io/synthetic.py`` through the lens of ``cfg_path`` (its
+    size, intrinsics and d1..d5), written as binary PGM files, with image
+    lists ``files.txt`` (the run), ``resume.txt`` (the frames after it) and
+    ``query.txt`` (``CLI_QUERY``). Returns the ground-truth poses."""
+    from sdvl_tpu_torch.io.synthetic import PlaneScene
+    from sdvl_tpu_torch.pipeline.config import load_cfg
+
+    c = load_cfg(cfg_path).camera
+    scene = PlaneScene(fx=c.fx, fy=c.fy, cx=c.u0, cy=c.v0, width=c.width,
+                       height=c.height, plane_z=4.0, dist=c.dist)
+    n = CLI_FRAMES + CLI_RESUME_FRAMES
+    poses = np.stack(scene.trajectory(n, translation_amp=1.0))
+    names = [f"frame_{i:04d}.pgm" for i in range(n)]
+    for name, p in zip(names, poses):
+        img = np.clip(scene.render(p), 0, 255).astype(np.uint8)
+        with open(os.path.join(out_dir, name), "wb") as f:
+            f.write(b"P5\n%d %d\n255\n" % (c.width, c.height) + img.tobytes())
+    lists = {"files.txt": names[:CLI_FRAMES],
+             "resume.txt": names[CLI_FRAMES:],
+             "query.txt": names[CLI_QUERY[0]:CLI_QUERY[1]]}
+    for fname, rows in lists.items():
+        with open(os.path.join(out_dir, fname), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return poses
+
+
+@contextlib.contextmanager
+def ba_solves():
+    """Collect the ``BAResult`` of every ``ba.solve`` made inside the block
+    (``mapper.global_ba`` keeps only the map)."""
+    from unittest import mock
+
+    from sdvl_tpu_torch.solvers import ba
+
+    solves, solve = [], ba.solve
+
+    def recorded(*args, **kwargs):
+        solves.append(solve(*args, **kwargs))
+        return solves[-1]
+
+    with mock.patch.object(ba, "solve", recorded):
+        yield solves
+
+
+def run_cli(argv, device: str = "cuda") -> dict:
+    """``sdvl_tpu_torch.cli.run.main(argv)`` in process, its standard output
+    captured. Counts the detection kernel's launches, the synchronisations
+    inside each frame's call (``feed`` / ``handle_frame``, through
+    ``set_sync_debug_mode`` on the card) and records what the end-of-run
+    global BA saw: the trajectory and map before it, the trajectory after,
+    its time and the PCG iterations of each LM step."""
+    import io
+    from unittest import mock
+
+    from sdvl_tpu_torch.cli import run as cli
+    from sdvl_tpu_torch.ops.cuda import detect
+    from sdvl_tpu_torch.pipeline import runtime
+    from sdvl_tpu_torch.pipeline.sdvl import SDVL
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+
+    on_card = device == "cuda"
+    rec = {"frame_syncs": [], "mappers": [], "sync_sites": {}}
+    caught = []
+
+    def counted(fn):
+        def wrapper(self, *a, **k):
+            n0 = len(caught)
+            out = fn(self, *a, **k)
+            new = [w for w in caught[n0:] if "synchroniz" in str(w.message)]
+            rec["frame_syncs"].append(len(new))
+            for w in new:
+                site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                rec["sync_sites"][site] = rec["sync_sites"].get(site, 0) + 1
+            return out
+        return wrapper
+
+    apply_gba = cli._apply_global_ba
+
+    def recorded_gba(slam, cfg, traj, traj_ids):
+        if isinstance(slam, SdvlStream):
+            rec["result"] = slam.result()
+        rec["map_before"] = slam.m
+        rec["traj_before"] = np.array(traj, copy=True)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ba_solves() as solves:
+            out = apply_gba(slam, cfg, traj, traj_ids)
+        if on_card:
+            torch.cuda.synchronize()
+        rec["gba_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["cg_iterations"] = [n for r in solves for n in r.cg_iterations]
+        return out
+
+    class RecordedMapper(runtime.AsyncMapper):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rec["mappers"].append(self)
+
+    buf = io.StringIO()
+    detect.launch_count = 0
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            SdvlStream, "feed", counted(SdvlStream.feed)))
+        stack.enter_context(mock.patch.object(
+            SDVL, "handle_frame", counted(SDVL.handle_frame)))
+        stack.enter_context(mock.patch.object(cli, "_apply_global_ba",
+                                              recorded_gba))
+        stack.enter_context(mock.patch.object(runtime, "AsyncMapper",
+                                              RecordedMapper))
+        caught = stack.enter_context(warnings.catch_warnings(record=True))
+        warnings.simplefilter("always")
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+            stack.callback(torch.cuda.set_sync_debug_mode, 0)
+        t0 = time.perf_counter()
+        rc = cli.main(["--device", device, *argv])
+        rec["wall_s"] = time.perf_counter() - t0
+    assert rc == 0, rc
+    rec["launches"] = detect.launch_count
+    rec["lines"] = buf.getvalue().splitlines()
+    summaries = [json.loads(ln) for ln in rec["lines"] if ln.startswith("{")]
+    assert len(summaries) == 1, rec["lines"][-20:]
+    rec["summary"] = summaries[0]
+    rec["syncs"] = sum(1 for w in caught if "synchroniz" in str(w.message))
+    frame_lines = [ln for ln in rec["lines"]
+                   if ln.startswith("[INFO] frame ")]
+    rec["states"] = [ln.split()[3] for ln in frame_lines]
+    rec["n_matches"] = [int(MATCHES.search(ln).group(1))
+                        for ln in frame_lines]
+    return rec
+
+
+def tum_rows(path: str, n: int) -> np.ndarray:
+    rows = np.loadtxt(path, ndmin=2)
+    assert rows.shape == (n, 8), rows.shape
+    assert np.isfinite(rows).all(), "non-finite trajectory row"
+    return rows
+
+
+def tum_from_poses(poses: np.ndarray) -> np.ndarray:
+    """World->cam poses (N, 7) as TUM columns tx ty tz qx qy qz qw."""
+    from sdvl_tpu_torch.core import se3
+
+    inv = se3.inverse(torch.from_numpy(np.asarray(poses, np.float32)))
+    inv = inv.numpy()
+    return np.concatenate([inv[:, 4:], inv[:, 1:4], inv[:, :1]], axis=1)
+
+
+def sim3_ate_pct(centres: np.ndarray, poses_gt: np.ndarray) -> float:
+    """Sim(3)-aligned ATE of camera centres in % of the ground truth's
+    extent."""
+    gt = camera_centres(poses_gt)
+    extent = float(np.linalg.norm(np.ptp(gt, axis=0)))
+    return 100.0 * umeyama_ate(np.asarray(centres, np.float64), gt) / extent
+
+
+def pad_keyframe_slots(m, n_slots: int):
+    """The map with its keyframe capacity raised to ``n_slots`` (new slots
+    empty, as ``empty_map`` makes them)."""
+    from sdvl_tpu_torch.state.map_state import empty_map
+
+    K, P, C = m.capacities
+    levels = len(m.kf_pyr)
+    H, W = m.kf_pyr[0].shape[1:]
+    e = empty_map(n_kf=n_slots - K, n_pts=P, n_cand=C, img_shape=(H, W),
+                  levels=levels, device=m.kf_pose.device)
+    kf_fields = ("kf_pose", "kf_valid", "kf_frame_id", "obs_mask", "obs_px",
+                 "obs_level")
+    out = {f: torch.cat([getattr(m, f), getattr(e, f)]) for f in kf_fields}
+    out["kf_pyr"] = tuple(torch.cat([a, b]) for a, b in zip(m.kf_pyr,
+                                                             e.kf_pyr))
+    return m._replace(**out)
+
+
+def per_frame(rec, card: str) -> str:
+    s = rec["summary"]
+    n = len(rec["frame_syncs"])
+    sites = sorted(rec["sync_sites"].items(), key=lambda kv: -kv[1])
+    return (f"{s['fps']} frames/s, {s['mean_ms']} ms per frame (the CLI's "
+            f"steady-state numbers), {rec['wall_s']:.1f} s in all; "
+            f"{np.mean(rec['frame_syncs']):.2f} synchronisations per frame "
+            f"({sum(rec['frame_syncs'])} in {n} frames, {rec['syncs']} in "
+            f"the whole run; by site {dict(sites[:8])}); detection kernel "
+            f"{rec['launches']} launches in {n} frames; on {card}")
+
+
+def run_cli_phase(card: str, device: str = "cuda",
+                  cfg_path: str = TUM_F1_CFG) -> dict:
+    """Phase 6 (see the module docstring)."""
+    from sdvl_tpu_torch.io.snapshot import load_stream_snapshot
+    from sdvl_tpu_torch.pipeline import mapper
+    from sdvl_tpu_torch.pipeline.config import intrinsics, load_cfg
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+    from sdvl_tpu_torch.solvers import ba
+
+    out = {}
+    n = CLI_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        poses = write_cli_sequence(cfg_path, tmp)
+        cfg = load_cfg(cfg_path)
+        K = cfg.sdvl.max_keyframes
+        assert K > ba.CG_KF_THRESHOLD and any(cfg.camera.dist), (
+            "the cli phase runs the shipped capacity and a distorted lens")
+        say("cli", f"rendered {len(poses)} frames at {cfg.camera.height}x"
+                   f"{cfg.camera.width} through the lens of "
+                   f"{os.path.relpath(cfg_path, ROOT)} (d = "
+                   f"{cfg.camera.dist}) in {time.perf_counter() - t0:.1f} s")
+        cfg100 = os.path.join(tmp, "capacity100.cfg")
+        with open(cfg_path) as f:
+            text = f.read()
+        assert f"SDVL.max_keyframes: {K}" in text
+        with open(cfg100, "w") as f:
+            f.write(text.replace(f"SDVL.max_keyframes: {K}",
+                                 "SDVL.max_keyframes: 100"))
+        p = {name: os.path.join(tmp, name) for name in (
+            "s1.npz", "s1.txt", "s2.txt", "s3.npz", "s3.txt", "s3.json",
+            "s4.txt", "s5.txt")}
+        gt = poses[:n]
+
+        # 1. the stream at the shipped capacity, global BA at the end
+        r1 = run_cli(["--config", cfg_path, "--images", tmp, "--stream",
+                      "--global-ba", "--output", p["s1.txt"], "--snapshot",
+                      p["s1.npz"], "--quiet"], device)
+        res1 = r1["result"]
+        running = res1.states == 2
+        start = int(np.argmax(running))
+        assert running.any() and running[start:].all(), res1.states.tolist()
+        ate_before = sim3_ate_pct(
+            camera_centres(r1["traj_before"][start:]), gt[start:])
+        rows1 = tum_rows(p["s1.txt"], n)
+        ate_after = sim3_ate_pct(rows1[start:, 1:4], gt[start:])
+        assert ate_before < 3.0 and ate_after < 3.0, (ate_before, ate_after)
+        assert r1["cg_iterations"], "global BA did not take the PCG path"
+        assert r1["launches"] == n, r1["launches"]
+        st = SdvlStream(cfg, device=device)
+        load_stream_snapshot(st, p["s1.npz"])
+        assert st.m.capacities[0] == K
+        cg1 = r1["cg_iterations"]
+        say("cli", f"run 1, --stream --global-ba at {K} keyframe slots: "
+                   f"{r1['summary']}; RUNNING from frame {start} to the end, "
+                   f"keyframes {res1.is_keyframe.astype(int).tolist()}")
+        say("cli", f"run 1: Sim(3) ATE {ate_before:.4f} % of the extent "
+                   f"before global BA, {ate_after:.4f} % after; global BA "
+                   f"(PCG, {K} slots) {r1['gba_ms']:.1f} ms, CG iterations "
+                   f"per LM step {cg1}; TUM file {n} finite rows; the "
+                   f"snapshot loads in SdvlStream")
+        say("cli", "run 1: " + per_frame(r1, card))
+        out["stream"] = dict(summary=r1["summary"], launches=r1["launches"],
+                             frames=n, syncs_per_frame=float(
+                                 np.mean(r1["frame_syncs"])),
+                             ate_pct_before=ate_before,
+                             ate_pct_after=ate_after,
+                             global_ba_ms=r1["gba_ms"], cg_iterations=cg1)
+
+        # 2. the same run at 100 keyframe slots
+        r2 = run_cli(["--config", cfg100, "--images", tmp, "--stream",
+                      "--global-ba", "--output", p["s2.txt"], "--quiet"],
+                     device)
+        res2 = r2["result"]
+        assert (res2.states == res1.states).all(), "states differ"
+        assert (res2.is_keyframe == res1.is_keyframe).all(), "keyframes"
+        extent = float(np.linalg.norm(np.ptp(camera_centres(gt), axis=0)))
+        d_cap = float(np.abs(camera_centres(r2["traj_before"])
+                             - camera_centres(r1["traj_before"])).max())
+        assert d_cap <= 1e-4 * extent, (d_cap, extent)
+        assert r2["launches"] == n and not r2["cg_iterations"]
+        # PCG against the dense solve on one map: run 2's final map as it
+        # is (100 slots, Cholesky) and padded to the shipped capacity (PCG)
+        m2 = r2["map_before"]
+        intr = intrinsics(load_cfg(cfg100))
+        timed = {}
+        for name, m in (("dense", m2), ("pcg", pad_keyframe_slots(m2, K))):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ba_solves() as solves:
+                m_new = mapper.global_ba(m, intr)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            timed[name] = (m_new, 1e3 * (time.perf_counter() - t0),
+                           [n for r in solves for n in r.cg_iterations])
+        (md, ms_d, _), (mp, ms_p, cg_p) = timed["dense"], timed["pcg"]
+        assert cg_p and not timed["dense"][2]
+        kv = md.kf_valid.cpu().numpy()
+        pv = md.pt_valid.cpu().numpy()
+        d_pose = float(np.abs(mp.kf_pose[:100].cpu().numpy()[kv]
+                              - md.kf_pose.cpu().numpy()[kv]).max())
+        d_pt = float(np.abs(mp.pt_pos.cpu().numpy()[pv]
+                            - md.pt_pos.cpu().numpy()[pv]).max())
+        assert d_pose <= 5e-4 and d_pt <= 5e-3, (d_pose, d_pt)
+        say("cli", f"run 2, 100 keyframe slots: states and keyframe flags "
+                   f"equal run 1's, camera centres within {d_cap:.3g} "
+                   f"(extent {extent:.4f}); " + per_frame(r2, card))
+        say("cli", f"global BA on run 2's map ({int(kv.sum())} keyframes, "
+                   f"{int(pv.sum())} points): dense Cholesky at 100 slots "
+                   f"{ms_d:.1f} ms, PCG at {K} slots {ms_p:.1f} ms with CG "
+                   f"iterations per LM step {cg_p}; poses within {d_pose:.3g} "
+                   f"(<= 5e-4), points within {d_pt:.3g} (<= 5e-3)")
+        out["capacity100"] = dict(summary=r2["summary"],
+                                  max_centre_diff=d_cap,
+                                  global_ba_dense_ms=ms_d,
+                                  global_ba_pcg_ms=ms_p,
+                                  pcg_cg_iterations=cg_p,
+                                  pcg_vs_dense_pose=d_pose,
+                                  pcg_vs_dense_point=d_pt)
+
+        # 3. the host driver, 100 slots, traced
+        r3 = run_cli(["--config", cfg100, "--images", tmp, "--trace",
+                      p["s3.json"], "--snapshot", p["s3.npz"], "--output",
+                      p["s3.txt"]], device)
+        rows3 = tum_rows(p["s3.txt"], n)
+        d_host = float(np.abs(rows3[:, 1:8]
+                              - tum_from_poses(r2["traj_before"])).max())
+        assert d_host <= 1e-4, d_host
+        run2 = res2.states == 2
+        run2[start] = False       # the stream reports inliers there
+        dm = np.abs(np.asarray(r3["n_matches"]) - res2.n_matches)[run2]
+        assert dm.max() <= 1 and (dm > 0).mean() <= 0.15, dm.tolist()
+        with open(p["s3.json"]) as f:
+            trace = json.load(f)
+        assert "preprocess" in trace and "track" in trace, sorted(trace)
+        assert r3["launches"] == n
+        say("cli", f"run 3, host driver, 100 slots: trajectory within "
+                   f"{d_host:.3g} of run 2's, n_matches off by "
+                   f"{int(dm.max())} on {int((dm > 0).sum())} of "
+                   f"{int(run2.sum())} RUNNING frames; trace spans "
+                   + ", ".join(f"{k} {v['mean_ms']} ms" for k, v in
+                               trace.items()))
+        say("cli", "run 3: " + per_frame(r3, card))
+        out["host"] = dict(summary=r3["summary"], launches=r3["launches"],
+                           frames=n, max_traj_diff=d_host,
+                           syncs_per_frame=float(np.mean(r3["frame_syncs"])),
+                           trace=trace)
+
+        # 4. the host driver with the async mapper
+        r4 = run_cli(["--config", cfg100, "--images", tmp,
+                      "--async-mapping", "--output", p["s4.txt"]], device)
+        states4 = np.asarray(r4["states"])
+        mapper4 = r4["mappers"][0]
+        running4 = states4 == "RUNNING"
+        nm4 = np.asarray(r4["n_matches"])[running4]
+        min_m = cfg.sdvl.min_matches
+        rows4 = tum_rows(p["s4.txt"], n)
+        ate4 = sim3_ate_pct(rows4[running4, 1:4], gt[running4])
+        assert mapper4.processed > 0 and states4[-1] == "RUNNING"
+        assert running4.mean() >= 18 / 26, states4.tolist()
+        assert (nm4 >= min_m).mean() > 0.8, nm4.tolist()
+        assert r4["summary"]["points"] >= 30
+        assert r4["summary"]["keyframes"] >= 2
+        assert ate4 < 5.0, ate4
+        assert r4["launches"] == n
+        say("cli", f"run 4, --async-mapping: mapper processed "
+                   f"{mapper4.processed} items, dropped "
+                   f"{mapper4.dropped_frames} frames; {int(running4.sum())} "
+                   f"of {n} frames RUNNING, {(nm4 >= min_m).mean():.2f} of "
+                   f"them >= {min_m} matches; ATE {ate4:.4f} %")
+        say("cli", "run 4: " + per_frame(r4, card))
+        out["async"] = dict(summary=r4["summary"], launches=r4["launches"],
+                            frames=n, ate_pct=ate4,
+                            processed=mapper4.processed,
+                            dropped=mapper4.dropped_frames,
+                            syncs_per_frame=float(
+                                np.mean(r4["frame_syncs"])))
+
+        # 5. follow-on runs: resume run 3's session, serve run 1's map
+        r5 = run_cli(["--config", cfg100, "--images", tmp, "--filename",
+                      "resume.txt", "--resume", p["s3.npz"], "--quiet"],
+                     device)
+        assert f"[INFO] resumed from {p['s3.npz']} at frame {n}" \
+            in r5["lines"]
+        assert r5["summary"]["frames"] == CLI_RESUME_FRAMES
+        assert r5["launches"] == CLI_RESUME_FRAMES
+        q0, q1 = CLI_QUERY
+        r6 = run_cli(["--config", cfg_path, "--images", tmp, "--filename",
+                      "query.txt", "--stream", "--localize", p["s1.npz"],
+                      "--output", p["s5.txt"]], device)
+        states6 = np.asarray(r6["states"])
+        running6 = states6 == "RUNNING"
+        assert int(np.argmax(running6)) <= 5 and running6[-5:].all(), (
+            states6.tolist())
+        rows6 = tum_rows(p["s5.txt"], q1 - q0)
+        ate6 = sim3_ate_pct(rows6[running6, 1:4], poses[q0:q1][running6])
+        assert ate6 < 5.0, ate6
+        assert r6["launches"] == q1 - q0
+        say("cli", f"run 5, --resume of run 3's snapshot: "
+                   f"{r5['summary']}, {r5['launches']} launches; "
+                   f"--stream --localize of run 1's map on frames {q0}-"
+                   f"{q1 - 1}: states {states6.tolist()}, ATE {ate6:.4f} "
+                   f"%, {r6['launches']} launches")
+        say("cli", "run 5, --localize: " + per_frame(r6, card))
+        out["resume"] = dict(summary=r5["summary"],
+                             launches=r5["launches"])
+        out["localize"] = dict(summary=r6["summary"], ate_pct=ate6,
+                               launches=r6["launches"], frames=q1 - q0)
+    return out
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1 device
     if not torch.cuda.is_available():
@@ -677,7 +1122,6 @@ def main() -> int:
     detect.load_library(verbose=True)
     say("build", f"csrc/detect.cu -> _build/libsdvl_detect.so in "
                  f"{time.perf_counter() - t0:.1f} s ({' '.join(detect.NVCC_FLAGS)})")
-
     # ---------------------------------------------------------- 3 kernel
     cfg = preset_config()
     query = dict(np.load(QUERY_NPZ))
@@ -749,7 +1193,10 @@ def main() -> int:
     say("slice", f"{n} frames in {seconds:.4f} s = {n / seconds:.2f} frames/s "
                  f"(one stream, eager, one host read per frame) on {card}")
 
-    # --------------------------------------------------------- 6 kernels
+    # ------------------------------------------------------------- 6 cli
+    cli = run_cli_phase(card)
+
+    # --------------------------------------------------------- 7 kernels
     p3 = checks["pyramid"]
     kernels = {"kernels": [{
         "name": "fast_shi_tomasi_cells",
@@ -764,10 +1211,16 @@ def main() -> int:
         "frames_per_s": slam["frames_per_s"],
         "launches_by_path": {"slam": slam["launches"],
                              "slam_map_served": slam["loc_launches"],
-                             "localizer": launches},
+                             "localizer": launches,
+                             "cli_stream": cli["stream"]["launches"],
+                             "cli_host": cli["host"]["launches"],
+                             "cli_async": cli["async"]["launches"]},
         "frames_by_path": {"slam": slam["frames"],
                            "slam_map_served": slam["loc_frames"],
-                           "localizer": n},
+                           "localizer": n,
+                           "cli_stream": cli["stream"]["frames"],
+                           "cli_host": cli["host"]["frames"],
+                           "cli_async": cli["async"]["frames"]},
         "localizer_frames_per_s": n / seconds,
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         "ms": p3["ms"],
@@ -782,6 +1235,8 @@ def main() -> int:
         "by_shape": checks,
         "detect_pyramid_ms": dp,
         "slam": slam,
+        "cli": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
+                for k, v in cli.items()},
         "card": card,
     }]}
     print(card, flush=True)

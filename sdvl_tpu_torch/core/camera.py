@@ -65,6 +65,13 @@ def project_unit_plane(pts_cam: torch.Tensor) -> torch.Tensor:
     return pts_cam[..., :2] / safe_z[..., None]
 
 
+def unit_plane_to_pixel(intr: Intrinsics, uv: torch.Tensor) -> torch.Tensor:
+    """Unit-plane coords ``(..., 2)`` -> pixels (no distortion)."""
+    u = intr.fx * uv[..., 0] + intr.cx
+    v = intr.fy * uv[..., 1] + intr.cy
+    return torch.stack([u, v], dim=-1)
+
+
 def pixel_error_angle(intr: Intrinsics) -> float:
     """Angle subtended by one pixel, ``2 atan(1 / (2 fx))``; feeds the
     depth-filter tau. Computed in float32, as the reference does."""

@@ -1,10 +1,19 @@
-"""Saving and loading a stream's state, in the JAX package's snapshot format.
+"""Saving and loading a session, in the JAX package's snapshot format.
 
-Counterpart of the stream half of ``sdvl_tpu/io/snapshot.py``. A stream
-snapshot (``FORMAT_VERSION 1``) is one ``.npz`` whose keys are
-``map.<field>``, ``map.kf_pyr.<i>``, ``carry.<field>``, ``carry.pyr1.<i>``
-and ``carry.last_pyr.<i>``; counters added after snapshots existed
-(``n_evicted``, ``n_pruned``) load as 0 when missing.
+Counterpart of ``sdvl_tpu/io/snapshot.py``, both halves. A snapshot
+(``FORMAT_VERSION 1``) is one ``.npz``, written atomically (a temporary file
+in the same directory, then a rename):
+
+* a stream's: ``map.<field>``, ``map.kf_pyr.<i>``, ``carry.<field>``,
+  ``carry.pyr1.<i>`` and ``carry.last_pyr.<i>``;
+* the host driver's (``SDVL``): the same ``map.*`` keys, the driver's
+  scalars as JSON (``host_json``), ``key``, ``last_pose``, ``xi_model``,
+  and where set ``last_match_idx``/``last_match_ok``, ``last_pyr.<i>``,
+  ``traj_ids``/``traj_poses`` and the kept first frame (``first_pyr.<i>``,
+  ``first_corners.<field>``).
+
+Counters added after snapshots existed (``n_evicted``, ``n_pruned``) load as
+0 when missing.
 
 Conversions (see ``state/map_state.py``): on the way in, uint32 ORB
 descriptor words and the PRNG key become int64 (values kept) and
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import require_device
+from ..ops.fast import Corners
 from ..pipeline.device_fsm import SlamCarry
 from ..state.map_state import FIELD_DTYPES, MapState
 
@@ -112,15 +122,20 @@ def _saved_dtype(name: str, t: torch.Tensor):
     return None
 
 
+def _host(t: torch.Tensor, name: str = "") -> np.ndarray:
+    """A tensor as numpy, in the reference's dtype for its field."""
+    a = t.detach().cpu().numpy()
+    dt = _saved_dtype(name, t)
+    return a if dt is None else a.astype(dt)
+
+
 def _tree_to_arrays(prefix: str, tree) -> dict:
     out = {}
     for name, val in tree._asdict().items():
         leaves = val if isinstance(val, tuple) else (val,)
         arrays = []
         for leaf in leaves:
-            a = leaf.detach().cpu().numpy()
-            dt = _saved_dtype(name, leaf)
-            arrays.append(a if dt is None else a.astype(dt))
+            arrays.append(_host(leaf, name))
         if isinstance(val, tuple):
             for i, a in enumerate(arrays):
                 out[f"{prefix}.{name}.{i}"] = a
@@ -129,16 +144,7 @@ def _tree_to_arrays(prefix: str, tree) -> dict:
     return out
 
 
-def save_stream_snapshot(stream, path: str) -> None:
-    """Checkpoint a stream's MapState and SlamCarry to ``path``, atomically
-    (a temporary file in the same directory, then a rename). One
-    device->host copy of every field: checkpoint at sequence boundaries,
-    not inside the per-frame loop."""
-    arrays = _tree_to_arrays("map", stream.m)
-    arrays.update(_tree_to_arrays("carry", stream.carry))
-    arrays["host_json"] = np.frombuffer(
-        json.dumps({"format_version": FORMAT_VERSION,
-                    "kind": "stream"}).encode(), dtype=np.uint8)
+def _save_atomic(path: str, arrays: dict) -> None:
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
@@ -150,6 +156,18 @@ def save_stream_snapshot(stream, path: str) -> None:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+
+
+def save_stream_snapshot(stream, path: str) -> None:
+    """Checkpoint a stream's MapState and SlamCarry to ``path``. One
+    device->host copy of every field: checkpoint at sequence boundaries,
+    not inside the per-frame loop."""
+    arrays = _tree_to_arrays("map", stream.m)
+    arrays.update(_tree_to_arrays("carry", stream.carry))
+    arrays["host_json"] = np.frombuffer(
+        json.dumps({"format_version": FORMAT_VERSION,
+                    "kind": "stream"}).encode(), dtype=np.uint8)
+    _save_atomic(path, arrays)
 
 
 def load_stream_snapshot(stream, path: str):
@@ -164,3 +182,116 @@ def load_stream_snapshot(stream, path: str):
     stream.m = m
     stream.carry = carry
     return stream
+
+
+# ------------------------------------------------------------ host driver
+_CORNER_DTYPES = dict(xy=torch.float32, score=torch.float32,
+                      level=torch.int32, valid=torch.bool)
+
+
+def save_snapshot(slam, path: str) -> None:
+    """Write the complete session state of an ``SDVL`` (the host driver)
+    to ``path``; the file loads into the JAX package's ``SDVL`` too."""
+    arrays = _tree_to_arrays("map", slam.m)
+    host = {
+        "state": slam.state.name,
+        "quality": slam.quality.name,
+        "frame_id": slam.frame_id,
+        "frames_since_kf": slam.frames_since_kf,
+        "kf_matches": slam.kf_matches,
+        "lost_frames": slam.lost_frames,
+        "format_version": FORMAT_VERSION,
+    }
+    arrays["host_json"] = np.frombuffer(json.dumps(host).encode(),
+                                        dtype=np.uint8)
+    arrays["key"] = np.asarray(slam.key, np.uint32)
+    arrays["last_pose"] = _host(slam.last_pose)
+    arrays["xi_model"] = _host(slam.xi_model)
+    if slam.last_match_idx is not None:
+        arrays["last_match_idx"] = _host(slam.last_match_idx)
+        arrays["last_match_ok"] = _host(slam.last_match_ok)
+    if slam.last_pyr is not None:
+        for i, lvl in enumerate(slam.last_pyr):
+            arrays[f"last_pyr.{i}"] = _host(lvl)
+    if slam.trajectory:
+        arrays["traj_ids"] = np.asarray([t[0] for t in slam.trajectory])
+        arrays["traj_poses"] = np.stack([t[1] for t in slam.trajectory])
+    if slam._first_fs is not None:
+        pyr1, corners1 = slam._first_fs
+        for i, lvl in enumerate(pyr1):
+            arrays[f"first_pyr.{i}"] = _host(lvl)
+        for field, val in corners1._asdict().items():
+            arrays[f"first_corners.{field}"] = _host(val)
+    _save_atomic(path, arrays)
+
+
+def load_snapshot(slam, path: str):
+    """Restore a host-driver snapshot (written by either package) into
+    ``slam``, which must have the same capacities. Returns ``slam``."""
+    from ..pipeline.sdvl import TrackingQuality, TrackingState
+    from ..pipeline.stream import NoiseSource
+
+    dev = slam.device
+    with np.load(path) as z:
+        host = json.loads(bytes(z["host_json"]).decode())
+        if host.get("format_version") != FORMAT_VERSION:
+            raise ValueError(
+                f"snapshot format {host.get('format_version')} != "
+                f"{FORMAT_VERSION}")
+        m = map_from_numpy(_arrays_from_npz("map", MapState, z), dev)
+        if m.capacities != slam.m.capacities:
+            raise ValueError(
+                f"snapshot capacities {m.capacities} != config "
+                f"{slam.m.capacities}")
+        slam.m = m
+        slam.state = TrackingState[host["state"]]
+        slam.quality = TrackingQuality[host["quality"]]
+        slam.frame_id = host["frame_id"]
+        slam.frames_since_kf = host["frames_since_kf"]
+        slam.kf_matches = host["kf_matches"]
+        slam.lost_frames = host["lost_frames"]
+        slam.key = np.asarray(z["key"], np.uint32)
+        # the session's own seed, so that it draws on as it would have
+        seed = (int(slam.key[0]) << 32) | int(slam.key[1])
+        slam._noise = NoiseSource(slam.cfg, seed, dev, slam._noise.provider)
+        pose = np.asarray(z["last_pose"], np.float32)
+        slam._set_pose(_to_tensor(pose, torch.float32, dev), pose.copy())
+        slam.xi_model = _to_tensor(z["xi_model"], torch.float32, dev)
+        if "last_match_idx" in z.files:
+            slam.last_match_idx = _to_tensor(z["last_match_idx"],
+                                             torch.int64, dev)
+            slam.last_match_ok = _to_tensor(z["last_match_ok"], torch.bool,
+                                            dev)
+        levels = sum(1 for k in z.files if k.startswith("last_pyr."))
+        if levels:
+            slam.last_pyr = tuple(
+                _to_tensor(z[f"last_pyr.{i}"], torch.float32, dev)
+                for i in range(levels))
+        if "traj_ids" in z.files:
+            slam.trajectory = [
+                (int(i), np.asarray(p, np.float32))
+                for i, p in zip(z["traj_ids"], z["traj_poses"])]
+        n_first = sum(1 for k in z.files if k.startswith("first_pyr."))
+        if n_first:
+            pyr1 = tuple(_to_tensor(z[f"first_pyr.{i}"], torch.float32, dev)
+                         for i in range(n_first))
+            corners1 = Corners(**{
+                f: _to_tensor(z[f"first_corners.{f}"], _CORNER_DTYPES[f],
+                              dev)
+                for f in Corners._fields})
+            slam._first_fs = (pyr1, corners1)
+        elif slam.state == TrackingState.SECOND_FRAME:
+            # saved mid-bootstrap without the first frame: restart cleanly
+            slam.state = TrackingState.FIRST_FRAME
+    return slam
+
+
+def save_trajectory_tum(slam, path: str, timestamps=None) -> None:
+    """Write an ``SDVL`` session's trajectory in TUM format."""
+    from .dataset import save_tum_trajectory
+
+    ids = [i for i, _ in slam.trajectory]
+    poses = np.stack([p for _, p in slam.trajectory])
+    stamps = [timestamps[i] if timestamps is not None else float(i)
+              for i in ids]
+    save_tum_trajectory(path, stamps, poses)

@@ -1,13 +1,15 @@
 """FAST-9/16 corner detection + Shi-Tomasi scoring + grid selection.
 
-Counterpart of ``sdvl_tpu/ops/fast.py``. Two routes compute one corner slot
-per grid cell per level: the plain one (:func:`fast_corner_mask` +
-:func:`shi_tomasi` + ``_grid_best`` per level, the reference's default route,
-borders included) and the fused one (``ops/cuda/detect.py``: on CUDA tensors
-one hand-written kernel computes the score maps and the cell winners of all
-levels in one launch), which differs from the plain route only inside a 4-px
-border that grid selection never uses. What follows -- the level-0 cell
-lock, the ``max_features`` budget -- is shared.
+Counterpart of ``sdvl_tpu/ops/fast.py``. :func:`detect_pyramid` computes one
+corner slot per grid cell per level through the detection kernel's wrapper
+(``ops/cuda/detect.py``): on CUDA tensors one hand-written kernel computes
+the score maps and the cell winners of all levels in one launch, on CPU
+tensors its plain torch version does. Both follow the reference's Pallas
+route, which rejects every pixel within 4 px of the border; the reference's
+plain route (:func:`fast_corner_mask` + :func:`shi_tomasi` + ``_grid_best``
+per level) scores those pixels too, so the winners of border cells may
+differ. What follows -- the level-0 cell lock, the ``max_features`` budget
+-- is the reference's.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda import detect as fused
-from .cuda.detect import grid_best as _grid_best
+from .cuda.detect import grid_best as _grid_best  # noqa: F401 (reference's name)
 
 
 class Corners(NamedTuple):
@@ -65,26 +67,6 @@ def shi_tomasi(img: torch.Tensor, half_box: int = 2) -> torch.Tensor:
     return 0.5 * (tr - det_term) * norm * 2.0
 
 
-def detect_level(img: torch.Tensor, level: int, cell: int = 32,
-                 fast_threshold: float = 10.0, st_threshold: float = 50.0,
-                 locked_cells: Optional[torch.Tensor] = None) -> Corners:
-    """Detect corners on one pyramid level with the plain route; one slot
-    per grid cell. Positions are reported in level-0 pixel coordinates."""
-    corner = fast_corner_mask(img, fast_threshold)
-    score = shi_tomasi(img)
-    xy, best, valid = _grid_best(score, corner, cell)
-    valid = valid & (best > st_threshold)
-    if locked_cells is not None:
-        valid = valid & ~locked_cells
-    n = xy.shape[0]
-    return Corners(
-        xy=xy * float(1 << level),
-        score=best,
-        level=torch.full((n,), level, dtype=torch.int32, device=img.device),
-        valid=valid,
-    )
-
-
 def _cell_index(v: torch.Tensor, cell: int, n: int) -> torch.Tensor:
     """``clip(v // cell, 0, n - 1)`` as int64, finite before the cast."""
     return torch.nan_to_num(torch.floor_divide(v, cell), nan=0.0).clamp(
@@ -95,7 +77,6 @@ def detect_pyramid(pyr: Sequence[torch.Tensor], levels: int = 3,
                    cell: int = 32, fast_threshold: float = 10.0,
                    st_threshold: float = 50.0,
                    max_features: Optional[int] = None,
-                   use_fused: bool = False,
                    lock_xy: Optional[torch.Tensor] = None,
                    lock_valid: Optional[torch.Tensor] = None) -> Corners:
     """Detect over the first ``levels`` pyramid levels and concatenate.
@@ -104,21 +85,13 @@ def detect_pyramid(pyr: Sequence[torch.Tensor], levels: int = 3,
     LEVEL-0 grid cells already holding tracked features, applied to each
     corner's level-0 position after per-cell selection. ``max_features``
     keeps the best-scoring corners only (a stable top-k: equal scores keep
-    index order, as the reference's ``top_k``). ``use_fused`` computes all
-    levels' cell winners with one call of the fused kernel.
+    index order, as the reference's ``top_k``). All levels' cell winners
+    come from one call of the detection kernel's wrapper: the kernel on a
+    CUDA pyramid, its plain version on a CPU one.
     """
-    if use_fused:
-        _, xy, score, valid, level = fused.fast_shi_tomasi_cells(
-            pyr[:levels], cell, fast_threshold, st_threshold)
-        out = Corners(xy=xy, score=score, level=level, valid=valid)
-    else:
-        parts = [
-            detect_level(pyr[l], l, cell=cell, fast_threshold=fast_threshold,
-                         st_threshold=st_threshold)
-            for l in range(levels)
-        ]
-        out = Corners(*(torch.cat([getattr(p, f) for p in parts])
-                        for f in Corners._fields))
+    _, xy, score, valid, level = fused.fast_shi_tomasi_cells(
+        pyr[:levels], cell, fast_threshold, st_threshold)
+    out = Corners(xy=xy, score=score, level=level, valid=valid)
     if lock_xy is not None:
         H0, W0 = pyr[0].shape
         gw0, gh0 = W0 // cell, H0 // cell

@@ -94,3 +94,8 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 def hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise-broadcast Hamming distance between (..., 8) descriptors."""
     return torch.sum(_popcount32(torch.bitwise_xor(a, b)), dim=-1)
+
+
+def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(Na, Nb) all-pairs Hamming distances."""
+    return hamming(a[:, None, :], b[None, :, :])

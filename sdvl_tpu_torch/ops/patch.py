@@ -1,7 +1,8 @@
 """Affine patch warping between views, ZMSSD scoring and grid search.
 
 Counterpart of ``sdvl_tpu/ops/patch.py``: the first-order affine warp and
-the search level that map-point matching uses, the zero-mean SSD scorer, and
+the search level that map-point matching uses, the warped patch itself, the
+zero-mean SSD scorer, and
 the exhaustive integer-offset ZMSSD search that the two-view bootstrap runs
 before LK.
 """
@@ -49,6 +50,21 @@ def search_level_from_warp(A: torch.Tensor, max_level: int = 4) -> torch.Tensor:
     det = (A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]).abs()
     lvl = torch.ceil(torch.log2((det / 3.0).clamp_min(1e-6)) * 0.5)
     return torch.nan_to_num(lvl, nan=0.0).clamp(0, max_level).long()
+
+
+def warp_patch(img_ref: torch.Tensor, A_ref_cur: torch.Tensor,
+               px_ref_level: torch.Tensor, half: int) -> torch.Tensor:
+    """Warp a square patch from the reference image: for each offset ``o``
+    of the output patch (in the current view's search level), sample the
+    reference image at ``px_ref_level + A_ref_cur @ o``. Batched over the
+    leading dims of ``A_ref_cur`` / ``px_ref_level``; returns
+    (..., 2*half, 2*half)."""
+    s = 2 * half
+    offs = interp.patch_offsets(half, img_ref.device).reshape(s * s, 2)
+    warped = torch.einsum("...ij,pj->...pi", A_ref_cur, offs)
+    pos = px_ref_level[..., None, :] + warped                    # (..., P, 2)
+    vals = interp.bilinear(img_ref, pos)
+    return vals.reshape(vals.shape[:-1] + (s, s))
 
 
 def grid_search(img: torch.Tensor, ref_patches: torch.Tensor,

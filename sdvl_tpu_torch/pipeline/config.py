@@ -3,9 +3,10 @@
 The port's own copy of ``sdvl_tpu/pipeline/config.py`` (same field names and
 defaults, same ``.cfg`` files through :func:`load_cfg`), so that nothing of
 the JAX package is imported. Capacities (features, keyframes, points) are
-the tensor shapes of the whole pipeline. One field is renamed: the cfg key
-``SDVL.use_pallas_detect`` is read into ``use_fused_detect``, which routes
-detection through the fused FAST + Shi-Tomasi kernel (``ops/cuda/detect.py``).
+the tensor shapes of the whole pipeline. One field is left out: the cfg key
+``SDVL.use_pallas_detect`` is read and ignored, because the port chooses its
+detection route by device (the hand-written kernel of ``ops/cuda/detect.py``
+on a CUDA tensor, its plain torch version on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -95,11 +96,6 @@ class SdvlConfig:
                                   #   escalation; irrelevant when
                                   #   max_keyframes <= reloc_max_keyframes
                                   #   (the bounded pass is already global)
-    use_fused_detect: bool = False  # fused FAST+Shi-Tomasi score-map kernel
-                                  #   (ops/cuda/detect.py; hand-written
-                                  #   CUDA on a CUDA tensor, its plain torch
-                                  #   version on a CPU tensor). cfg key:
-                                  #   SDVL.use_pallas_detect
     use_affine_illum: bool = False  # gain/bias photometric model in direct
                                   #   alignment (solvers/image_align.py) —
                                   #   capability the reference lacks; off by
@@ -139,7 +135,6 @@ _KEYMAP = {
     # SDVL.* cfg key -> SdvlConfig field (only where names differ)
     "max_alignLevel": "max_align_level",
     "min_alignLevel": "min_align_level",
-    "use_pallas_detect": "use_fused_detect",
 }
 
 

@@ -110,6 +110,16 @@ def lane_counts(cfg: Config) -> Tuple[int, int]:
     return n_corners, n_lanes
 
 
+def undistort_grid(cfg: Config, device):
+    """The cropped undistort map of a config with lens distortion, else
+    None."""
+    if not any(abs(d) > 1e-12 for d in cfg.camera.dist):
+        return None
+    ch, cw = cropped_shape(cfg)
+    grid = cam.undistort_map(intrinsics(cfg), device=device)
+    return grid[:ch, :cw].contiguous()
+
+
 def init_state(cfg: Config, seed: int = 0, device="cuda"):
     """Fresh (MapState, SlamCarry) sized by the config capacities."""
     s = cfg.sdvl
@@ -160,6 +170,97 @@ class BootNoise(NamedTuple):
     plane: torch.Tensor        # (iters, P points) ground-plane RANSAC
 
 
+def make_preprocess(cfg: Config, undistort: bool):
+    """``preprocess(img, grid, lock_xy, lock_valid) -> (pyr, corners)``:
+    undistort remap (where ``undistort``), pyramid, detection with cell
+    locking."""
+    s = cfg.sdvl
+
+    def preprocess(img, grid, lock_xy=None, lock_valid=None):
+        img = img.float()
+        if undistort:
+            img = interp.remap(img, grid)
+        pyr = tuple(pyramid.build_pyramid(img, s.pyramid_levels))
+        corners = fast_ops.detect_pyramid(
+            pyr, levels=s.max_fast_levels, cell=s.cell_size,
+            fast_threshold=s.fast_threshold,
+            st_threshold=s.min_feature_score,
+            max_features=s.num_features,
+            lock_xy=lock_xy, lock_valid=lock_valid,
+        )
+        return pyr, corners
+
+    return preprocess
+
+
+def lock_points(intr, m: MapState, pose, last_idx, last_ok):
+    """Steady-state cell locking: the previous frame's tracked map points
+    projected at its pose, ``(lock_xy, lock_valid)``; detector cells that
+    hold one are suppressed. A stale match index is clamped, as the
+    reference's gather does."""
+    P = m.pt_valid.shape[0]
+    last_idx = last_idx.clamp(0, P - 1)
+    pts_cam = se3.transform(pose, m.pt_pos[last_idx])
+    lock_xy = cam.project(intr, pts_cam)
+    lock_valid = (last_ok & m.pt_valid[last_idx] & (pts_cam[:, 2] > 0.0)
+                  & cam.in_bounds(intr, lock_xy, margin=0))
+    return lock_xy, lock_valid
+
+
+def reloc_reference(m: MapState, kf, n_ref: int):
+    """Tracking reference of a relocalized frame: keyframe ``kf``'s pyramid
+    (float), its ``n_ref`` first observed points in slot order (stable) with
+    their mask, and its pose."""
+    ref_pyr = tuple(interp.take_row(p, kf).float() for p in m.kf_pyr)
+    obs = interp.take_row(m.obs_mask, kf) & m.pt_valid
+    order = torch.sort((~obs).to(torch.uint8), stable=True)[1][:n_ref]
+    return ref_pyr, order, obs[order], interp.take_row(m.kf_pose, kf)
+
+
+def seed_map(m: MapState, cfg: Config, pyr1, pyr2, boot, corners2,
+             kf_frame_ids) -> MapState:
+    """Write the two bootstrap keyframes (slots 0 and 1, frame ids
+    ``kf_frame_ids``: a pair of () int32 tensors), the triangulated inliers
+    as map points, and depth-filter seeds from the second frame's
+    corners."""
+    s = cfg.sdvl
+    intr = intrinsics(cfg)
+    dev = boot.pose2.device
+    zero, one = const(0, torch.int32, dev), const(1, torch.int32, dev)
+    kf_pyr = tuple(
+        set_row(set_row(lvl, zero, i1), one, i2)
+        for lvl, i1, i2 in zip(m.kf_pyr, store_pyramid(pyr1),
+                               store_pyramid(pyr2)))
+    kf_pose = set_row(m.kf_pose, zero, se3.identity(device=dev))
+    m = m._replace(
+        kf_pose=set_row(kf_pose, one, boot.pose2),
+        kf_valid=set_row(set_row(m.kf_valid, zero, True), one, True),
+        kf_frame_id=set_row(set_row(m.kf_frame_id, zero, kf_frame_ids[0]),
+                            one, kf_frame_ids[1]),
+        kf_pyr=kf_pyr,
+        n_keyframes=const(2, torch.int32, dev),
+    )
+    slots, _ok = alloc_slots(~m.pt_valid, boot.inlier)
+    desc1 = orb.descriptors(pyr1[0], boot.px1, radius=s.orb_size // 2)
+    m = m._replace(
+        pt_pos=scatter(m.pt_pos, slots, boot.pts_w),
+        pt_desc=scatter(m.pt_desc, slots, desc1),
+        pt_valid=scatter(m.pt_valid, slots, True),
+        pt_anchor_kf=scatter(m.pt_anchor_kf, slots, 0),
+        pt_found=scatter(m.pt_found, slots, 2),
+        pt_fail=scatter(m.pt_fail, slots, 0),
+        obs_mask=scatter(scatter(m.obs_mask, (zero, slots), True),
+                         (one, slots), True),
+        obs_px=scatter(scatter(m.obs_px, (zero, slots), boot.px1),
+                       (one, slots), boot.px2),
+    )
+    depth_med = torch.full((), s.map_scale, dtype=torch.float32, device=dev)
+    m, _ = depth_filter.seed_candidates(
+        m, intr, pyr2, (corners2.xy, corners2.level, corners2.valid), one,
+        depth_med, s.cell_size, orb_radius=s.orb_size // 2)
+    return m
+
+
 def make_step(cfg: Config, undistort: bool):
     """Build ``step(m, carry, img, grid, gumbel, boot) ->
     (m, carry, FrameInfo, Corners)``.
@@ -179,20 +280,7 @@ def make_step(cfg: Config, undistort: bool):
                  and s.max_keyframes > s.reloc_max_keyframes)
     orb_radius = s.orb_size // 2
 
-    def preprocess(img, grid, lock_xy, lock_valid):
-        img = img.float()
-        if undistort:
-            img = interp.remap(img, grid)
-        pyr = tuple(pyramid.build_pyramid(img, levels))
-        corners = fast_ops.detect_pyramid(
-            pyr, levels=s.max_fast_levels, cell=s.cell_size,
-            fast_threshold=s.fast_threshold,
-            st_threshold=s.min_feature_score,
-            max_features=s.num_features,
-            use_fused=s.use_fused_detect,
-            lock_xy=lock_xy, lock_valid=lock_valid,
-        )
-        return pyr, corners
+    preprocess = make_preprocess(cfg, undistort)
 
     def _info(carry, **kw):
         dev = carry.pose.device
@@ -230,45 +318,13 @@ def make_step(cfg: Config, undistort: bool):
         return m, carry, _info(carry, n_corners=n)
 
     # ------------------------------------------------------------ SECOND
-    def seed_map(m, carry, pyr, corners, boot, noise: BootNoise):
-        """Write both bootstrap keyframes, the triangulated inliers as map
-        points and candidate seeds; two-view BA; ground-plane alignment;
-        match the map into the frame to start tracking."""
+    def bootstrap_map(m, carry, pyr, corners, boot, noise: BootNoise):
+        """Seed the map from the two views, two-view BA, ground-plane
+        alignment, then match the map into the frame to start tracking."""
         dev = carry.pose.device
-        zero, one = i32(0, dev), i32(1, dev)
-        kf_pyr = tuple(
-            set_row(set_row(lvl, zero, i1), one, i2)
-            for lvl, i1, i2 in zip(m.kf_pyr, store_pyramid(carry.pyr1),
-                                   store_pyramid(pyr)))
-        kf_pose = set_row(m.kf_pose, zero, se3.identity(device=dev))
-        m = m._replace(
-            kf_pose=set_row(kf_pose, one, boot.pose2),
-            kf_valid=set_row(set_row(m.kf_valid, zero, True), one, True),
-            kf_frame_id=set_row(
-                set_row(m.kf_frame_id, zero, carry.frame_id - 1),
-                one, carry.frame_id),
-            kf_pyr=kf_pyr,
-            n_keyframes=i32(2, dev),
-        )
-        slots, _ok = alloc_slots(~m.pt_valid, boot.inlier)
-        desc1 = orb.descriptors(carry.pyr1[0], boot.px1, radius=orb_radius)
-        m = m._replace(
-            pt_pos=scatter(m.pt_pos, slots, boot.pts_w),
-            pt_desc=scatter(m.pt_desc, slots, desc1),
-            pt_valid=scatter(m.pt_valid, slots, True),
-            pt_anchor_kf=scatter(m.pt_anchor_kf, slots, 0),
-            pt_found=scatter(m.pt_found, slots, 2),
-            pt_fail=scatter(m.pt_fail, slots, 0),
-            obs_mask=scatter(scatter(m.obs_mask, (zero, slots), True),
-                             (one, slots), True),
-            obs_px=scatter(scatter(m.obs_px, (zero, slots), boot.px1),
-                           (one, slots), boot.px2),
-        )
-        depth_med = torch.full((), s.map_scale, dtype=torch.float32,
-                               device=dev)
-        m, _ = depth_filter.seed_candidates(
-            m, intr, pyr, (corners.xy, corners.level, corners.valid), one,
-            depth_med, s.cell_size, orb_radius=orb_radius)
+        m = seed_map(m, cfg, carry.pyr1, pyr, boot, corners,
+                     (carry.frame_id - 1, carry.frame_id))
+        one = i32(1, dev)
         # two-view BA over the seed map
         m = mapper.local_ba(m, intr, one, window=1,
                             max_points=min(s.max_points, 512))
@@ -309,7 +365,8 @@ def make_step(cfg: Config, undistort: bool):
         success = (boot.ok_flow & (boot.median_shift >= s.min_avg_shift)
                    & (boot.n_inliers >= s.min_init_corners))
         if bool(success):
-            m, carry, T = seed_map(m, carry, pyr, corners, boot, noise)
+            m, carry, T = bootstrap_map(m, carry, pyr, corners, boot,
+                                        noise)
         else:
             carry = carry._replace(state=torch.where(
                 boot.ok_flow, i32(STATE_SECOND, dev), i32(STATE_FIRST, dev)))
@@ -332,11 +389,7 @@ def make_step(cfg: Config, undistort: bool):
         rl = relocalize.relocalize(
             m, intr, pyr, carry.pose, level=lvl,
             max_kf=s.max_keyframes if sweep_all else s.reloc_max_keyframes)
-        ref_pyr = tuple(interp.take_row(p, rl.kf).float() for p in m.kf_pyr)
-        obs = interp.take_row(m.obs_mask, rl.kf) & m.pt_valid
-        order = torch.sort((~obs).to(torch.uint8), stable=True)[1][:S]
-        return (ref_pyr, order, obs[order],
-                interp.take_row(m.kf_pose, rl.kf), rl.pose)
+        return reloc_reference(m, rl.kf, S) + (rl.pose,)
 
     def do_predict(carry):
         pred = se3.compose(se3.exp(carry.xi_model), carry.pose)
@@ -474,13 +527,8 @@ def make_step(cfg: Config, undistort: bool):
         # hold tracked map points, projected at the previous frame's pose.
         # A stale match index is clamped, as the reference's gather does.
         # In FIRST/SECOND, last_ok is all-False: no lock.
-        P = m.pt_valid.shape[0]
-        last_idx = carry.last_idx.clamp(0, P - 1)
-        pts_cam = se3.transform(carry.pose, m.pt_pos[last_idx])
-        lock_xy = cam.project(intr, pts_cam)
-        lock_valid = (carry.last_ok & m.pt_valid[last_idx]
-                      & (pts_cam[:, 2] > 0.0)
-                      & cam.in_bounds(intr, lock_xy, margin=0))
+        lock_xy, lock_valid = lock_points(intr, m, carry.pose,
+                                          carry.last_idx, carry.last_ok)
         pyr, corners = preprocess(img, grid, lock_xy, lock_valid)
 
         # the first host read of the frame: which branch to take

@@ -1,8 +1,10 @@
-"""Map maintenance: keyframe insertion, candidate updates, local BA, pruning.
+"""Map maintenance: keyframe insertion, candidate updates, local and global
+BA, pruning.
 
 Counterpart of ``sdvl_tpu/pipeline/mapper.py``: each function is a pure
 ``MapState -> MapState`` map (out-of-place tensor updates), run inline with
-tracking by the SLAM step.
+tracking by the SLAM step, on the async mapper's thread, or (global BA)
+once at the end of a run.
 
 Scatters with repeated indices, where the reference relies on what XLA does
 with them:
@@ -225,6 +227,46 @@ def local_ba(m: MapState, intr, center_kf: torch.Tensor, window: int = 10,
                    (win.kf_idx[None, :], win.pt_idx[:, None]),
                    removed.to(torch.int32), accumulate=True)
     return m._replace(obs_mask=m.obs_mask & (kill == 0))
+
+
+def extract_global_ba(m: MapState, intr) -> ba.BAProblem:
+    """Whole-map BA problem: every valid keyframe and every valid point
+    seen by at least two of them. The map capacities are the problem's
+    shape. Gauge: the two oldest valid keyframes are held fixed (equal ages
+    keep slot order, a stable sort), and every empty slot."""
+    K = m.kf_valid.shape[0]
+    kf_ok = m.kf_valid
+    pt_ok = m.pt_valid & (torch.sum(m.obs_mask & kf_ok[:, None], dim=0) >= 2)
+    obs_mask = (m.obs_mask & kf_ok[:, None] & pt_ok[None, :]).T   # (P, K)
+    uv = torch.stack([
+        (m.obs_px[..., 0] - intr.cx) / intr.fx,
+        (m.obs_px[..., 1] - intr.cy) / intr.fy,
+    ], -1).transpose(0, 1)                                        # (P, K, 2)
+
+    age = torch.where(kf_ok, m.kf_frame_id,
+                      torch.full_like(m.kf_frame_id, np.iinfo(np.int32).max))
+    oldest = torch.sort(age, stable=True)[1][:2]
+    fixed = scatter(torch.zeros(K, dtype=torch.bool, device=age.device),
+                    oldest, True) | ~kf_ok
+    return ba.BAProblem(poses=m.kf_pose, fixed=fixed, points=m.pt_pos,
+                        obs_uv=uv, obs_mask=obs_mask)
+
+
+def global_ba(m: MapState, intr, stage_iters=(8, 12)) -> MapState:
+    """Full-map bundle adjustment + write-back: poses of the free slots,
+    positions of the valid points, and the observations the BA gated out
+    removed. The reduced camera solve is dense Cholesky up to
+    ``ba.CG_KF_THRESHOLD`` keyframe slots and PCG above."""
+    problem = extract_global_ba(m, intr)
+    res = ba.solve(problem, huber=huber_threshold(intr),
+                   stage_iters=tuple(stage_iters))
+    free = ~problem.fixed
+    m = m._replace(
+        kf_pose=torch.where(free[:, None], res.poses, m.kf_pose),
+        pt_pos=torch.where(m.pt_valid[:, None], res.points, m.pt_pos),
+    )
+    removed = problem.obs_mask & ~res.inlier_mask                 # (P, K)
+    return m._replace(obs_mask=m.obs_mask & ~removed.T)
 
 
 def prune_weak_points(m: MapState, min_obs: int = 2,

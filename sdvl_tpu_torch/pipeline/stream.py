@@ -11,10 +11,15 @@ snapshot written by either package, starting LOST. The loop
   * accumulates per-frame ``FrameInfo`` as device tensors,
   * transfers all of them device->host exactly once, in :meth:`result`.
 
-Random draws. The pose RANSAC needs Gumbel noise on every tracking frame,
-the bootstrap twice per stream (homography and ground-plane RANSACs). By
-default the stream draws them from its own ``torch.Generator``: pose noise
-per frame, the bootstrap's once. A ``gumbel_provider`` replaces the draws,
+Random draws (:class:`NoiseSource`, shared with the host driver
+``pipeline/sdvl.py``). The pose RANSAC needs Gumbel noise on every tracking
+frame, the bootstrap twice per stream (homography and ground-plane
+RANSACs). By default each draw comes from a ``torch.Generator`` seeded from
+the session's seed and what it is for (the homography, the ground plane,
+or frame ``i``'s pose), as the reference derives each from ``fold_in(key,
+...)``: the numbers of a frame do not depend on what was drawn before it,
+so both drivers and a resumed session see the same ones. A
+``gumbel_provider`` replaces the draws,
 which is how a test or a recorded run feeds the port the numbers another
 implementation drew: either a callable ``frame index -> (n_hyp, S) array``
 (pose noise only), or a :class:`Draws` holding all three.
@@ -29,11 +34,11 @@ import numpy as np
 import torch
 
 from .. import require_device
-from ..core import camera as cam
 from ..core import se3
-from .config import Config, intrinsics
+from .config import Config
 from .device_fsm import (BootNoise, FrameInfo, STATE_LOST, cropped_shape,
-                         init_state, lane_counts, make_chunk_step, make_step)
+                         init_state, lane_counts, make_chunk_step, make_step,
+                         undistort_grid)
 
 STATE_NAMES = {0: "FIRST_FRAME", 1: "SECOND_FRAME", 2: "RUNNING", 3: "LOST"}
 
@@ -103,6 +108,75 @@ HOMOGRAPHY_HYPOTHESES = 128
 PLANE_HYPOTHESES = 64
 
 
+class NoiseSource:
+    """The random draws of one session, for either driver.
+
+    ``boot`` is the bootstrap's :class:`BootNoise` (None when serving);
+    :meth:`pose` gives the pose-RANSAC noise of frames. Both come from
+    ``provider`` where one is given (a callable ``frame index -> (n_hyp, S)
+    array`` for pose noise only, or a :class:`Draws`), else each from a
+    generator seeded from ``(seed, what it is for)``: ``(seed, 0)`` the
+    homography, ``(seed, 1)`` the ground plane, ``(seed, 2, i)`` the pose
+    noise of frame ``i``."""
+
+    def __init__(self, config: Config, seed: int, device, provider=None):
+        s = config.sdvl
+        self.device = device
+        self.seed = seed
+        self.provider = provider
+        self.n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
+        n_corners, self.n_lanes = lane_counts(config)
+        if isinstance(provider, Draws):
+            self._pose_provider = provider.pose
+        else:
+            self._pose_provider = provider
+        self.boot = None
+        if not s.localize_only:
+            shapes = ((HOMOGRAPHY_HYPOTHESES, n_corners),
+                      (PLANE_HYPOTHESES, s.max_points))
+            if isinstance(provider, Draws):
+                arrays = (provider.homography, provider.plane)
+                for a, shape in zip(arrays, shapes):
+                    if np.shape(a) != shape:
+                        raise ValueError(
+                            f"bootstrap noise {np.shape(a)}, expected "
+                            f"{shape}")
+                self.boot = BootNoise(*(
+                    torch.from_numpy(np.array(a, np.float32)).to(device)
+                    for a in arrays))
+            else:
+                self.boot = BootNoise(*(self._draw(shape, tag)
+                                        for tag, shape in enumerate(shapes)))
+
+    def _draw(self, shape, *tag) -> torch.Tensor:
+        """Standard Gumbel noise of ``shape`` from a generator seeded from
+        ``(seed, *tag)``."""
+        state = np.random.SeedSequence((self.seed,) + tag).generate_state(
+            1, np.uint64)[0]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(state))
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.rand(shape, generator=gen, device=self.device)
+        return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 1e-7)))
+
+    def pose(self, first: int, count: int) -> List[Optional[torch.Tensor]]:
+        """The pose-RANSAC noise of frames ``first .. first + count - 1``:
+        the provider's numbers in one host->device copy (None for a frame it
+        has none for), or each frame's own draw."""
+        shape = (self.n_hyp, self.n_lanes)
+        if self._pose_provider is None:
+            return [self._draw(shape, 2, first + t) for t in range(count)]
+        got = [self._pose_provider(first + t) for t in range(count)]
+        have = [g for g in got if g is not None]
+        if not have:
+            return [None] * count
+        g = np.stack([np.asarray(a, np.float32) for a in have])
+        if g.shape[1:] != shape:
+            raise ValueError(f"gumbel noise {g.shape[1:]}, expected {shape}")
+        dev = iter(torch.from_numpy(g).to(self.device).unbind(0))
+        return [None if a is None else next(dev) for a in got]
+
+
 class SdvlStream:
     """Streaming run over the per-frame state machine."""
 
@@ -110,43 +184,15 @@ class SdvlStream:
                  gumbel_provider=None):
         self.cfg = config
         self.device = require_device(device)
-        s = config.sdvl
         self.crop_h, self.crop_w = cropped_shape(config)
-        self._undistort = any(abs(d) > 1e-12 for d in config.camera.dist)
+        self._grid = undistort_grid(config, self.device)
+        self._undistort = self._grid is not None
         self._step = make_step(config, self._undistort)
         self._chunk_step = make_chunk_step(config, self._undistort)
 
         self.m, self.carry = init_state(config, seed, device=self.device)
-        if self._undistort:
-            grid = cam.undistort_map(intrinsics(config), device=self.device)
-            self._grid = grid[: self.crop_h, : self.crop_w].contiguous()
-        else:
-            self._grid = None
-        self._n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
-        n_corners, self._n_lanes = lane_counts(config)
-        if isinstance(gumbel_provider, Draws):
-            self._pose_provider = gumbel_provider.pose
-        else:
-            self._pose_provider = gumbel_provider
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
-        self._boot = None
-        if not s.localize_only:
-            shapes = ((HOMOGRAPHY_HYPOTHESES, n_corners),
-                      (PLANE_HYPOTHESES, s.max_points))
-            if isinstance(gumbel_provider, Draws):
-                arrays = (gumbel_provider.homography, gumbel_provider.plane)
-                for a, shape in zip(arrays, shapes):
-                    if np.shape(a) != shape:
-                        raise ValueError(
-                            f"bootstrap noise {np.shape(a)}, expected "
-                            f"{shape}")
-                self._boot = BootNoise(*(
-                    torch.from_numpy(np.array(a, np.float32)).to(
-                        self.device) for a in arrays))
-            else:
-                self._boot = BootNoise(*(self._draw(shape)
-                                         for shape in shapes))
+        self._noise = NoiseSource(config, seed, self.device, gumbel_provider)
+        self._boot = self._noise.boot
         self._n_fed = 0
         self._infos: List[FrameInfo] = []
         self.last_corners = None   # Corners of the newest frame
@@ -187,37 +233,13 @@ class SdvlStream:
         return stream
 
     # ------------------------------------------------------------- feeding
-    def _draw(self, shape) -> torch.Tensor:
-        """Standard Gumbel noise of ``shape`` from the stream's generator."""
-        tiny = torch.finfo(torch.float32).tiny
-        u = torch.rand(shape, generator=self._gen, device=self.device)
-        return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 1e-7)))
-
-    def _gumbel(self, first: int, count: int) -> List[Optional[torch.Tensor]]:
-        """The pose-RANSAC noise of the stream's frames ``first .. first +
-        count - 1``: the provider's numbers in one host->device copy (None
-        for a frame it has none for), or one draw per frame from the
-        generator."""
-        shape = (self._n_hyp, self._n_lanes)
-        if self._pose_provider is None:
-            return list(self._draw((count,) + shape).unbind(0))
-        got = [self._pose_provider(first + t) for t in range(count)]
-        have = [g for g in got if g is not None]
-        if not have:
-            return [None] * count
-        g = np.stack([np.asarray(a, np.float32) for a in have])
-        if g.shape[1:] != shape:
-            raise ValueError(f"gumbel noise {g.shape[1:]}, expected {shape}")
-        dev = iter(torch.from_numpy(g).to(self.device).unbind(0))
-        return [None if a is None else next(dev) for a in got]
-
     def feed(self, img: np.ndarray, block: bool = False) -> FrameInfo:
         """Process one frame. Returns its FrameInfo as device tensors."""
         img = np.ascontiguousarray(
             np.asarray(img)[: self.crop_h, : self.crop_w])
         self.m, self.carry, info, self.last_corners = self._step(
             self.m, self.carry, torch.from_numpy(img).to(self.device),
-            self._grid, self._gumbel(self._n_fed, 1)[0], self._boot)
+            self._grid, self._noise.pose(self._n_fed, 1)[0], self._boot)
         self._n_fed += 1
         self._infos.append(info)
         if block:
@@ -231,7 +253,7 @@ class SdvlStream:
         imgs = np.ascontiguousarray(
             np.asarray(imgs)[:, : self.crop_h, : self.crop_w])
         dev_imgs = torch.from_numpy(imgs).to(self.device)
-        gumbels = self._gumbel(self._n_fed, len(imgs))
+        gumbels = self._noise.pose(self._n_fed, len(imgs))
         self.m, self.carry, infos, self.last_corners = self._chunk_step(
             self.m, self.carry, dev_imgs, self._grid, gumbels, self._boot)
         self._n_fed += len(imgs)

@@ -27,6 +27,18 @@ import torch
 from ..core import se3
 
 
+class FrameState(NamedTuple):
+    """One processed camera frame."""
+
+    pyr: Tuple[torch.Tensor, ...]  # L levels, (H/2^l, W/2^l) f32
+    pose: torch.Tensor             # (7,) world->cam
+    corner_xy: torch.Tensor        # (C2, 2) detected corners, level-0 px
+    corner_level: torch.Tensor     # (C2,) int32
+    corner_score: torch.Tensor     # (C2,)
+    corner_valid: torch.Tensor     # (C2,) bool
+    frame_id: torch.Tensor         # () int32
+
+
 class MapState(NamedTuple):
     # --- keyframes ---
     kf_pose: torch.Tensor          # (K, 7)

@@ -94,7 +94,6 @@ def main(argv=None) -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     sys.path.insert(0, root)
-    import dataclasses
 
     import chip_smoke
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
@@ -103,8 +102,10 @@ def main(argv=None) -> int:
     card = chip_smoke.gpu_line()
     cfg = chip_smoke.preset_config()
     if args.plain_detect:
-        cfg = dataclasses.replace(cfg, sdvl=dataclasses.replace(
-            cfg.sdvl, use_fused_detect=False))
+        # the kernel's plain version in the wrapper's place, on the card
+        from sdvl_tpu_torch.ops.cuda import detect
+
+        detect.fast_shi_tomasi_cells = detect.fast_shi_tomasi_cells_plain
     query = dict(np.load(chip_smoke.QUERY_NPZ))
     gumbel = query["gumbel"]
     loc = SdvlStream.localizer(cfg, chip_smoke.MAP_NPZ, seed=1,

@@ -13,6 +13,8 @@ cell winners (position, validity) equal, and scores agree to rounding (rtol
 choose one).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -137,3 +139,36 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
                          ([ok, ok.cpu()], 32)):
         with pytest.raises(ValueError):
             detect.fast_shi_tomasi_cells(levels, cell)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["host", "stream"])
+def test_shipped_config_detects_with_the_kernel(cuda_device, driver):
+    """``SDVL(cfg, device="cuda")`` and ``SdvlStream(cfg, device="cuda")``
+    with ``configs/tum_f1.cfg`` as shipped (which leaves
+    ``use_pallas_detect`` off) launch the kernel once per frame: the
+    detection route follows the device, not the config."""
+    from sdvl_tpu_torch.io.synthetic import PlaneScene
+    from sdvl_tpu_torch.pipeline.config import load_cfg
+    from sdvl_tpu_torch.pipeline.sdvl import SDVL
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+
+    cfg = load_cfg(os.path.join(os.path.dirname(__file__), os.pardir,
+                                "configs", "tum_f1.cfg"))
+    c = cfg.camera
+    scene = PlaneScene(fx=c.fx, fy=c.fy, cx=c.u0, cy=c.v0, width=c.width,
+                       height=c.height, plane_z=4.0, dist=c.dist)
+    frames = [np.clip(scene.render(p), 0, 255).astype(np.uint8)
+              for p in scene.trajectory(6, translation_amp=1.0)]
+    before = detect.launch_count
+    if driver == "host":
+        slam = SDVL(cfg, device="cuda")
+        states = [slam.handle_frame(f)["state"] for f in frames]
+    else:
+        slam = SdvlStream(cfg, device="cuda")
+        for f in frames:
+            slam.feed(f)
+        states = slam.result().states.tolist()
+    torch.cuda.synchronize()
+    assert detect.launch_count - before == len(frames)
+    assert len(states) == len(frames)

@@ -1,8 +1,12 @@
 """The port stands alone: ``sdvl_tpu_torch/`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package."""
+neither JAX nor anything of the JAX package, nor OpenCV (the card's machine
+has none): the one exception is the live-camera source, which needs a
+camera and OpenCV and says so where OpenCV is absent."""
 
 import os
 import re
+import subprocess
+import sys
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 FORBIDDEN = re.compile(
@@ -34,7 +38,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_port_package_mirrors_the_reference_layout():
-    for sub in ("core", "ops", "solvers", "state", "pipeline", "io"):
+    for sub in ("core", "ops", "solvers", "state", "pipeline", "io", "utils",
+                "cli"):
         assert os.path.isfile(
             os.path.join(ROOT, "sdvl_tpu_torch", sub, "__init__.py"))
     pairs = [
@@ -48,6 +53,8 @@ def test_port_package_mirrors_the_reference_layout():
         "solvers/homography.py", "solvers/ba.py", "pipeline/bootstrap.py",
         "pipeline/depth_filter.py", "pipeline/mapper.py",
         "io/synthetic.py", "io/evaluate.py",
+        "io/dataset.py", "io/native_loader.py", "pipeline/sdvl.py",
+        "pipeline/runtime.py", "utils/trace.py", "cli/run.py",
     ]
     for rel in pairs:
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu", rel)), rel
@@ -56,3 +63,28 @@ def test_port_package_mirrors_the_reference_layout():
                                        "detect.py"))
     assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu_torch", "csrc",
                                        "detect.cu"))
+
+
+CV2 = re.compile(r"^\s*(import\s+cv2\b|from\s+cv2\b)", re.M)
+
+
+def test_port_imports_no_opencv_but_for_the_live_camera():
+    hits = []
+    for f in _port_files():
+        text = open(f).read()
+        for m in CV2.finditer(text):
+            func = re.findall(r"^def (\w+)", text[:m.start()], re.M)[-1:]
+            hits.append((os.path.relpath(f, ROOT), func))
+    assert hits == [("sdvl_tpu_torch/io/dataset.py", ["camera_source"])]
+    # and importing every module of the port loads neither cv2 nor jax
+    mods = []
+    for f in _port_files()[1:]:
+        rel = os.path.relpath(f, ROOT)[:-3].replace(os.sep, ".")
+        mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
+                    else rel)
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "print(sorted(m for m in ('cv2', 'jax', 'sdvl_tpu') "
+              "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr

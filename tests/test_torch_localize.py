@@ -3,11 +3,12 @@
 A JAX SLAM stream maps a 320x240 ``PlaneScene`` and writes a stream
 snapshot; both localizers load THAT FILE, start LOST, relocalize and track
 the same query frames with the same pose-RANSAC noise (the port is handed the
-Gumbel numbers the JAX stream draws from its key). Run twice: fused
-detection off, and on -- on the JAX side the Pallas kernel runs in interpret
-mode (``sdvl_tpu.ops.pallas.detect.fast_shi_tomasi_map`` is swapped for its
-``interpret=True`` form from here; ``ops/fast.py`` imports it at call time),
-on the port's side the CPU tensor takes the kernel's plain version.
+Gumbel numbers the JAX stream draws from its key). The port detects one
+way (on the CPU tensor, the kernel's plain version); it is held against
+both JAX routes: the plain one, and the Pallas kernel in interpret mode
+(``sdvl_tpu.ops.pallas.detect.fast_shi_tomasi_map`` is swapped for its
+``interpret=True`` form from here; ``ops/fast.py`` imports it at call
+time).
 
 Tolerances: per-frame state and quality equal; ``n_matches`` within +-2 (a
 match on a threshold may flip under different float32 rounding); poses within
@@ -71,8 +72,6 @@ def _serve(mapped, fused: bool, monkeypatch, query=None, **knobs):
                               interpret=True))
         cfg_j = dataclasses.replace(cfg_j, sdvl=dataclasses.replace(
             cfg_j.sdvl, use_pallas_detect=True))
-        cfg_t = dataclasses.replace(cfg_t, sdvl=dataclasses.replace(
-            cfg_t.sdvl, use_fused_detect=True))
     if query is None:
         query = frames[QUERY]
 

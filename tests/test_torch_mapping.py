@@ -40,7 +40,8 @@ from sdvl_tpu_torch.pipeline import tracker as ttracker
 from sdvl_tpu_torch.pipeline.config import intrinsics as t_intrinsics
 from sdvl_tpu_torch.solvers import ba as tba
 from sdvl_tpu_torch.state import map_state as tms
-from torch_port_helpers import N, T, small_scene, tree_to_numpy, with_knobs
+from torch_port_helpers import (N, T, small_scene, synthetic_ba_problem,
+                               tree_to_numpy, with_knobs)
 
 torch.set_num_threads(1)
 
@@ -244,17 +245,22 @@ def test_ba_rejects_a_system_that_is_not_positive_definite(monkeypatch):
 
 
 def test_ba_refuses_the_unported_cg_path():
-    """Above CG_KF_THRESHOLD keyframe slots the reference switches to its
-    PCG solve; the port refuses before doing any work."""
-    K, P = tba.CG_KF_THRESHOLD + 1, 8
-    poses = np.zeros((K, 7), np.float32)
-    poses[:, 0] = 1.0
-    pt = tba.BAProblem(T(poses), T(np.zeros(K, bool)),
-                       T(np.ones((P, 3), np.float32)),
-                       T(np.zeros((P, K, 2), np.float32)),
-                       T(np.zeros((P, K), bool)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tba.solve(pt, huber=1e-2)
+    """Above CG_KF_THRESHOLD keyframe slots (here 201) both packages switch
+    to the matrix-free PCG solve; the port, which refused this case before
+    the PCG was ported, now matches the reference (poses within 5e-4,
+    points within 5e-3, the gated observations equal)."""
+    K, P = tba.CG_KF_THRESHOLD + 1, 64
+    arrays = synthetic_ba_problem(K, P, seed=3, noise=0.01, span=32)
+    pj = jba.BAProblem(*(jnp.asarray(a) for a in arrays[:5]))
+    pt = tba.BAProblem(*(T(a) for a in arrays[:5]))
+    rj = jax.jit(lambda p: jba.solve(p, huber=0.05, stage_iters=(3, 3)))(pj)
+    rt = tba.solve(pt, huber=0.05, stage_iters=(3, 3))
+    assert len(rt.cg_iterations) == 6
+    np.testing.assert_allclose(N(rt.poses), np.asarray(rj.poses), atol=5e-4)
+    np.testing.assert_allclose(N(rt.points), np.asarray(rj.points),
+                               atol=5e-3)
+    np.testing.assert_array_equal(N(rt.inlier_mask),
+                                  np.asarray(rj.inlier_mask))
 
 
 # ------------------------------------------------------- a real map

@@ -178,9 +178,10 @@ _PYRAMID_CASES = [(False, None), (True, None), (True, 20), (False, 12)]
     ids=[f"{a}-{b}" for a, b in _PYRAMID_CASES]
     + [f"fused-{a}-{b}" for a, b in _PYRAMID_CASES])
 def test_detect_pyramid(use_lock, max_features, fused, monkeypatch):
-    """Plain route against ``use_pallas=False``; fused route (one call of
-    the fused kernel's wrapper for all levels, its plain version here)
-    against ``use_pallas=True`` with the Pallas kernel in interpret mode."""
+    """The port's one route (one call of the kernel's wrapper for all
+    levels, its plain version on the CPU) against both JAX routes:
+    ``use_pallas=False``, and ``use_pallas=True`` with the Pallas kernel in
+    interpret mode."""
     img = blocky_image(2, (120, 160))
     pj = jpyr.build_pyramid(jnp.asarray(img), 4)
     pt = tpyr.build_pyramid(T(img), 4)
@@ -205,7 +206,7 @@ def test_detect_pyramid(use_lock, max_features, fused, monkeypatch):
         lock = dict(lock_xy=jnp.asarray(xy), lock_valid=jnp.asarray(ok))
         lock_t = dict(lock_xy=T(xy), lock_valid=T(ok))
     cj = jfast.detect_pyramid(pj, **kw, **lock, use_pallas=fused)
-    ct = tfast.detect_pyramid(pt, **kw, **lock_t, use_fused=fused)
+    ct = tfast.detect_pyramid(pt, **kw, **lock_t)
     vj = np.asarray(cj.valid)
     np.testing.assert_array_equal(N(ct.valid), vj)
     assert vj.sum() >= 5
@@ -281,3 +282,54 @@ def test_orb_descriptors_and_hamming_exact():
                      for x, y in zip(a.ravel(), b.ravel())]
                     ).reshape(50, 8).sum(1)
     np.testing.assert_array_equal(ht, want)
+
+
+def test_warp_patch_matches_reference():
+    """Batched warped patches (random affine maps, centres near and past
+    the border) against the reference; the identity map gives the plain
+    patch."""
+    rng = np.random.default_rng(3)
+    img = smooth_image(2, (60, 80))
+    A = (np.eye(2, dtype=np.float32)[None]
+         + rng.normal(0, 0.3, (5, 2, 2)).astype(np.float32))
+    px = _xy(rng, 5, 60, 80)
+    want = np.asarray(jpatch.warp_patch(jnp.asarray(img), jnp.asarray(A),
+                                        jnp.asarray(px), half=4))
+    got = N(tpatch.warp_patch(T(img), T(A), T(px), half=4))
+    assert got.shape == (5, 8, 8)
+    np.testing.assert_allclose(got, want, atol=ATOL_PX)
+    eye = np.tile(np.eye(2, dtype=np.float32), (5, 1, 1))
+    np.testing.assert_array_equal(
+        N(tpatch.warp_patch(T(img), T(eye), T(px), half=4)),
+        N(tinterp.extract_patches(T(img), T(px), half=4)))
+
+
+def test_hamming_matrix_exact():
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 2**32, size=(6, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, size=(5, 8), dtype=np.uint32)
+    want = np.asarray(jorb.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    got = N(torb.hamming_matrix(T(a), T(b)))
+    np.testing.assert_array_equal(got, want)
+    assert (np.diag(N(torb.hamming_matrix(T(a), T(a)))) == 0).all()
+
+
+def test_unit_plane_to_pixel_and_frame_state():
+    from sdvl_tpu.state.map_state import FrameState as JFrameState
+    from sdvl_tpu_torch.state.map_state import FrameState as TFrameState
+
+    rng = np.random.default_rng(5)
+    uv = rng.normal(0, 0.5, (7, 2)).astype(np.float32)
+    ij = jcam.Intrinsics.create(210.0, 209.0, 159.5, 119.5, width=320,
+                                height=240)
+    it = tcam.Intrinsics.create(210.0, 209.0, 159.5, 119.5, width=320,
+                                height=240)
+    want = np.asarray(jcam.unit_plane_to_pixel(ij, jnp.asarray(uv)))
+    np.testing.assert_array_equal(N(tcam.unit_plane_to_pixel(it, T(uv))),
+                                  want)
+    # project -> unit plane -> pixel is the identity (no distortion)
+    pts = np.concatenate([uv * 3.0, np.full((7, 1), 3.0, np.float32)], 1)
+    np.testing.assert_allclose(
+        N(tcam.unit_plane_to_pixel(it, tcam.project_unit_plane(T(pts)))),
+        N(tcam.project(it, T(pts))), atol=1e-4)
+    assert TFrameState._fields == JFrameState._fields

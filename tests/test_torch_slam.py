@@ -5,10 +5,11 @@ Both streams start from an empty map over the same rendered 320x240
 ``PlaneScene`` frames (FIRST -> SECOND bootstrap -> RUNNING with keyframes,
 local BA and depth filters), and the port is fed the random draws the JAX
 stream derives from its key (pose RANSAC per frame, the homography and
-ground-plane RANSACs of the bootstrap). Run with both detection routes:
-plain against ``use_pallas_detect=False``, and fused against the Pallas
-kernel in interpret mode (on the port's side the CPU tensor takes the
-kernel's plain version).
+ground-plane RANSACs of the bootstrap). Run with both detection routes
+(``torch_port_helpers.detect_route``): the port's own (on the CPU tensor,
+the kernel's plain version) against the Pallas kernel in interpret mode,
+and the reference's plain route, made of the port's functions and swapped
+in for the kernel's wrapper, against ``use_pallas_detect=False``.
 
 Tolerances: per-frame states, keyframe flags and ``n_corners`` equal;
 ``n_matches`` within +-2 (a match on a threshold may flip under different
@@ -18,17 +19,14 @@ singular-value solves, carried through the ground-plane rotation, which is
 ill-conditioned near 180 degrees (the camera looks down at the plane).
 """
 
-import functools
-
 import numpy as np
 import pytest
 import torch
 
-import sdvl_tpu.ops.pallas.detect as pallas_detect
 from sdvl_tpu_torch.ops.cuda import detect as t_detect
 from sdvl_tpu_torch.pipeline.stream import Draws
 from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
-from torch_port_helpers import slam_pair, small_scene, with_knobs
+from torch_port_helpers import slam_pair, small_scene
 
 torch.set_num_threads(1)
 
@@ -49,22 +47,10 @@ def runs(scene):
 
     def get(fused: bool):
         if fused not in out:
-            cj, ct = cfg_j, cfg_t
-            if fused:
-                cj = with_knobs(cj, use_pallas_detect=True)
-                ct = with_knobs(ct, use_fused_detect=True)
-            mp = pytest.MonkeyPatch()
-            if fused:
-                mp.setattr(pallas_detect, "fast_shi_tomasi_map",
-                           functools.partial(
-                               pallas_detect.fast_shi_tomasi_map,
-                               interpret=True))
             launches = t_detect.launch_count
-            try:
-                out[fused] = slam_pair(cj, ct, frames) + (
-                    t_detect.launch_count - launches,)
-            finally:
-                mp.undo()
+            out[fused] = slam_pair(
+                cfg_j, cfg_t, frames, route="pallas" if fused else "plain"
+            ) + (t_detect.launch_count - launches,)
         return out[fused]
 
     return get
@@ -111,7 +97,7 @@ def test_chunked_feeding_equals_per_frame(runs, scene):
     """Chunks (one host->device copy each) and single frames mixed give
     the per-frame run's results exactly (the same ops on the CPU)."""
     _, cfg_t, frames, _ = scene
-    js, _, _, rt, _ = runs(False)
+    js, _, _, rt, _ = runs(True)        # the port's own detection
     from torch_port_helpers import jax_draws
 
     st = TStream(cfg_t, seed=0, device="cpu",

@@ -4,7 +4,11 @@ and the PyTorch port as numpy arrays, seeded test images, and the small
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
+import pytest
 import torch
 
 from make_torch_fixtures import (homography_gumbel, plane_gumbel,  # noqa: F401
@@ -127,19 +131,103 @@ def jax_draws(cfg_t, key):
                  plane=plane_gumbel(key, s.max_points))
 
 
-def slam_pair(cfg_j, cfg_t, frames, seed=0):
+def _reference_plain_cells(levels, cell, fast_threshold, st_threshold):
+    """The JAX package's plain detection route (per level: FAST mask, Shi-
+    Tomasi map, ``_grid_best``) composed of the port's counterparts of its
+    functions, each held against the reference in ``test_torch_ops.py``;
+    the signature and outputs of ``fast_shi_tomasi_cells`` (no maps)."""
+    from sdvl_tpu_torch.ops import fast
+
+    xy, score, valid, level = [], [], [], []
+    for l, img in enumerate(levels):
+        corner = fast.fast_corner_mask(img, fast_threshold)
+        p, best, ok = fast._grid_best(fast.shi_tomasi(img), corner, cell)
+        xy.append(p * float(1 << l))
+        score.append(best)
+        valid.append(ok & (best > st_threshold))
+        level.append(torch.full((p.shape[0],), l, dtype=torch.int32))
+    return (None, torch.cat(xy), torch.cat(score), torch.cat(valid),
+            torch.cat(level))
+
+
+@contextlib.contextmanager
+def detect_route(route: str):
+    """The detection both packages take inside the block.
+
+    ``"pallas"``: the JAX package's Pallas kernel in interpret mode (its own
+    tests' CPU route; the JAX config must set ``use_pallas_detect``) against
+    the port's own route (the kernel's plain version on CPU tensors).
+    ``"plain"``: the JAX package's plain route against the same route made
+    of the port's functions, swapped in for the kernel's wrapper."""
+    import sdvl_tpu.ops.pallas.detect as pallas_detect
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    mp = pytest.MonkeyPatch()
+    try:
+        if route == "pallas":
+            mp.setattr(pallas_detect, "fast_shi_tomasi_map",
+                       functools.partial(pallas_detect.fast_shi_tomasi_map,
+                                         interpret=True))
+        else:
+            mp.setattr(detect, "fast_shi_tomasi_cells",
+                       _reference_plain_cells)
+        yield
+    finally:
+        mp.undo()
+
+
+def slam_pair(cfg_j, cfg_t, frames, seed=0, route="pallas"):
     """The JAX SLAM stream and the port's (CPU, fed the JAX draws) over the
-    same frames, frame by frame. Returns (jax stream, jax result, port
+    same frames, frame by frame, with the detection of :func:`detect_route`
+    (the port's own by default). Returns (jax stream, jax result, port
     stream, port result)."""
     from sdvl_tpu.pipeline.stream import SdvlStream as JStream
     from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
 
-    js = JStream(cfg_j, seed=seed, donate=False)
-    for f in frames:
-        js.feed(f)
-    rj = js.result()
-    ts = TStream(cfg_t, seed=seed, device="cpu",
-                 gumbel_provider=jax_draws(cfg_t, js.carry.key))
-    for f in frames:
-        ts.feed(f)
-    return js, rj, ts, ts.result()
+    if route == "pallas":
+        cfg_j = with_knobs(cfg_j, use_pallas_detect=True)
+    with detect_route(route):
+        js = JStream(cfg_j, seed=seed, donate=False)
+        for f in frames:
+            js.feed(f)
+        rj = js.result()
+        ts = TStream(cfg_t, seed=seed, device="cpu",
+                     gumbel_provider=jax_draws(cfg_t, js.carry.key))
+        for f in frames:
+            ts.feed(f)
+        return js, rj, ts, ts.result()
+
+
+def synthetic_ba_problem(K, P, seed=0, noise=0.02, span=None):
+    """The seeded BA problem of ``tests/test_scale.py``, as numpy arrays:
+    exact unit-plane projections of P points from K cameras on a line, the
+    first two cameras fixed, the other poses and the points perturbed.
+    ``span`` (default K) scales the camera line to that many of the
+    reference's steps: at K = 256 the reference's own line runs 20 units
+    sideways and turns 0.5 rad, points come within 1e-4 of the camera
+    planes, and the float32 solve becomes chaotic (the JAX package's own
+    eager and jitted runs then end 0.07 apart). Returns (poses_init, fixed,
+    points_init, obs_uv, obs_mask, poses_gt)."""
+    import jax.numpy as jnp
+
+    from sdvl_tpu.core import se3 as jse3
+
+    rs = np.random.default_rng(seed)
+    pts = rs.uniform([-3, -3, 4], [3, 3, 10], (P, 3)).astype(np.float32)
+    step = (K if span is None else span) / K
+    poses = np.stack([
+        np.asarray(jse3.exp(jnp.asarray(
+            [0.08 * k * step, 0.01 * k * step, 0.0, 0.0, 0.002 * k * step,
+             0.0], jnp.float32)))
+        for k in range(K)
+    ])
+    p_cam = np.asarray(jse3.transform(jnp.asarray(poses)[None, :],
+                                      jnp.asarray(pts)[:, None]))
+    uv = (p_cam[..., :2] / p_cam[..., 2:3]).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[:2] = True
+    poses_init = poses.copy()
+    poses_init[~fixed, 4:] += rs.normal(0, noise, (K - 2, 3)).astype(
+        np.float32)
+    pts_init = pts + rs.normal(0, noise, (P, 3)).astype(np.float32)
+    return (poses_init, fixed, pts_init, uv, np.ones((P, K), bool), poses)
