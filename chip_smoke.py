@@ -1,61 +1,68 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch/CUDA port: full SLAM mode, serving and the
-command-line program, on one card.
+"""GPU smoke run of the PyTorch/CUDA port: full SLAM mode, serving, multi-
+stream serving, the command-line program and the sharded bundle adjustment,
+on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU, ``nvcc`` and
 PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-What it does, each phase printing its own lines and any failure ending the
-run with a non-zero exit code:
+What it does, each phase printing its own lines and its seconds, any failure
+ending the run with a non-zero exit code:
 
 1. device  -- requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` gives them, and the torch/CUDA versions.
 2. build   -- compiles ``sdvl_tpu_torch/csrc/detect.cu`` with ``nvcc`` for
    ``sm_90a`` and loads it.
 3. kernel  -- holds the detection kernel (score maps and per-cell winners of
-   all levels in one launch) against its plain torch version on the card:
-   the three detection levels of the first query frame in one launch (at
-   cell 32, then 16 and 64), each level alone, a small 64x96 level and a
-   ragged 123x171 one (scalar staging). Maps must have equal finite masks
-   and scores to rounding, cell winners must be equal. It times, with CUDA
-   events, the device time of one launch (many launches replayed from a
-   CUDA graph), one eager call of the launch and of the wrapper with its
-   cell decode, the plain version, and one eager ``detect_pyramid`` call on
-   the first query frame, through the kernel against through its plain
-   version.
+   all levels in one launch) against its plain torch version on the card,
+   under both border rules (``plain``: the reference's plain route, the
+   shipped configs'; ``pallas``: its Pallas kernel's): the three detection
+   levels of the first query frame in one launch (at cell 32, then 16 and
+   64), each level alone, a small 64x96 level and a ragged 123x171 one
+   (scalar staging). Maps and cell results must be bit-identical. It times,
+   with CUDA events, the device time of one launch (many launches replayed
+   from a CUDA graph), one eager call of the launch and of the wrapper with
+   its cell decode, the plain version, and one eager ``detect_pyramid``
+   call on the first query frame, through the kernel against through its
+   plain version.
 4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
    (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
-   keyframe / 4096 point / 512 candidate slots, fused detection) from an
-   empty map over the 40 ``PlaneScene`` frames, rendered here with
-   ``sdvl_tpu_torch.io.synthetic`` and checked against the SHA-256 stored
-   in ``tests/data/torch_slam_record.npz``, fed the JAX run's random draws
-   from that file. Three runs: cold, warm (timed per frame, kernel launches
-   counted) and one counting synchronisations. Each is held against the
-   recorded JAX run: bootstrap frame, states and keyframe flags equal,
-   ``n_matches`` within 2 on at most 15 % of RUNNING frames, camera
-   centres within 1 % of the trajectory extent, Sim(3)-aligned ATE under
-   3 % of the extent, keyframe count within 1. The preset run makes no
-   keyframe after the bootstrap in 40 frames, so the warm and counting
-   runs go on over 45 more frames of the same trajectory (pose noise from
-   a seeded NumPy generator), which insert keyframes: RUNNING throughout,
-   ATE under 3 %. Then the port's own map is saved with
-   ``save_stream_snapshot`` and served by ``SdvlStream.localizer`` on
-   ``frames[8:32]``: RUNNING within 5 frames and on the last 5, ATE under
-   5 %.
-5. slice   -- ``SdvlStream.localizer`` at the tum_f1 preset shape (640x480,
-   5 levels, ORB gate, 200 match lanes, 100 keyframe / 4096 point slots) on
-   the committed map snapshot, the 24 committed query frames through
+   keyframe / 4096 point / 512 candidate slots, the Pallas border rule as
+   the record was made) from an empty map over the 85 ``PlaneScene`` frames
+   of ``tests/data/torch_slam_record.npz``, rendered here with
+   ``sdvl_tpu_torch.io.synthetic`` and checked against its SHA-256, fed the
+   JAX run's random draws from that file. Three runs: cold (the first 40
+   frames), warm (timed per frame, kernel launches counted) and one
+   counting synchronisations. Each is held against the recorded JAX run:
+   bootstrap frame, states and keyframe flags equal (a tracked keyframe
+   after the bootstrap among them), ``n_matches`` within 2 on at most 15 %
+   of RUNNING frames, camera centres within 1 % of the trajectory extent,
+   Sim(3)-aligned ATE under 3 % of the extent, keyframe count within 1.
+   Then the port's own map is saved with ``save_stream_snapshot`` and
+   served by ``SdvlStream.localizer`` on ``frames[8:32]``: RUNNING within 5
+   frames and on the last 5, ATE under 5 %.
+5. slice   -- ``SdvlStream.localizer`` at the tum_f1 preset shape on the
+   committed JAX-built map snapshot, the 24 committed query frames through
    ``feed_chunk`` with the recorded RANSAC noise, ``result()``; checks
    relocalization, tracking, accuracy against ground truth, that the map is
-   untouched and that every frame launched the kernel exactly once.
-6. cli     -- the command-line program, ``sdvl_tpu_torch.cli.run.main``
+   untouched and that every frame launched the kernel exactly once; prints
+   the distance to the recorded JAX run (made with the plain route) for the
+   plain border rule beside the pallas rule the earlier slices ran.
+6. multi   -- ``dist.multi_stream.MultiStream``: the JAX-built map, frozen
+   and shared, served to 1, 4 and 8 streams on the 24 query frames (stream
+   ``i`` seeded ``1 + i``, lane 0 fed the recorded noise): every stream
+   RUNNING within 5 frames and on the last 5, the map bit-identical, kernel
+   launches = streams x frames, lane 0 equal to phase slice; aggregate
+   stream-frames/s. Then 2 full-SLAM streams with a map each over the 85
+   record frames, lane 0 fed the record's draws and held to its criteria.
+7. cli     -- the command-line program, ``sdvl_tpu_torch.cli.run.main``
    in process on the card, over 85 ``PlaneScene`` frames (plus 6 for a
    resumed session) rendered through the lens of ``configs/tum_f1.cfg``
    (its intrinsics and d1..d5) and written as binary PGM files with image
-   lists. Five runs, each counting the kernel's launches (one per frame),
-   the synchronisations inside each frame's call and printing frames/s:
+   lists. Runs counting the kernel's launches (one per frame), the
+   synchronisations inside each frame's call and printing frames/s:
    (1) ``--stream --global-ba --output --snapshot`` with the config as
    shipped (1000 keyframe slots): RUNNING from the bootstrap on, Sim(3) ATE
    under 3 % of the extent before and after global BA, global BA on the PCG
@@ -66,16 +73,26 @@ run with a non-zero exit code:
    points within 5e-3; (3) the host driver with ``--trace --snapshot``:
    trajectory within 1e-4 of run 2's, ``n_matches`` within 1 on at most
    15 % of RUNNING frames, the trace holds ``preprocess`` and ``track``;
-   (4) ``--async-mapping``: the criteria of
+   (3b) the host driver with ``--viz DIR --viz-every 10`` over 30 frames:
+   the PNGs exist and decode, and the frames it does not record synchronise
+   as run 3's do (without matplotlib: ``--viz`` must stop before the first
+   frame with an error naming it, then the recorder runs with its map
+   figures off); (4) ``--async-mapping``: the criteria of
    ``tests/test_runtime_async.py``; (5) ``--resume`` of run 3's snapshot
    over 6 more frames, and ``--stream --localize`` of run 1's map on frames
    8-31 (RUNNING within 5 frames and on the last 5, ATE under 5 %).
-7. prints one JSON line ``{"kernels": [...]}`` and, last,
+8. dist    -- ``torch.distributed`` with nccl at world size 1:
+   ``mapper.global_ba(mesh=...)`` against ``global_ba()`` on run 2's map at
+   100 slots (Cholesky) and padded to 1000 (PCG): poses within 5e-4,
+   points within 5e-3, gated observations equal; both timed.
+9. prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``. The kernel's ``launches``, ``frames``
    and ``frames_per_s`` are the slam phase's warm run; ``launches_by_path``
-   and ``frames_by_path`` give each path's count beside its frames (the
-   cli phase's stream, host and async runs as ``cli_stream``, ``cli_host``,
-   ``cli_async``).
+   and ``frames_by_path`` give each path's count beside its frames
+   (stream-frames for ``multi_1``, ``multi_4``, ``multi_8`` and
+   ``multi_slam``; ``cli_stream``, ``cli_host``, ``cli_async``, ``cli_viz``
+   for the cli phase). ``ms`` is the pallas border rule's device time,
+   ``plain_border_ms`` the plain rule's.
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 ``sdvl_tpu``. The fixtures under ``tests/data/`` are made by
@@ -129,8 +146,10 @@ def gpu_line() -> str:
     return out[0].strip()
 
 
-def preset_config(localize_only: bool = True):
-    """The tum_f1 preset shape."""
+def preset_config(localize_only: bool = True,
+                  use_pallas_detect: bool = False):
+    """The tum_f1 preset shape (the plain detection route unless
+    ``use_pallas_detect``)."""
     from sdvl_tpu_torch.pipeline.config import (CameraConfig, Config,
                                                 SdvlConfig)
 
@@ -140,6 +159,7 @@ def preset_config(localize_only: bool = True):
         cell_size=32, pyramid_levels=5, max_fast_levels=3,
         min_avg_shift=10.0, min_keyframe_its=15, min_init_corners=40,
         map_scale=4.0, localize_only=localize_only,
+        use_pallas_detect=use_pallas_detect,
     )
     return Config(
         camera=CameraConfig(width=640, height=480, fx=517.3, fy=516.5,
@@ -212,80 +232,74 @@ def graph_ms(fn, launches: int = 200, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def check_map(name: str, got: torch.Tensor, want: torch.Tensor):
-    """One level's kernel map against the plain map; raises on
-    disagreement. Returns (corners, mask mismatches, max abs error)."""
+def check_map(name: str, got: torch.Tensor, want: torch.Tensor,
+              border: str):
+    """One level's kernel map against the plain map, bit for bit (equal
+    finite masks, equal scores, -inf elsewhere); under the pallas rule the
+    4-px border must be all -inf. Raises on disagreement. Returns (corners,
+    max abs error)."""
     H, W = want.shape
     assert got.shape == want.shape == (H, W) and got.dtype == torch.float32
     fg, fw = torch.isfinite(got), torch.isfinite(want)
-    # border: all -inf
-    inner = torch.zeros_like(fg)
-    inner[4:H - 4, 4:W - 4] = True
-    assert not bool((fg & ~inner).any()), f"{name}: finite score in border"
     assert bool(((got == float("-inf")) | fg).all()), f"{name}: nan in map"
-    # finite masks equal, except where the score sits on the threshold
-    diff = fg != fw
-    n_diff = int(diff.sum())
-    if n_diff:
-        v = torch.where(fg, got, want)[diff]
-        near = (v - ST_T).abs() <= 1e-3 * ST_T
-        assert bool(near.all()), (
-            f"{name}: {int((~near).sum())} mask mismatches away from the "
-            f"score threshold")
-    both = fg & fw
-    n_both = int(both.sum())
+    if border == "pallas":
+        inner = torch.zeros_like(fg)
+        inner[4:H - 4, 4:W - 4] = True
+        assert not bool((fg & ~inner).any()), f"{name}: finite score in border"
+    n_diff = int((fg != fw).sum())
+    assert n_diff == 0, f"{name}: {n_diff} pixels finite in one map only"
+    n_both = int(fg.sum())
     assert n_both > 0, f"{name}: no corner found, the check is empty"
-    err = (got[both] - want[both]).abs()
-    tol = 1e-2 + 1e-4 * want[both].abs()   # summation order may differ
-    assert bool((err <= tol).all()), (
-        f"{name}: score error {float(err.max())} beyond rtol 1e-4 atol 1e-2")
-    return n_both, n_diff, float(err.max())
+    err = float((got[fg] - want[fg]).abs().max())
+    assert torch.equal(got, want), (
+        f"{name}: maps not bit-identical, max abs error {err}")
+    return n_both, err
 
 
-def check_launch(name: str, levels, cell: int = 32, timed: bool = True) -> dict:
-    """One launch of the kernel over ``levels`` against the plain version
-    (per-level plain map plus ``grid_best``): maps as in ``check_map``, cell
-    winners (position, validity, level) exactly equal, scores to rounding.
+def check_launch(name: str, levels, cell: int = 32, timed: bool = True,
+                 border: str = "pallas") -> dict:
+    """One launch of the kernel over ``levels`` under the ``border`` rule
+    against the plain version (per-level plain map plus ``grid_best``):
+    maps and cell results (position, score, validity, level) bit-identical.
     With ``timed``, also the times of the launch, of the wrapper and of the
     plain version, and the bound. Raises on disagreement."""
     from sdvl_tpu_torch.ops.cuda import detect
 
     shapes = [list(l.shape) for l in levels]
-    got = detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T)
+    got = detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T, border)
     torch.cuda.synchronize()
-    want = detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T, ST_T)
-    n_both = n_diff = 0
+    want = detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T, ST_T,
+                                              border)
+    n_both = 0
     max_err = 0.0
     for l, (g, w) in enumerate(zip(got[0], want[0])):
-        c, d, e = check_map(f"{name} level {l}", g, w)
-        n_both, n_diff, max_err = n_both + c, n_diff + d, max(max_err, e)
+        c, e = check_map(f"{name} {border} level {l}", g, w, border)
+        n_both, max_err = n_both + c, max(max_err, e)
     _, xy, score, valid, level = got
     _, pxy, pscore, pvalid, plevel = want
     assert torch.equal(valid, pvalid), f"{name}: cell validity differs"
     assert torch.equal(xy, pxy), f"{name}: cell winners differ"
     assert torch.equal(level, plevel), f"{name}: cell levels differ"
+    assert torch.equal(score, pscore), f"{name}: cell scores differ"
     n_cells = int(valid.numel())
-    cell_err = float((score - pscore).abs().max()) if n_cells else 0.0
-    assert cell_err <= 1e-2 + 1e-4 * float(pscore.abs().max()), (
-        f"{name}: cell score error {cell_err}")
-    max_err = max(max_err, cell_err)
-    out = dict(shape=shapes, cell=cell, levels_per_launch=len(levels),
-               n_cells=n_cells, n_valid_cells=int(valid.sum()),
-               max_abs_err=max_err, n_corners=n_both,
-               n_mask_mismatch=n_diff)
-    msg = (f"{name} {shapes} cell {cell}: corners {n_both}, mask mismatches "
-           f"{n_diff}, cells {n_cells} ({out['n_valid_cells']} valid, "
-           f"winners equal), max_abs_err {max_err:.3g}")
+    out = dict(shape=shapes, cell=cell, border=border,
+               levels_per_launch=len(levels), n_cells=n_cells,
+               n_valid_cells=int(valid.sum()), max_abs_err=max_err,
+               n_corners=n_both)
+    msg = (f"{name} {shapes} cell {cell}, {border} border: corners {n_both}, "
+           f"cells {n_cells} ({out['n_valid_cells']} valid), maps and cells "
+           f"bit-identical to the plain version")
     if timed:
         def run_kernel():
-            return detect._launch(levels, cell, FAST_T, ST_T)
+            return detect._launch(levels, cell, FAST_T, ST_T, border=border)
 
         def run_wrapper():
-            return detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T)
+            return detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T,
+                                                border)
 
         def run_plain():
             return detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T,
-                                                      ST_T)
+                                                      ST_T, border)
 
         ms, plain_ms = graph_ms(run_kernel), graph_ms(run_plain, launches=10)
         call_ms, wrapper_ms = time_ms(run_kernel), time_ms(run_wrapper)
@@ -304,6 +318,44 @@ def check_launch(name: str, levels, cell: int = 32, timed: bool = True) -> dict:
                 f"ms (bytes {bytes_ms:.5f}, operations {ops_ms:.5f})")
     say("kernel", msg)
     return out
+
+
+def run_kernel_phase():
+    """Phase 3 (see the module docstring). Returns the checks by border rule
+    and shape, and the eager ``detect_pyramid`` times."""
+    from sdvl_tpu_torch.ops import pyramid
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    dev = torch.device("cuda")
+    cfg = preset_config()
+    query = dict(np.load(QUERY_NPZ))
+    frame0 = torch.from_numpy(query["frames"][0]).to(dev)
+    pyr = pyramid.build_pyramid(frame0, 5)
+    levels = pyr[:cfg.sdvl.max_fast_levels]
+    small = torch.from_numpy(blocky_image(0, (64, 96))).to(dev)
+    ragged = torch.from_numpy(blocky_image(1, (123, 171))).to(dev)
+    checks = {}
+    for border in detect.BORDERS:
+        c = {"pyramid": check_launch("pyramid", levels, border=border)}
+        for cell in (16, 64):
+            check_launch("pyramid", levels, cell=cell, timed=False,
+                         border=border)
+        for l, lev in enumerate(levels):
+            c[f"level{l}"] = check_launch(f"level{l}", [lev], border=border)
+        c["small"] = check_launch("small", [small], border=border)
+        c["ragged"] = check_launch("ragged", [ragged], border=border)
+        checks[border] = c
+    for bad in (torch.zeros((480, 640), dtype=torch.float64, device=dev),
+                torch.zeros((480, 640), device=dev)[:, ::2]):
+        for call in (lambda: detect.fast_shi_tomasi_map(bad),
+                     lambda: detect.fast_shi_tomasi_cells([levels[0], bad])):
+            try:
+                call()
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("wrapper accepted a tensor it cannot take")
+    return checks, time_detect_pyramid(cfg, pyr)
 
 
 def time_detect_pyramid(cfg, pyr) -> dict:
@@ -368,30 +420,23 @@ def map_leaves(m):
     return out
 
 
-SLAM_EXTRA_FRAMES = 45
-
-
 def render_preset_frames(rec):
-    """The recorded run's 40 preset frames, rendered by the port's copy of
-    the synthetic scene from the recorded ground-truth poses, then the
-    ``SLAM_EXTRA_FRAMES`` that follow on the same trajectory, as uint8.
-    Fails unless the first 40 frames' SHA-256 equals the recorded one (the
-    JAX run's frames). Returns (frames, ground-truth poses)."""
+    """The recorded run's preset frames, rendered by the port's copy of the
+    synthetic scene from the recorded ground-truth poses, as uint8. Fails
+    unless their SHA-256 equals the recorded one (the JAX run's frames).
+    Returns (frames, ground-truth poses)."""
     from sdvl_tpu_torch.io.synthetic import PlaneScene
 
     scene = PlaneScene(fx=517.3, fy=516.5, cx=318.6, cy=255.3,
                        width=640, height=480, plane_z=4.0)
-    rec_poses = rec["poses_gt"]
-    n = len(rec_poses)
-    traj = np.stack(scene.trajectory(n + SLAM_EXTRA_FRAMES,
-                                     translation_amp=1.0))
-    d_traj = float(np.abs(traj[:n] - rec_poses).max())
+    poses = rec["poses_gt"]
+    traj = np.stack(scene.trajectory(len(poses), translation_amp=1.0))
+    d_traj = float(np.abs(traj - poses).max())
     assert d_traj <= 1e-6, f"trajectory differs from the record by {d_traj}"
-    poses = np.concatenate([rec_poses, traj[n:]])
     frames = [np.clip(scene.render(p), 0, 255).astype(np.uint8)
               for p in poses]
     h = hashlib.sha256()
-    for f in frames[:n]:
+    for f in frames:
         h.update(np.ascontiguousarray(f).tobytes())
     want = bytes(rec["frames_sha256"]).decode()
     assert h.hexdigest() == want, (
@@ -400,38 +445,16 @@ def render_preset_frames(rec):
     return frames, poses
 
 
-def slam_draws(rec, n_hyp: int = 64, n_lanes: int = 200):
-    """The recorded JAX run's random draws as a ``Draws`` provider. A
-    recorded frame the JAX run did not track has no pose noise: asking for
-    it means the port's states diverged. Frames past the record draw
-    standard Gumbel noise from a NumPy generator seeded by the frame
-    index."""
+def slam_draws(rec):
+    """The recorded JAX run's random draws as a ``Draws`` provider. A frame
+    the JAX run did not track has no pose noise: asking for it means the
+    port's states diverged."""
     from sdvl_tpu_torch.pipeline.stream import Draws
 
-    n_rec = len(rec["jax_state"])
     recorded = {int(i): g for i, g in zip(rec["pose_frames"],
                                           rec["pose_gumbel"])}
-
-    def pose(i):
-        if i < n_rec:
-            return recorded.get(i)
-        rng = np.random.default_rng(i)
-        return rng.gumbel(size=(n_hyp, n_lanes)).astype(np.float32)
-
-    return Draws(pose=pose, homography=rec["homography_gumbel"],
+    return Draws(pose=recorded.get, homography=rec["homography_gumbel"],
                  plane=rec["plane_gumbel"])
-
-
-def prefix(r, n: int):
-    """The first ``n`` frames of a ``SlamResult`` (the trajectory is in the
-    final world frame, which the bootstrap set once)."""
-    import copy
-
-    out = copy.copy(r)
-    for name in ("poses_raw", "states", "quality", "n_matches", "n_attempts",
-                 "is_keyframe", "n_corners", "median_shift", "trajectory"):
-        setattr(out, name, getattr(r, name)[:n])
-    return out
 
 
 def first_divergence(r, rec) -> str:
@@ -453,13 +476,18 @@ def first_divergence(r, rec) -> str:
     return "none"
 
 
-def check_slam_run(r, rec) -> dict:
-    """Hold one SLAM run against the recorded JAX run (the criteria of
-    ``tests/test_stream_fsm.py``); raises on disagreement."""
+def check_slam_run(r, rec, n=None) -> dict:
+    """Hold one SLAM run against the first ``n`` frames of the recorded JAX
+    run (all by default; the criteria of ``tests/test_stream_fsm.py``);
+    raises on disagreement."""
     from sdvl_tpu_torch.io import evaluate
 
+    if n is not None and n < len(rec["jax_state"]):
+        rec = {k: (v[:n] if k.startswith("jax_") and k not in (
+            "jax_n_keyframes", "jax_kf_frame_id", "jax_n_points")
+            or k == "poses_gt" else v) for k, v in rec.items()}
+        rec["jax_n_keyframes"] = int(rec["jax_is_keyframe"].sum()) + 1
     n = len(rec["jax_state"])
-    r = prefix(r, n)
     div = first_divergence(r, rec)
     assert r.n_frames == n and r.poses_raw.shape == (n, 7), r.n_frames
     assert np.isfinite(r.trajectory).all(), "non-finite pose"
@@ -469,6 +497,7 @@ def check_slam_run(r, rec) -> dict:
     assert (r.states == rec["jax_state"]).all(), f"states differ; {div}"
     assert (r.is_keyframe == rec["jax_is_keyframe"]).all(), (
         f"keyframe flags differ; {div}")
+    tracked_kf = np.nonzero(r.is_keyframe[boot_t + 1:])[0] + boot_t + 1
     running = rec["jax_state"] == 2
     dm = np.abs(r.n_matches - rec["jax_n_matches"])[running]
     assert dm.max() <= 2 and (dm > 0).mean() <= 0.15, (
@@ -487,30 +516,11 @@ def check_slam_run(r, rec) -> dict:
     assert abs(n_kf - int(rec["jax_n_keyframes"])) <= 1, (
         n_kf, int(rec["jax_n_keyframes"]))
     return dict(bootstrap_frame=boot_t, n_keyframes=n_kf,
+                tracked_keyframes=tracked_kf.tolist(),
                 max_centre_dist=d_cent, extent=extent, ate=ate,
                 ate_pct=100 * ate / extent,
                 frames_with_match_diff=int((dm > 0).sum()),
                 max_match_diff=int(dm.max()))
-
-
-def check_extension(r, stream, poses, n_rec: int) -> dict:
-    """The frames past the record: RUNNING throughout, keyframes inserted,
-    ATE under 3 % of the extent over every tracked frame."""
-    from sdvl_tpu_torch.io import evaluate
-
-    assert (r.states[n_rec:] == 2).all(), r.states[n_rec:].tolist()
-    kf_ext = int(r.is_keyframe[n_rec:].sum())
-    assert kf_ext >= 1, "no keyframe inserted past the record"
-    start = int(np.argmax(r.states == 2))
-    c_gt = evaluate.positions_from_poses(poses[start:])
-    c_t = evaluate.positions_from_poses(r.trajectory[start:])
-    extent = float(np.linalg.norm(np.ptp(c_gt, axis=0)))
-    ate = evaluate.ate_rmse(c_t, c_gt, with_scale=True)
-    assert ate < 0.03 * extent, f"ATE {ate} vs extent {extent}"
-    return dict(frames=r.n_frames, keyframes_past_record=kf_ext,
-                n_keyframes=int(stream.m.n_keyframes),
-                n_points=int(stream.m.pt_valid.sum()),
-                ate_pct=100 * ate / extent, extent=extent)
 
 
 def run_slam(cfg, frames, rec, time_frames: bool, count_syncs: bool = False):
@@ -581,30 +591,32 @@ def run_slam_phase(card: str) -> dict:
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
 
     rec = dict(np.load(SLAM_NPZ))
-    n_rec = len(rec["jax_state"])
     t0 = time.perf_counter()
     frames, poses = render_preset_frames(rec)
-    say("slam", f"rendered {len(frames)} frames at {frames[0].shape} in "
-                f"{time.perf_counter() - t0:.1f} s, SHA-256 of the first "
-                f"{n_rec} equal to the recorded run's")
-    cfg = preset_config(localize_only=False)
     n = len(frames)
+    say("slam", f"rendered {n} frames at {frames[0].shape} in "
+                f"{time.perf_counter() - t0:.1f} s, SHA-256 equal to the "
+                f"recorded run's")
+    # the record was made with the Pallas kernel's border rule
+    cfg = preset_config(localize_only=False, use_pallas_detect=True)
 
-    r0, _, s0, _, _ = run_slam(cfg, frames[:n_rec], rec, time_frames=True)
-    c0 = check_slam_run(r0, rec)
-    say("slam", f"cold run: first frame {1e3 * s0[0]:.1f} ms, {n_rec} frames "
-                f"in {sum(s0):.2f} s; {c0}")
+    n_cold = 40
+    r0, _, s0, _, _ = run_slam(cfg, frames[:n_cold], rec, time_frames=True)
+    c0 = check_slam_run(r0, rec, n_cold)
+    say("slam", f"cold run: first frame {1e3 * s0[0]:.1f} ms, {n_cold} "
+                f"frames in {sum(s0):.2f} s; {c0}")
     r, st, secs, _, launches = run_slam(cfg, frames, rec, time_frames=True)
     chk = check_slam_run(r, rec)
-    ext = check_extension(r, st, poses, n_rec)
+    assert chk["tracked_keyframes"], "no keyframe after the bootstrap"
     assert launches == n, f"kernel launches {launches} != one per frame ({n})"
     ms = per_state(r, [1e3 * x for x in secs])
     say("slam", f"states {r.states.tolist()}")
     say("slam", f"keyframes {r.is_keyframe.astype(int).tolist()}")
     say("slam", f"n_matches {r.n_matches.tolist()}")
     say("slam", f"JAX n_matches {rec['jax_n_matches'].tolist()}")
-    say("slam", f"warm run, first {n_rec} frames against the record: {chk}")
-    say("slam", f"warm run, all {n} frames: {ext}; kernel launches "
+    say("slam", f"warm run, all {n} frames against the record: {chk}; "
+                f"{int(st.m.n_keyframes)} keyframes, "
+                f"{int(st.m.pt_valid.sum())} points; kernel launches "
                 f"{launches} = 1 x {n}")
     say("slam", f"ms per frame by state (warm, synchronised per frame): "
                 + ", ".join(f"{k} {v['mean']:.1f} ({v['frames']} frames)"
@@ -614,7 +626,6 @@ def run_slam_phase(card: str) -> dict:
     r2, st2, _, sites, _ = run_slam(cfg, frames, rec, time_frames=False,
                                     count_syncs=True)
     check_slam_run(r2, rec)
-    check_extension(r2, st2, poses, n_rec)
     syncs = [len(x) for x in sites]
     sy = per_state(r2, syncs)
     say("slam", "synchronisations per frame (set_sync_debug_mode): "
@@ -624,9 +635,7 @@ def run_slam_phase(card: str) -> dict:
     by_site = {}
     for i in (0, 1, 2, 10):      # FIRST, SECOND, bootstrap, RUNNING frames
         by_site[i] = {x: sites[i].count(x) for x in sorted(set(sites[i]))}
-    kf = [i for i in np.nonzero(r2.is_keyframe)[0] if i > n_rec]
-    if kf:
-        i = int(kf[0])
+    for i in chk["tracked_keyframes"][:1]:
         by_site[i] = {x: sites[i].count(x) for x in sorted(set(sites[i]))}
     say("slam", f"where they are, by frame: {by_site}")
 
@@ -660,7 +669,7 @@ def run_slam_phase(card: str) -> dict:
                 f"{loc_launches}")
     return dict(launches=launches, loc_launches=loc_launches,
                 loc_frames=len(query), check=chk,
-                extension=ext, ms_by_state=ms, syncs_by_state=sy,
+                ms_by_state=ms, syncs_by_state=sy,
                 sync_sites=by_site, first_frame_ms=1e3 * s0[0], frames=n,
                 frames_per_s=n / sum(secs), served_ate_pct=100 * ate / extent)
 
@@ -688,6 +697,115 @@ def run_slice(cfg, query, count_launches: bool):
     for a, b in zip(before, after):
         assert a.dtype == b.dtype and torch.equal(a, b), "map changed"
     return r, seconds, launches, loc
+
+
+# ---------------------------------------------------------------- multi
+MULTI_STREAMS = (1, 4, 8)
+
+
+def sync(device: str = "cuda") -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_multi_frozen(cfg, query, n_streams: int, device: str = "cuda"):
+    """``MultiStream`` serving the JAX-built map to ``n_streams`` streams,
+    every stream fed the query frames (one host->device copy), stream ``i``
+    seeded ``1 + i`` and lane 0 fed the recorded pose noise. Checks the map
+    bit-identical. Returns (results, seconds, kernel launches)."""
+    from sdvl_tpu_torch.dist.multi_stream import MultiStream
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    gumbel = query["gumbel"]
+    ms = MultiStream(cfg, n_streams, seed=1, frozen_map=MAP_NPZ,
+                     device=device,
+                     gumbel_providers=[gumbel.__getitem__]
+                     + [None] * (n_streams - 1))
+    before = [t.clone() for t in map_leaves(ms.m)]
+    batch = np.repeat(query["frames"][:, None], n_streams, axis=1)
+    sync(device)
+    detect.launch_count = 0
+    t0 = time.perf_counter()
+    ms.feed_chunk(batch, block=True)
+    seconds = time.perf_counter() - t0
+    launches = detect.launch_count
+    after = map_leaves(ms.m)
+    assert len(before) == len(after)
+    for a, b in zip(before, after):
+        assert a.dtype == b.dtype and torch.equal(a, b), "shared map changed"
+    return ms.result(), seconds, launches
+
+
+def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
+                    streams=MULTI_STREAMS, slam_frames=None) -> dict:
+    """Phase 6 (see the module docstring); ``slam_frames`` cuts the SLAM
+    streams' frames (a rehearsal on the CPU)."""
+    from sdvl_tpu_torch.dist.multi_stream import MultiStream
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    out = {}
+    cfg = preset_config()
+    T = len(query["frames"])
+    c_slice = camera_centres(slice_result.trajectory)
+    extent = float(np.linalg.norm(np.ptp(
+        camera_centres(query["poses_gt"]), axis=0)))
+    for n in streams:
+        results, secs, launches = run_multi_frozen(cfg, query, n, device)
+        assert device != "cuda" or launches == n * T, f"{launches} launches != {n} x {T}"
+        for i, r in enumerate(results):
+            running = r.states == 2
+            assert np.isfinite(r.poses_raw).all(), f"stream {i}: non-finite"
+            assert int(np.argmax(running)) <= 5 and running[-5:].all(), (
+                f"N={n} stream {i}: states {r.states.tolist()}")
+        d0 = float(np.abs(camera_centres(results[0].trajectory)
+                          - c_slice).max())
+        assert (results[0].states == slice_result.states).all(), (
+            results[0].states.tolist(), slice_result.states.tolist())
+        assert d0 <= 1e-4 * extent, (d0, extent)
+        out[f"multi_{n}"] = dict(
+            streams=n, frames=n * T, launches=launches, seconds=secs,
+            frames_per_s=n * T / secs, ms_per_stream_frame=1e3 * secs / (n * T),
+            lane0_vs_slice_centre=d0)
+        say("multi", f"frozen JAX map, {n} streams x {T} frames: every "
+                     f"stream RUNNING within 5 frames and on the last 5, "
+                     f"map bit-identical, kernel launches {launches} = "
+                     f"{n} x {T}; lane 0 equal to phase slice (states "
+                     f"equal, centres within {d0:.3g} of extent "
+                     f"{extent:.4f}); {n * T / secs:.3f} stream-frames/s, "
+                     f"{1e3 * secs / (n * T):.1f} ms per stream-frame on "
+                     f"{card}")
+
+    # two full-SLAM streams with their own maps, lane 0 on the record
+    rec = dict(np.load(SLAM_NPZ))
+    frames, _ = render_preset_frames(rec)
+    frames = frames[:slam_frames]
+    cfg_slam = preset_config(localize_only=False, use_pallas_detect=True)
+    ms = MultiStream(cfg_slam, 2, seed=0, device=device,
+                     gumbel_providers=[slam_draws(rec), None])
+    sync(device)
+    detect.launch_count = 0
+    t0 = time.perf_counter()
+    ms.feed_chunk(np.repeat(np.stack(frames)[:, None], 2, axis=1),
+                  block=True)
+    secs = time.perf_counter() - t0
+    launches = detect.launch_count
+    r0, r1 = ms.result()
+    chk = check_slam_run(r0, rec, len(frames))
+    assert device != "cuda" or launches == 2 * len(frames), launches
+    run1 = r1.states == 2
+    assert run1.any() and run1[int(np.argmax(run1)):].all(), (
+        r1.states.tolist())
+    n_sf = 2 * len(frames)
+    out["multi_slam"] = dict(streams=2, frames=n_sf, launches=launches,
+                             seconds=secs, frames_per_s=n_sf / secs,
+                             lane0=chk)
+    say("multi", f"2 full-SLAM streams x {len(frames)} record frames, a map "
+                 f"each: lane 0 against the JAX record {chk}; lane 1 (own "
+                 f"draws) RUNNING from frame {int(np.argmax(run1))} to the "
+                 f"end; kernel launches "
+                 f"{launches} = 2 x {len(frames)}; {n_sf / secs:.3f} "
+                 f"stream-frames/s on {card}")
+    return out
 
 
 # ------------------------------------------------------------------ cli
@@ -888,6 +1006,194 @@ def per_frame(rec, card: str) -> str:
             f"{rec['launches']} launches in {n} frames; on {card}")
 
 
+CLI_VIZ_FRAMES = 30
+CLI_VIZ_EVERY = 10
+
+
+def decode_png(path: str) -> np.ndarray:
+    """An 8-bit gray or RGB PNG (the port's ``viz.recorder.save_png`` writes
+    these) as a uint8 array, through the port's native loader where it
+    loads (gray, float32), else read here: chunks checked by CRC, the zlib
+    stream inflated, every row's filter type 0."""
+    import struct
+    import zlib
+
+    from sdvl_tpu_torch.io import native_loader
+
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG"
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert zlib.crc32(tag + body) & 0xFFFFFFFF == crc, f"{path}: CRC"
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = head[:4]
+    if native_loader.ensure_built():
+        loader = native_loader.NativeFrameLoader([path], w, h)
+        try:
+            img = next(iter(loader))
+        finally:
+            loader.close()
+        return np.round(img).astype(np.uint8)
+    assert depth == 8 and color in (0, 2), f"{path}: {head}"
+    ch = 3 if color == 2 else 1
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * ch)
+    assert (raw[:, 0] == 0).all(), f"{path}: filtered rows"
+    return raw[:, 1:].reshape(h, w, ch).squeeze(-1) if ch == 1 else \
+        raw[:, 1:].reshape(h, w, ch)
+
+
+def run_cli_viz(cfg_path: str, seq_dir: str, host_run: dict, device: str,
+                card: str) -> dict:
+    """``--viz DIR --viz-every 10`` on the host driver over the first
+    ``CLI_VIZ_FRAMES`` frames: every PNG exists and decodes (the port's
+    native loader), and the frames the recorder skips synchronise exactly as
+    the same frames of ``host_run`` (the host driver without ``--viz``).
+    Without matplotlib the run must stop before its first frame with an
+    error naming it; the recorder then runs with its map figures off (the
+    overlays still record on the card)."""
+    from unittest import mock
+
+    import sdvl_tpu_torch.viz as viz
+    from sdvl_tpu_torch.io import native_loader
+    from sdvl_tpu_torch.ops.cuda import detect
+    from sdvl_tpu_torch.viz import scene
+
+    out_dir = os.path.join(seq_dir, "viz")
+    argv = ["--config", cfg_path, "--images", seq_dir, "--max-frames",
+            str(CLI_VIZ_FRAMES), "--viz", out_dir, "--viz-every",
+            str(CLI_VIZ_EVERY), "--quiet"]
+    have_mpl = True
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        have_mpl = False
+    patches = contextlib.ExitStack()
+    if not have_mpl:
+        detect.launch_count = 0
+        try:
+            run_cli(argv, device)
+        except RuntimeError as e:
+            assert "matplotlib" in str(e), e
+        else:
+            raise AssertionError("--viz ran without matplotlib")
+        assert detect.launch_count == 0 and not os.path.exists(out_dir)
+        say("cli", "matplotlib is not installed: --viz stopped before the "
+                   "first frame with an error naming it (checked); the "
+                   "recorder runs on with its map figures off")
+        patches.enter_context(mock.patch.object(scene, "require_matplotlib",
+                                                lambda: None))
+        patches.enter_context(mock.patch.object(
+            viz, "VizRecorder",
+            lambda *a, **k: viz.recorder.VizRecorder(*a, maps=False, **k)))
+    with patches:
+        rv = run_cli(argv, device)
+    assert device != "cuda" or rv["launches"] == CLI_VIZ_FRAMES, rv[
+        "launches"]
+    names = sorted(os.listdir(out_dir))
+    recorded = [i for i in range(CLI_VIZ_FRAMES) if i % CLI_VIZ_EVERY == 0]
+    overlays = [n for n in names if n.startswith("frame_")]
+    maps = [n for n in names if n.startswith("map_")]
+    assert overlays, names
+    assert len(maps) == (len(recorded) if have_mpl else 0), names
+    from sdvl_tpu_torch.pipeline.config import load_cfg
+    from sdvl_tpu_torch.pipeline.device_fsm import cropped_shape
+
+    crop = cropped_shape(load_cfg(cfg_path))
+    for name in overlays:
+        img = decode_png(os.path.join(out_dir, name))
+        assert img.shape[:2] == crop, (name, img.shape)
+    for name in maps:
+        assert decode_png(os.path.join(out_dir, name)).size > 0, name
+    decoder = ("the native loader" if native_loader.ensure_built()
+               else "zlib (native loader: " + native_loader.build_error()
+               + ")")
+    skipped = [i for i in range(CLI_VIZ_FRAMES) if i % CLI_VIZ_EVERY]
+    s_viz = [rv["frame_syncs"][i] for i in skipped]
+    s_ref = [host_run["frame_syncs"][i] for i in skipped]
+    assert s_viz == s_ref, (s_viz, s_ref)
+    rec_syncs = [rv["frame_syncs"][i] for i in recorded]
+    say("cli", f"run 3b, host driver --viz --viz-every {CLI_VIZ_EVERY} over "
+               f"{CLI_VIZ_FRAMES} frames: {len(overlays)} overlays, "
+               f"{len(maps)} map figures, every PNG decodes ({decoder}); "
+               f"synchronisations on the {len(skipped)} frames it "
+               f"skips equal the run without --viz ({sum(s_viz)} in all); "
+               f"on the recorded frames {rec_syncs} against "
+               f"{[host_run['frame_syncs'][i] for i in recorded]}; "
+               f"matplotlib present: {have_mpl}; " + per_frame(rv, card))
+    return dict(summary=rv["summary"], launches=rv["launches"],
+                frames=CLI_VIZ_FRAMES, overlays=len(overlays),
+                map_figures=len(maps), matplotlib=have_mpl,
+                skipped_frame_syncs=sum(s_viz),
+                recorded_frame_syncs=rec_syncs)
+
+
+def run_dist_phase(card: str, m100, device: str = "cuda",
+                   cfg_path: str = TUM_F1_CFG) -> dict:
+    """Phase 8 (see the module docstring): ``global_ba(mesh=...)`` on nccl
+    at world size 1 against ``global_ba()``, on the cli phase's 100-slot map
+    (Cholesky) and on it padded to the shipped 1000 slots (PCG); in turns,
+    one process, mesh, mesh, one process."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from sdvl_tpu_torch.dist import multihost
+    from sdvl_tpu_torch.pipeline import mapper
+    from sdvl_tpu_torch.pipeline.config import intrinsics, load_cfg
+
+    intr = intrinsics(load_cfg(cfg_path))
+    K = load_cfg(cfg_path).sdvl.max_keyframes
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    backend = multihost.initialize(
+        f"127.0.0.1:{port}", 1, 0,
+        backend="nccl" if device == "cuda" else "gloo")
+    out = {"backend": backend, "world_size": multihost.process_count()}
+    try:
+        mesh = multihost.global_mesh("point")
+        for name, m in (("chol_100", m100),
+                        ("cg_1000", pad_keyframe_slots(m100, K))):
+            ms = {"one": [], "mesh": []}
+            res = {}
+            for kind in ("one", "mesh", "mesh", "one"):
+                sync(device)
+                t0 = time.perf_counter()
+                res[kind] = mapper.global_ba(
+                    m, intr, mesh=mesh if kind == "mesh" else None)
+                sync(device)
+                ms[kind].append(1e3 * (time.perf_counter() - t0))
+            a, b = res["mesh"], res["one"]
+            kv, pv = b.kf_valid, b.pt_valid
+            d_pose = float((a.kf_pose - b.kf_pose)[kv].abs().max())
+            d_pt = float((a.pt_pos - b.pt_pos)[pv].abs().max())
+            same_obs = bool(torch.equal(a.obs_mask, b.obs_mask))
+            assert d_pose <= 5e-4 and d_pt <= 5e-3 and same_obs, (
+                name, d_pose, d_pt, same_obs)
+            out[name] = dict(pose_diff=d_pose, point_diff=d_pt,
+                             one_process_ms=ms["one"], mesh_ms=ms["mesh"])
+            say("dist", f"global_ba on {int(kv.sum())} keyframes / "
+                        f"{int(pv.sum())} points in {m.capacities[0]} slots "
+                        f"({name.split('_')[0]}), {backend} mesh of "
+                        f"{out['world_size']} against one process: poses "
+                        f"within {d_pose:.3g} (<= 5e-4), points within "
+                        f"{d_pt:.3g} (<= 5e-3), gated observations equal; "
+                        f"ms one process {ms['one']}, mesh {ms['mesh']} "
+                        f"on {card}")
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
 def run_cli_phase(card: str, device: str = "cuda",
                   cfg_path: str = TUM_F1_CFG) -> dict:
     """Phase 6 (see the module docstring)."""
@@ -1001,6 +1307,7 @@ def run_cli_phase(card: str, device: str = "cuda",
                    f"{ms_d:.1f} ms, PCG at {K} slots {ms_p:.1f} ms with CG "
                    f"iterations per LM step {cg_p}; poses within {d_pose:.3g} "
                    f"(<= 5e-4), points within {d_pt:.3g} (<= 5e-3)")
+        out["_map100"] = m2
         out["capacity100"] = dict(summary=r2["summary"],
                                   max_centre_diff=d_cap,
                                   global_ba_dense_ms=ms_d,
@@ -1036,6 +1343,9 @@ def run_cli_phase(card: str, device: str = "cuda",
                            frames=n, max_traj_diff=d_host,
                            syncs_per_frame=float(np.mean(r3["frame_syncs"])),
                            trace=trace)
+
+        # 3b. the host driver with --viz, a short run
+        out["viz"] = run_cli_viz(cfg100, tmp, r3, device, card)
 
         # 4. the host driver with the async mapper
         r4 = run_cli(["--config", cfg100, "--images", tmp,
@@ -1123,36 +1433,19 @@ def main() -> int:
     say("build", f"csrc/detect.cu -> _build/libsdvl_detect.so in "
                  f"{time.perf_counter() - t0:.1f} s ({' '.join(detect.NVCC_FLAGS)})")
     # ---------------------------------------------------------- 3 kernel
+    t0 = time.perf_counter()
+    checks, dp = run_kernel_phase()
+    say("kernel", f"phase took {time.perf_counter() - t0:.1f} s")
     cfg = preset_config()
     query = dict(np.load(QUERY_NPZ))
-    frame0 = torch.from_numpy(query["frames"][0]).to(dev)
-    pyr = pyramid.build_pyramid(frame0, 5)
-    levels = pyr[:cfg.sdvl.max_fast_levels]
-    checks = {"pyramid": check_launch("pyramid", levels)}
-    for cell in (16, 64):
-        check_launch("pyramid", levels, cell=cell, timed=False)
-    for l, lev in enumerate(levels):
-        checks[f"level{l}"] = check_launch(f"level{l}", [lev])
-    checks["small"] = check_launch(
-        "small", [torch.from_numpy(blocky_image(0, (64, 96))).to(dev)])
-    checks["ragged"] = check_launch(
-        "ragged", [torch.from_numpy(blocky_image(1, (123, 171))).to(dev)])
-    for bad in (torch.zeros((480, 640), dtype=torch.float64, device=dev),
-                torch.zeros((480, 640), device=dev)[:, ::2]):
-        for call in (lambda: detect.fast_shi_tomasi_map(bad),
-                     lambda: detect.fast_shi_tomasi_cells([levels[0], bad])):
-            try:
-                call()
-            except ValueError:
-                pass
-            else:
-                raise AssertionError("wrapper accepted a tensor it cannot take")
-    dp = time_detect_pyramid(cfg, pyr)
 
     # ------------------------------------------------------------ 4 slam
+    t0 = time.perf_counter()
     slam = run_slam_phase(card)
+    say("slam", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------------------------------- 5 slice
+    t_phase = time.perf_counter()
     n = len(query["frames"])
     _, cold_s, _, _ = run_slice(cfg, query, count_launches=False)
     say("slice", f"first run (cold: cuBLAS/cuSOLVER set-up, allocator): "
@@ -1176,28 +1469,58 @@ def main() -> int:
     assert launches == n, f"kernel launches {launches} != one per frame ({n})"
     n_corners = int(loc.last_corners.valid.sum())
     assert n_corners > 0, "fused detection found no corner on the last frame"
-    d_jax = float(np.linalg.norm(
-        camera_centres(r.poses_raw) - camera_centres(query["jax_pose"]),
-        axis=1).max())
-    same_state = bool((r.states == query["jax_state"]).all())
-    dm = int(np.abs(r.n_matches - query["jax_n_matches"]).max())
+    vs_jax = {}
+    for route, res in (("plain", r), ("pallas", run_slice(
+            preset_config(use_pallas_detect=True), query,
+            count_launches=False)[0])):
+        vs_jax[route] = dict(
+            states_equal=bool((res.states == query["jax_state"]).all()),
+            max_match_diff=int(np.abs(res.n_matches
+                                      - query["jax_n_matches"]).max()),
+            max_centre_dist=float(np.linalg.norm(
+                camera_centres(res.poses_raw)
+                - camera_centres(query["jax_pose"]), axis=1).max()))
     say("slice", f"RUNNING from frame {int(np.argmax(running))}, "
                  f"{frac:.2f} of RUNNING frames >= {min_matches} matches, "
                  f"ATE {ate:.5f} over extent {extent:.4f} "
                  f"({100 * ate / extent:.2f} %), map bit-identical, "
                  f"kernel launches {launches} = 1 x {n}, corners on last "
                  f"frame {n_corners}")
-    say("slice", f"against the recorded JAX run (CPU, plain detection): "
-                 f"states equal {same_state}, max |n_matches diff| {dm}, "
-                 f"largest camera-centre distance {d_jax:.3g}")
+    say("slice", "against the recorded JAX run (CPU, plain detection), "
+                 "the plain border rule (this route) beside the pallas rule "
+                 "(the route the earlier slices ran on the card): "
+                 + "; ".join(f"{k}: states equal {v['states_equal']}, max "
+                             f"|n_matches diff| {v['max_match_diff']}, "
+                             f"largest camera-centre distance "
+                             f"{v['max_centre_dist']:.3g}"
+                             for k, v in vs_jax.items()))
     say("slice", f"{n} frames in {seconds:.4f} s = {n / seconds:.2f} frames/s "
-                 f"(one stream, eager, one host read per frame) on {card}")
+                 f"(one stream, eager, one host read per frame) on {card}; "
+                 f"phase took {time.perf_counter() - t_phase:.1f} s")
 
-    # ------------------------------------------------------------- 6 cli
+    # ----------------------------------------------------------- 6 multi
+    t0 = time.perf_counter()
+    multi = run_multi_phase(card, r, query)
+    say("multi", f"phase took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------- 7 cli
+    t0 = time.perf_counter()
     cli = run_cli_phase(card)
+    say("cli", f"phase took {time.perf_counter() - t0:.1f} s")
 
-    # --------------------------------------------------------- 7 kernels
-    p3 = checks["pyramid"]
+    # ------------------------------------------------------------ 8 dist
+    t0 = time.perf_counter()
+    dist_out = run_dist_phase(card, cli.pop("_map100"))
+    say("dist", f"phase took {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- 9 kernels
+    p3, p3_plain = checks["pallas"]["pyramid"], checks["plain"]["pyramid"]
+    paths = {"slam": (slam["launches"], slam["frames"]),
+             "slam_map_served": (slam["loc_launches"], slam["loc_frames"]),
+             "localizer": (launches, n)}
+    paths.update({k: (v["launches"], v["frames"]) for k, v in multi.items()})
+    paths.update({f"cli_{k}": (cli[k]["launches"], cli[k]["frames"])
+                  for k in ("stream", "host", "async", "viz")})
     kernels = {"kernels": [{
         "name": "fast_shi_tomasi_cells",
         "route": "cuda",
@@ -1209,21 +1532,17 @@ def main() -> int:
         "launches": slam["launches"],
         "frames": slam["frames"],
         "frames_per_s": slam["frames_per_s"],
-        "launches_by_path": {"slam": slam["launches"],
-                             "slam_map_served": slam["loc_launches"],
-                             "localizer": launches,
-                             "cli_stream": cli["stream"]["launches"],
-                             "cli_host": cli["host"]["launches"],
-                             "cli_async": cli["async"]["launches"]},
-        "frames_by_path": {"slam": slam["frames"],
-                           "slam_map_served": slam["loc_frames"],
-                           "localizer": n,
-                           "cli_stream": cli["stream"]["frames"],
-                           "cli_host": cli["host"]["frames"],
-                           "cli_async": cli["async"]["frames"]},
+        # (for the multi paths, stream-frames)
+        "launches_by_path": {k: v[0] for k, v in paths.items()},
+        "frames_by_path": {k: v[1] for k, v in paths.items()},
         "localizer_frames_per_s": n / seconds,
-        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "max_abs_err": max(c["max_abs_err"] for by in checks.values()
+                           for c in by.values()),
+        # the pallas border rule (the earlier slices' route) in "ms" and
+        # its neighbours, the plain rule (the shipped configs') beside
         "ms": p3["ms"],
+        "plain_border_ms": p3_plain["ms"],
+        "plain_border_plain_ms": p3_plain["plain_ms"],
         "plain_ms": p3["plain_ms"],
         "call_ms": p3["call_ms"],
         "wrapper_call_ms": p3["wrapper_call_ms"],
@@ -1235,8 +1554,11 @@ def main() -> int:
         "by_shape": checks,
         "detect_pyramid_ms": dp,
         "slam": slam,
+        "slice_vs_jax": vs_jax,
+        "multi": multi,
         "cli": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
                 for k, v in cli.items()},
+        "dist": dist_out,
         "card": card,
     }]}
     print(card, flush=True)

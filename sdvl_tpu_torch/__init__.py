@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of the semi-direct visual SLAM system in ``sdvl_tpu``.
 
 Same sub-packages and module names as the JAX package (``core ops solvers
-state pipeline io utils cli``) so that every function's counterpart is easy
-to find; the command-line program is ``python -m sdvl_tpu_torch.cli.run``.
-The port imports ``torch``, ``numpy`` and the standard library only (the
-live-camera source needs OpenCV). Entry points take an explicit ``device``
+state pipeline io utils cli dist viz``) so that every function's
+counterpart is easy to find; the command-line program is ``python -m
+sdvl_tpu_torch.cli.run``. The port imports ``torch``, ``numpy`` and the
+standard library only (the live-camera source and the live viewer's windows
+need OpenCV, the map figures of ``--viz`` matplotlib; each imports it when
+used). Entry points take an explicit ``device``
 that defaults to ``"cuda"`` and raise when that device is absent; nothing
 falls back to the CPU on its own.
 

@@ -11,8 +11,12 @@ Usage:
   python -m sdvl_tpu_torch.cli.run --synthetic 100        # no dataset needed
   python -m sdvl_tpu_torch.cli.run --device cpu --synthetic 20
 
-Not ported: ``--viz`` and ``--live`` (they need OpenCV and a display);
-both are refused.
+``--viz DIR`` writes feature overlays and map figures as PNGs (the host
+driver while it runs, every ``--viz-every`` frames; the stream driver after
+the run); the map figures need matplotlib, and without it the run stops
+before its first frame. ``--live`` opens the interactive viewer where OpenCV
+and a display are present, else warns and runs headless, as the JAX
+program does.
 """
 
 from __future__ import annotations
@@ -24,9 +28,6 @@ import sys
 import time
 
 import numpy as np
-
-NOT_PORTED = ("is not ported to sdvl_tpu_torch (it needs OpenCV and a "
-              "display): ROADMAP.md, Queue 1 item 4, viz/*")
 
 
 def main(argv=None):
@@ -58,9 +59,15 @@ def main(argv=None):
     ap.add_argument("--resume", default=None,
                     help="resume from a session checkpoint")
     ap.add_argument("--viz", default=None, metavar="DIR",
-                    help="not ported (refused)")
+                    help="write feature-overlay and map PNGs here (the map "
+                         "figures need matplotlib)")
     ap.add_argument("--live", action="store_true",
-                    help="not ported (refused)")
+                    help="interactive viewer: tracking overlay + 3D map "
+                         "windows at 10 Hz (keys: f follow, space pause, "
+                         "q quit; mouse orbits, wheel zooms). Needs OpenCV "
+                         "and a display, else runs headless; host driver "
+                         "only")
+    ap.add_argument("--viz-every", type=int, default=10)
     ap.add_argument("--async-mapping", action="store_true",
                     help="run the mapper on its own thread (default "
                          "sequential)")
@@ -84,9 +91,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.viz:
-        ap.error(f"--viz {NOT_PORTED}")
-    if args.live:
-        ap.error(f"--live {NOT_PORTED}")
+        from ..viz.scene import require_matplotlib
+
+        require_matplotlib()
 
     from .. import require_device
     from ..pipeline.config import (CameraConfig, Config, SdvlConfig,
@@ -170,6 +177,9 @@ def main(argv=None):
         ap.error("--localize starts its own session from the snapshot; "
                  "it cannot be combined with --resume")
     if args.stream:
+        if args.live:
+            print("[WARN] --live needs per-frame host state; ignored "
+                  "with --stream (use --viz for post-run rendering)")
         return _run_stream(args, cfg, frames, gt_poses, device)
 
     from ..utils.trace import Tracer
@@ -187,6 +197,22 @@ def main(argv=None):
 
         async_mapper = AsyncMapper(slam)
 
+    recorder = None
+    if args.viz:
+        from ..viz import VizRecorder
+
+        recorder = VizRecorder(args.viz, every=args.viz_every)
+
+    live_ui = None
+    if args.live:
+        from ..viz import LiveUI
+
+        if LiveUI.available():
+            live_ui = LiveUI()
+        else:
+            print("[WARN] --live: no display/cv2 GUI available; "
+                  "running headless (use --viz DIR instead)")
+
     times = []
     frame_states = {}
     n = 0
@@ -195,6 +221,11 @@ def main(argv=None):
         img = np.asarray(img)
         info = slam.handle_frame(img)
         frame_states[info["frame_id"]] = info["state"]
+        if recorder is not None:
+            recorder.record(slam, img, info)
+        if live_ui is not None:
+            info["quality"] = slam.quality.name
+            live_ui.update(slam, img, info)
         dt = (time.perf_counter() - t0) * 1e3
         times.append(dt)
         stamps.append(n / cfg.video.fps)
@@ -207,7 +238,12 @@ def main(argv=None):
         n += 1
         if args.max_frames and n >= args.max_frames:
             break
+        if live_ui is not None and live_ui.quit_requested:
+            print("[INFO] quit requested from viewer")
+            break
 
+    if live_ui is not None:
+        live_ui.stop()
     if async_mapper is not None:
         async_mapper.stop()
 
@@ -379,6 +415,7 @@ def _run_stream(args, cfg, frames, gt_poses=None, device="cuda"):
         return img
 
     frames = map(_u8, frames)
+    keep_frames = [] if args.viz else None
     if args.resume:
         from ..io.snapshot import load_stream_snapshot
 
@@ -393,6 +430,8 @@ def _run_stream(args, cfg, frames, gt_poses=None, device="cuda"):
         done = False
         for img in frames:
             buf.append(np.asarray(img))
+            if keep_frames is not None:
+                keep_frames.append(buf[-1])
             if args.max_frames and n + len(buf) >= args.max_frames:
                 del buf[args.max_frames - n:]  # honour the limit exactly
                 done = True
@@ -411,7 +450,10 @@ def _run_stream(args, cfg, frames, gt_poses=None, device="cuda"):
                 n += 1
     else:
         for img in frames:
-            slam.feed(np.asarray(img))
+            img = np.asarray(img)
+            if keep_frames is not None:
+                keep_frames.append(img)
+            slam.feed(img)
             if n == 0:
                 t_first = time.perf_counter()
                 n_warm = 1
@@ -456,6 +498,12 @@ def _run_stream(args, cfg, frames, gt_poses=None, device="cuda"):
             tracked=np.asarray(r.states)[:k] == 2,
         ))
     print(json.dumps(summary))
+    if args.viz:
+        from ..viz import render_stream_session
+
+        render_stream_session(slam, r, keep_frames, out_dir=args.viz,
+                              every=args.viz_every)
+        print(f"[INFO] visualization written to {args.viz}")
     if args.snapshot:
         from ..io.snapshot import save_stream_snapshot
 

@@ -4,15 +4,26 @@
 // Replaces the Pallas kernel sdvl_tpu/ops/pallas/detect.py::fast_shi_tomasi_map
 // (both of its call sites: the row-tiled kernel and the single-block one) and
 // the per-cell selection that consumes its output (_grid_best in
-// sdvl_tpu/ops/fast.py). For each level l of up to MAX_LEVELS it writes
+// sdvl_tpu/ops/fast.py), under either of the reference's two border rules.
+// For each level l of up to MAX_LEVELS it writes
 //
-//   map_l[y][x]  the Shi-Tomasi min-eigenvalue score where the pixel passes
-//                the FAST segment test, lies at least 4 px inside the image
-//                and scores above st_threshold; -inf everywhere else;
+//   map_l[y][x]  "pallas" rule (the Pallas kernel's): the Shi-Tomasi
+//                min-eigenvalue score where the pixel passes the FAST segment
+//                test, lies at least 4 px inside the image and scores above
+//                st_threshold; -inf everywhere else.
+//                "plain" rule (the reference's plain route, fast_corner_mask +
+//                shi_tomasi): the score where the pixel passes the FAST test,
+//                whatever the score, -inf elsewhere; no border is cut. FAST
+//                reads edge-replicated pixels (clamped coordinates), the Sobel
+//                derivatives wrap at the image edge in both axes (the
+//                reference's roll), and the 4x4 box sums count zero outside
+//                the image (its zero padding);
 //   key_l[g]     for each cell g of the cropped (H / cell) x (W / cell) grid,
 //                the largest key of its pixels (see cell_key): the highest
 //                score wins, the smallest in-cell index cy * cell + cx breaks
 //                ties, and a cell whose pixels are all -inf holds index 0.
+//                Under the plain rule that is the best FAST corner whatever
+//                its score; the caller applies the threshold.
 //
 // Bound: memory. The function must read each level once, write its map once
 // and write 8 bytes per cell: 3.23 MB at the 480x640 / 240x320 / 120x160
@@ -31,12 +42,18 @@
 //   barriers buy 1024 pixels.
 // - Asynchronous 16-byte staging: cp.async.cg of 16 B chunks, then
 //   cp.async.wait_all and a barrier, where the level's row pitch and base are
-//   16-byte aligned (W % 4 == 0, the wrapper checks the pointer). A chunk's
-//   start is clamped into the image; its contents then only reach the 4-px
-//   border, which is written -inf (the stencil reaches 3 px), so any in-image
-//   value is right there. Other levels take clamped 4-byte loads. Not TMA: a
-//   2D tensor map per level per call would cost host time of the order of the
-//   whole wrapper.
+//   16-byte aligned (W % 4 == 0, the wrapper checks the pointer). Under the
+//   pallas rule a chunk's start is clamped into the image; its contents then
+//   only reach the 4-px border, which is written -inf (the stencil reaches 3
+//   px), so any in-image value is right there. Under the plain rule the halo
+//   holds the WRAPPED rows and columns, which the Sobel derivatives read:
+//   with W % 4 == 0 a 16-byte chunk lies wholly inside or wholly outside the
+//   image, so its wrapped start is aligned and its 4 pixels contiguous. FAST
+//   reads the clamped in-image pixel instead, which lies within 3 px of the
+//   pixel and so inside the staged tile. Other levels take 4-byte loads at
+//   clamped (pallas) or wrapped (plain) coordinates. Not TMA: a 2D tensor map
+//   per level per call would cost host time of the order of the whole
+//   wrapper.
 // - The structure tensor in shared memory, each value computed once per
 //   block: the three products of the Sobel derivatives over the 35x35 region
 //   the 4x4 box window reaches, then their vertical 4-sums, then per pixel
@@ -119,15 +136,13 @@ __device__ __forceinline__ bool has_arc9(unsigned m) {
     return r != 0u;
 }
 
-// Masked score of the pixel at tile row ry, column tx (the pixel at least
-// BORDER px inside the image). s_v holds the vertical 4-sums of the three
-// structure-tensor products: row ry, column tx + j for offset j - 2.
-__device__ __forceinline__ float pixel_score(float (*s_img)[SM_W],
-                                             float (*s_v)[TILE][D_W],
-                                             int ry, int tx, float fast_threshold,
-                                             float st_threshold) {
-    // Shi-Tomasi: horizontal 4-sum of the column sums, in the reference's
-    // order, then the smaller eigenvalue.
+// Shi-Tomasi score of the pixel at tile row ry, column tx. s_v holds the
+// vertical 4-sums of the three structure-tensor products: row ry, column
+// tx + j for offset j - 2. The horizontal 4-sum of those in the reference's
+// order, then the smaller eigenvalue, normalised as each rule's reference
+// writes it (the same value: every factor is a power of two).
+__device__ __forceinline__ float st_score(float (*s_v)[TILE][D_W], int ry,
+                                          int tx, bool plain) {
     float dxx = 0.0f, dyy = 0.0f, dxy = 0.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -138,21 +153,39 @@ __device__ __forceinline__ float pixel_score(float (*s_img)[SM_W],
     const float tr = dxx + dyy;
     const float diff = dxx - dyy;
     const float det_term = sqrtf(fmaxf(diff * diff + 4.0f * dxy * dxy, 0.0f));
-    const float score = 0.5f * (tr - det_term) / 16.0f;
-    if (!(score > st_threshold)) return -CUDART_INF_F;
+    return plain ? ((0.5f * (tr - det_term)) * 0.03125f) * 2.0f
+                 : 0.5f * (tr - det_term) / 16.0f;
+}
 
-    // FAST-9/16 segment test.
+// FAST-9/16 segment test of the image pixel (y, x), whose tile row and column
+// are ry, tx. ``clamp``: the circle's samples at clamped image coordinates
+// (edge replication; each lies within 3 px of the pixel, inside the staged
+// tile), else straight from the staged halo.
+__device__ __forceinline__ bool fast_corner(float (*s_img)[SM_W], int ry, int tx,
+                                            int y, int x, int H, int W,
+                                            bool clamp, float fast_threshold) {
     const float c = s_img[ry + HALO][tx + HALO];
     const float hi = c + fast_threshold;
     const float lo = c - fast_threshold;
     unsigned bright = 0u, dark = 0u;
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
-        const float nb = s_img[ry + HALO + c_circle_dy[k]][tx + HALO + c_circle_dx[k]];
+        int dy = c_circle_dy[k], dx = c_circle_dx[k];
+        if (clamp) {
+            dy = min(max(y + dy, 0), H - 1) - y;
+            dx = min(max(x + dx, 0), W - 1) - x;
+        }
+        const float nb = s_img[ry + HALO + dy][tx + HALO + dx];
         bright |= (nb > hi ? 1u : 0u) << k;
         dark |= (nb < lo ? 1u : 0u) << k;
     }
-    return (has_arc9(bright) || has_arc9(dark)) ? score : -CUDART_INF_F;
+    return has_arc9(bright) || has_arc9(dark);
+}
+
+// ((v mod n) + n) mod n: the reference's roll.
+__device__ __forceinline__ int wrap(int v, int n) {
+    v %= n;
+    return v < 0 ? v + n : v;
 }
 
 // 64-bit cell key: the order-preserving bits of the score (-0.0 made +0.0;
@@ -165,6 +198,9 @@ __device__ __forceinline__ unsigned long long cell_key(float s, int idx) {
     return (static_cast<unsigned long long>(b) << 32) | static_cast<unsigned>(~idx);
 }
 
+// PLAIN: the reference's plain border rule, else the Pallas kernel's (one
+// instantiation each, so neither pays for the other's branches).
+template <bool PLAIN>
 __global__ void __launch_bounds__(THREADS)
 detect_levels_kernel(const Levels P) {
     __shared__ __align__(16) float s_img[SM_W][SM_W];
@@ -186,6 +222,7 @@ detect_levels_kernel(const Levels P) {
     const int by = local / L.tiles_x;
     const int x0 = (local - by * L.tiles_x) * TILE, y0 = by * TILE;
     const int H = L.H, W = L.W, cell = P.cell;
+    constexpr bool plain = PLAIN;
 
     // The cells of the cropped grid this block overlaps.
     const int xe = min(x0 + TILE, L.gw * cell);
@@ -200,12 +237,15 @@ detect_levels_kernel(const Levels P) {
     const int nc = ncx * ncy;
     for (int i = tid; i < nc; i += THREADS) s_hi[i] = s_lo[i] = 0u;
 
-    // Stage 1: the tile plus its halo, chunk or pixel starts clamped.
+    // Stage 1: the tile plus its halo, chunk or pixel starts clamped (pallas)
+    // or wrapped (plain).
     if (L.vec) {
         for (int i = tid; i < SM_W * CHUNKS; i += THREADS) {
             const int sy = i / CHUNKS, c = i - sy * CHUNKS;
-            const int gy = min(max(y0 + sy - HALO, 0), H - 1);
-            const int gx = min(max(x0 - HALO + 4 * c, 0), W - 4);
+            const int gy = plain ? wrap(y0 + sy - HALO, H)
+                                 : min(max(y0 + sy - HALO, 0), H - 1);
+            const int gx = plain ? wrap(x0 - HALO + 4 * c, W)
+                                 : min(max(x0 - HALO + 4 * c, 0), W - 4);
             const float* src = L.img + static_cast<size_t>(gy) * W + gx;
             const unsigned dst = static_cast<unsigned>(
                 __cvta_generic_to_shared(&s_img[sy][4 * c]));
@@ -215,19 +255,28 @@ detect_levels_kernel(const Levels P) {
         asm volatile("cp.async.wait_all;\n" ::: "memory");
     } else {
         for (int sy = ty; sy < SM_W; sy += ROWS) {
-            const float* row = L.img
-                + static_cast<size_t>(min(max(y0 + sy - HALO, 0), H - 1)) * W;
+            const int gy = plain ? wrap(y0 + sy - HALO, H)
+                                 : min(max(y0 + sy - HALO, 0), H - 1);
+            const float* row = L.img + static_cast<size_t>(gy) * W;
             for (int sx = tx; sx < SM_W; sx += TILE)
-                s_img[sy][sx] = row[min(max(x0 + sx - HALO, 0), W - 1)];
+                s_img[sy][sx] = row[plain ? wrap(x0 + sx - HALO, W)
+                                          : min(max(x0 + sx - HALO, 0), W - 1)];
         }
     }
     __syncthreads();
 
     // Stage 2: Sobel-smoothed central differences on the tile plus the ring
     // the 4x4 box window reaches (rows y0-2 .. y0+TILE, cols x0-2 ..
-    // x0+TILE), and their three products.
+    // x0+TILE), and their three products; under the plain rule zero outside
+    // the image (the box sums' zero padding; under the pallas rule only the
+    // -inf border reads them).
     for (int i = tid; i < D_W * D_W; i += THREADS) {
         const int dyi = i / D_W, dxi = i - dyi * D_W;
+        const int py = y0 + dyi - D_LO, px = x0 + dxi - D_LO;
+        if (plain && (py < 0 || py >= H || px < 0 || px >= W)) {
+            s_p[0][dyi][dxi] = s_p[1][dyi][dxi] = s_p[2][dyi][dxi] = 0.0f;
+            continue;
+        }
         const int sy = dyi - D_LO + HALO, sx = dxi - D_LO + HALO;
         // fx(y, x) = f(y, x+1) - f(y, x-1);  fy(y, x) = f(y+1, x) - f(y-1, x)
         const float fx_m = s_img[sy - 1][sx + 1] - s_img[sy - 1][sx - 1];
@@ -274,9 +323,18 @@ detect_levels_kernel(const Levels P) {
         const int y = y0 + ry;
         float v = -CUDART_INF_F;
         if (x < W && y < H) {
-            if (x_inner && y >= BORDER && y < H - BORDER)
-                v = pixel_score(s_img, s_v, ry, tx, P.fast_threshold,
-                                P.st_threshold);
+            if constexpr (plain) {
+                const bool edge = x < 3 || x >= W - 3 || y < 3 || y >= H - 3;
+                if (fast_corner(s_img, ry, tx, y, x, H, W, edge,
+                                P.fast_threshold))
+                    v = st_score(s_v, ry, tx, true);
+            } else if (x_inner && y >= BORDER && y < H - BORDER) {
+                const float s = st_score(s_v, ry, tx, false);
+                if (s > P.st_threshold
+                    && fast_corner(s_img, ry, tx, y, x, H, W, false,
+                                   P.fast_threshold))
+                    v = s;
+            }
             L.out[static_cast<size_t>(y) * W + x] = v;
         }
         slot[k] = -1;
@@ -339,13 +397,15 @@ detect_levels_kernel(const Levels P) {
 
 // Plain C entry point. ``imgs``/``outs`` hold ``n`` (1..4) device pointers to
 // contiguous (H, W) float32 arrays; ``dims`` holds H, W and the 16-byte
-// staging flag of each level; ``keys`` is a device buffer of
+// staging flag of each level; ``plain`` picks the border rule (1: the
+// reference's plain route, 0: its Pallas kernel's); ``keys`` is a device
+// buffer of
 // sum_l (H_l / cell) * (W_l / cell) uint64 words (``cell`` = 0: maps only, no
 // keys), zeroed here on ``stream`` before the launch unless each cell lies in
 // one block. Launches without synchronising and returns a cudaError_t as an
 // int (0 = success).
 extern "C" int sdvl_detect_levels(const void* const* imgs, void* const* outs,
-                                  const int* dims, int n, int cell,
+                                  const int* dims, int n, int cell, int plain,
                                   float fast_threshold, float st_threshold,
                                   void* keys, void* stream) {
     if (n < 1 || n > MAX_LEVELS || cell < 0)
@@ -378,6 +438,9 @@ extern "C" int sdvl_detect_levels(const void* const* imgs, void* const* outs,
         const cudaError_t err = cudaMemsetAsync(keys, 0, n_cells * 8, s);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    detect_levels_kernel<<<blocks, THREADS, 0, s>>>(P);
+    if (plain)
+        detect_levels_kernel<true><<<blocks, THREADS, 0, s>>>(P);
+    else
+        detect_levels_kernel<false><<<blocks, THREADS, 0, s>>>(P);
     return static_cast<int>(cudaGetLastError());
 }

@@ -4,19 +4,29 @@ kernel, wrapper, plain version.
 Replaces the TPU kernel ``sdvl_tpu/ops/pallas/detect.py::fast_shi_tomasi_map``
 (its row-tiled call for H > 80 and its single-block call alike) together with
 the per-cell selection that consumes its output (``_grid_best`` of
-``sdvl_tpu/ops/fast.py``). The kernel is ``csrc/detect.cu``, CUDA C++ for
-``sm_90a``, built with ``nvcc`` at first use into ``sdvl_tpu_torch/_build/``
-and bound through ``ctypes``. One launch covers all levels of a frame.
+``sdvl_tpu/ops/fast.py``), and the reference's plain route
+(``fast_corner_mask`` + ``shi_tomasi`` + ``_grid_best``) as well: the two
+differ in their border rule, chosen by ``border``. The kernel is
+``csrc/detect.cu``, CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use
+into ``sdvl_tpu_torch/_build/`` and bound through ``ctypes``. One launch
+covers all levels of a frame.
 
 Output contract, for each (H, W) float32 level:
 
-* the score map: the Shi-Tomasi min-eigenvalue score where the pixel passes
-  the FAST segment test, lies at least 4 px inside the image and scores above
-  ``st_threshold``; ``-inf`` elsewhere;
+* the score map. ``border="pallas"`` (the Pallas kernel's rule): the
+  Shi-Tomasi min-eigenvalue score where the pixel passes the FAST segment
+  test, lies at least 4 px inside the image and scores above
+  ``st_threshold``; ``-inf`` elsewhere. ``border="plain"`` (the plain
+  route's): the score wherever the pixel passes the FAST test, whatever the
+  score, ``-inf`` elsewhere, with no border cut; FAST samples edge-replicated
+  pixels, the Sobel derivatives wrap at the image edge (``roll``), the 4x4
+  box sums count zero outside the image;
 * one corner slot per cell of the cropped ``(H // cell) x (W // cell)`` grid:
-  its best pixel by :func:`grid_best`'s rule (highest score, then the
-  smallest in-cell index; an all ``-inf`` cell gives index 0), at level-0
-  coordinates, valid where its score is above ``st_threshold``.
+  its best pixel of the map by :func:`grid_best`'s rule (highest score, then
+  the smallest in-cell index; an all ``-inf`` cell gives index 0), at level-0
+  coordinates, with its score (0 where it is ``-inf``), valid where the score
+  is above ``st_threshold``. Under the plain rule an invalid cell keeps the
+  position and score of its best FAST corner, as the reference's does.
 
 Bound on an H100 (3.35 TB/s): memory -- one float32 read and one float32
 write of every level plus 8 bytes per cell, 3.23 MB at the three preset
@@ -39,6 +49,7 @@ import threading
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 _CIRCLE = (
     (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
@@ -46,6 +57,7 @@ _CIRCLE = (
 )
 _ARC = 9
 _BORDER = 4
+BORDERS = ("plain", "pallas")   # the reference's two border rules
 MAX_LEVELS = 4      # csrc/detect.cu MAX_LEVELS
 MAX_CELL = 32768    # in-cell index cy * cell + cx must fit 31 bits
 _INT32_MIN = -(1 << 31)
@@ -112,7 +124,7 @@ def bind_library(path: str):
     fn.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
@@ -127,12 +139,18 @@ def load_library(verbose: bool = False):
     return _lib
 
 
+def _check_border(border: str) -> None:
+    if border not in BORDERS:
+        raise ValueError(f"border {border!r} is not one of {BORDERS}")
+
+
 def _launch(levels: Sequence[torch.Tensor], cell: int, fast_threshold: float,
-            st_threshold: float, lib=None):
-    """One kernel launch over ``levels`` (CUDA tensors), with ``lib`` or the
-    package's library. Returns the maps and the (sum of cells,) int64 key
-    buffer (``cell`` = 0: no cells)."""
+            st_threshold: float, lib=None, border: str = "pallas"):
+    """One kernel launch over ``levels`` (CUDA tensors) under the ``border``
+    rule, with ``lib`` or the package's library. Returns the maps and the
+    (sum of cells,) int64 key buffer (``cell`` = 0: no cells)."""
     global launch_count
+    _check_border(border)
     n = len(levels)
     if not 1 <= n <= MAX_LEVELS:
         raise ValueError(f"the kernel takes 1 to {MAX_LEVELS} levels, got {n}")
@@ -163,7 +181,7 @@ def _launch(levels: Sequence[torch.Tensor], cell: int, fast_threshold: float,
         err = lib.sdvl_detect_levels(
             (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels]),
             (ctypes.c_void_p * n)(*[m.data_ptr() for m in maps]),
-            (ctypes.c_int * (3 * n))(*dims), n, cell,
+            (ctypes.c_int * (3 * n))(*dims), n, cell, int(border == "plain"),
             float(fast_threshold), float(st_threshold), keys.data_ptr(),
             stream,
         )
@@ -213,8 +231,8 @@ def _cells_from_keys(keys, shapes, cell: int, st_threshold: float):
     best, idx = decode_keys(keys)
     origin, scale, level = _cell_grid(shapes, cell, str(keys.device))
     xy = (origin + torch.stack((idx % cell, idx // cell), -1)) * scale
-    valid = best > st_threshold
-    return xy, torch.where(valid, best, 0.0), valid, level.clone()
+    return (xy, torch.where(torch.isfinite(best), best, 0.0),
+            best > st_threshold, level.clone())
 
 
 def grid_best(score_map: torch.Tensor, mask: torch.Tensor, cell: int):
@@ -278,8 +296,6 @@ def fast_shi_tomasi_map_plain(img: torch.Tensor, fast_threshold: float = 10.0,
     border, which is ``-inf`` by contract. The float operation order is the
     TPU kernel's, so interior scores agree with it to rounding.
     """
-    import torch.nn.functional as F
-
     f = img.float()
     H, W = f.shape
     R = _BORDER
@@ -324,15 +340,68 @@ def fast_shi_tomasi_map_plain(img: torch.Tensor, fast_threshold: float = 10.0,
     return torch.where(keep, score, torch.full_like(score, float("-inf")))
 
 
+def fast_corner_mask(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """The reference's dense FAST-9/16 segment test with edge-replicated
+    borders (``fast_corner_mask`` of ``sdvl_tpu/ops/fast.py``). Returns
+    (H, W) bool."""
+    pad = F.pad(img[None, None], (3, 3, 3, 3), mode="replicate")[0, 0]
+    return segment_test(img, pad, 3, threshold)
+
+
+def shi_tomasi(img: torch.Tensor, half_box: int = 2) -> torch.Tensor:
+    """The reference's dense min-eigenvalue (Shi-Tomasi) response map, (H, W)
+    (``shi_tomasi`` of ``sdvl_tpu/ops/fast.py``): Sobel 3x3 derivatives
+    wrapping at the image edge (its ``roll``), a ``2*half_box`` box sum of the
+    structure tensor anchored like OpenCV's boxFilter with zeros outside the
+    image (its ``pad``), min eigenvalue normalized by the window area."""
+    f = img.float()
+    fy = torch.roll(f, -1, 0) - torch.roll(f, 1, 0)
+    fx = torch.roll(f, -1, 1) - torch.roll(f, 1, 1)
+    dx = 0.25 * (torch.roll(fx, 1, 0) + 2.0 * fx + torch.roll(fx, -1, 0))
+    dy = 0.25 * (torch.roll(fy, 1, 1) + 2.0 * fy + torch.roll(fy, -1, 1))
+    box = 2 * half_box
+
+    def _boxsum(x):
+        H, W = x.shape
+        p = F.pad(x, (0, 0, half_box, half_box - 1))
+        v = sum(p[i: i + H] for i in range(box))
+        p = F.pad(v, (half_box, half_box - 1, 0, 0))
+        return sum(p[:, i: i + W] for i in range(box))
+
+    dxx = _boxsum(dx * dx)
+    dyy = _boxsum(dy * dy)
+    dxy = _boxsum(dx * dy)
+    norm = 1.0 / (2.0 * box * box)
+    tr = dxx + dyy
+    det_term = torch.sqrt(((dxx - dyy) ** 2 + 4.0 * dxy * dxy).clamp_min(0.0))
+    return 0.5 * (tr - det_term) * norm * 2.0
+
+
+def plain_route_map(img: torch.Tensor,
+                    fast_threshold: float = 10.0) -> torch.Tensor:
+    """The score map of the plain border rule in torch ops: the reference's
+    ``shi_tomasi`` where its ``fast_corner_mask`` holds, ``-inf``
+    elsewhere."""
+    score = shi_tomasi(img)
+    return torch.where(fast_corner_mask(img, fast_threshold), score,
+                       torch.full_like(score, float("-inf")))
+
+
 def fast_shi_tomasi_cells_plain(levels: Sequence[torch.Tensor], cell: int = 32,
                                 fast_threshold: float = 10.0,
-                                st_threshold: float = 50.0):
-    """The kernel's function in torch ops on any device: per level the plain
-    score map, then :func:`grid_best` on it. Same outputs as
-    :func:`fast_shi_tomasi_cells`."""
+                                st_threshold: float = 50.0,
+                                border: str = "plain"):
+    """The kernel's function in torch ops on any device: per level the
+    ``border`` rule's score map, then :func:`grid_best` on it (for the plain
+    rule the reference's ``fast_corner_mask`` + ``shi_tomasi`` +
+    ``_grid_best``). Same outputs as :func:`fast_shi_tomasi_cells`."""
+    _check_border(border)
     maps, xy, score, valid, level = [], [], [], [], []
     for l, img in enumerate(levels):
-        smap = fast_shi_tomasi_map_plain(img, fast_threshold, st_threshold)
+        if border == "plain":
+            smap = plain_route_map(img, fast_threshold)
+        else:
+            smap = fast_shi_tomasi_map_plain(img, fast_threshold, st_threshold)
         p, best, ok = grid_best(smap, torch.isfinite(smap), cell)
         maps.append(smap)
         xy.append(p * float(1 << l))
@@ -347,8 +416,10 @@ def fast_shi_tomasi_cells_plain(levels: Sequence[torch.Tensor], cell: int = 32,
 # ------------------------------------------------------------- wrappers
 def fast_shi_tomasi_cells(levels: Sequence[torch.Tensor], cell: int = 32,
                           fast_threshold: float = 10.0,
-                          st_threshold: float = 50.0):
-    """Score maps and per-cell corners of up to four pyramid levels.
+                          st_threshold: float = 50.0, border: str = "plain"):
+    """Score maps and per-cell corners of up to four pyramid levels under the
+    ``border`` rule (``"plain"``: the reference's plain route, its default;
+    ``"pallas"``: its Pallas kernel's).
 
     Returns ``(maps, xy, score, valid, level)``: the (H_l, W_l) score maps,
     then one slot per cell of every level in level order -- position at
@@ -361,10 +432,11 @@ def fast_shi_tomasi_cells(levels: Sequence[torch.Tensor], cell: int = 32,
     """
     if not levels[0].is_cuda:
         return fast_shi_tomasi_cells_plain(levels, cell, fast_threshold,
-                                           st_threshold)
+                                           st_threshold, border)
     if cell < 1:
         raise ValueError(f"cell {cell} outside 1..{MAX_CELL}")
-    maps, keys = _launch(levels, cell, fast_threshold, st_threshold)
+    maps, keys = _launch(levels, cell, fast_threshold, st_threshold,
+                         border=border)
     shapes = tuple(tuple(m.shape) for m in maps)
     return (maps, *_cells_from_keys(keys, shapes, cell, st_threshold))
 

@@ -3,10 +3,11 @@
 The port's own copy of ``sdvl_tpu/pipeline/config.py`` (same field names and
 defaults, same ``.cfg`` files through :func:`load_cfg`), so that nothing of
 the JAX package is imported. Capacities (features, keyframes, points) are
-the tensor shapes of the whole pipeline. One field is left out: the cfg key
-``SDVL.use_pallas_detect`` is read and ignored, because the port chooses its
-detection route by device (the hand-written kernel of ``ops/cuda/detect.py``
-on a CUDA tensor, its plain torch version on a CPU tensor).
+the tensor shapes of the whole pipeline. ``use_pallas_detect`` chooses the
+reference's detection route, as there: its border rule (``ops/fast.py``). It
+does not choose an implementation: the device does (the hand-written kernel
+of ``ops/cuda/detect.py`` on a CUDA tensor, its plain torch version on a CPU
+tensor).
 """
 
 from __future__ import annotations
@@ -96,6 +97,11 @@ class SdvlConfig:
                                   #   escalation; irrelevant when
                                   #   max_keyframes <= reloc_max_keyframes
                                   #   (the bounded pass is already global)
+    use_pallas_detect: bool = False  # detection route: the Pallas kernel's
+                                  #   (4-px border cut, score threshold in
+                                  #   the map) instead of the plain route's
+                                  #   (scored to the image edge); both run
+                                  #   in the same CUDA kernel
     use_affine_illum: bool = False  # gain/bias photometric model in direct
                                   #   alignment (solvers/image_align.py) —
                                   #   capability the reference lacks; off by

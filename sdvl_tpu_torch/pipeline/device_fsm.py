@@ -187,6 +187,7 @@ def make_preprocess(cfg: Config, undistort: bool):
             st_threshold=s.min_feature_score,
             max_features=s.num_features,
             lock_xy=lock_xy, lock_valid=lock_valid,
+            border="pallas" if s.use_pallas_detect else "plain",
         )
         return pyr, corners
 

@@ -252,14 +252,26 @@ def extract_global_ba(m: MapState, intr) -> ba.BAProblem:
                         obs_uv=uv, obs_mask=obs_mask)
 
 
-def global_ba(m: MapState, intr, stage_iters=(8, 12)) -> MapState:
+def global_ba(m: MapState, intr, mesh=None, stage_iters=(8, 12),
+              axis: str = "point") -> MapState:
     """Full-map bundle adjustment + write-back: poses of the free slots,
     positions of the valid points, and the observations the BA gated out
     removed. The reduced camera solve is dense Cholesky up to
-    ``ba.CG_KF_THRESHOLD`` keyframe slots and PCG above."""
+    ``ba.CG_KF_THRESHOLD`` keyframe slots and PCG above. With a ``mesh``
+    (``torch.distributed.device_mesh.DeviceMesh``), the point blocks are
+    sharded over its ``axis`` and the reduced camera system all-reduced
+    (``dist.ba_sharded.solve_sharded``); every rank of the axis calls it
+    with the same map and gets the same result."""
     problem = extract_global_ba(m, intr)
-    res = ba.solve(problem, huber=huber_threshold(intr),
-                   stage_iters=tuple(stage_iters))
+    if mesh is None:
+        res = ba.solve(problem, huber=huber_threshold(intr),
+                       stage_iters=tuple(stage_iters))
+    else:
+        from ..dist import ba_sharded
+
+        res = ba_sharded.solve_sharded(
+            problem, mesh, huber=huber_threshold(intr),
+            stage_iters=tuple(stage_iters), axis=axis)
     free = ~problem.fixed
     m = m._replace(
         kf_pose=torch.where(free[:, None], res.poses, m.kf_pose),

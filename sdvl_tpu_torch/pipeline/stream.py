@@ -269,34 +269,42 @@ class SdvlStream:
 
     # ------------------------------------------------------------- results
     def result(self) -> SlamResult:
-        """ONE device->host transfer of every recorded frame's info: the
-        fields are packed on the device into a single (N, 21) float32
-        matrix (pose 7 + world_tf 7 + 7 scalar columns; every int fits
-        float32 exactly)."""
+        """ONE device->host transfer of every recorded frame's info
+        (:func:`pack_infos`)."""
         if not self._infos:
             raise ValueError("no frames fed")
-        rows = [
-            torch.cat([
-                info.pose, info.world_tf,
-                torch.stack([
-                    info.state.float(), info.quality.float(),
-                    info.n_matches.float(), info.n_attempts.float(),
-                    info.is_keyframe.float(), info.n_corners.float(),
-                    info.median_shift.float(),
-                ]),
-            ])
-            for info in self._infos
-        ]
-        packed = torch.stack(rows).cpu().numpy()
-        stacked = FrameInfo(
-            pose=packed[:, 0:7],
-            world_tf=packed[:, 7:14],
-            state=packed[:, 14].astype(np.int32),
-            quality=packed[:, 15].astype(np.int32),
-            n_matches=packed[:, 16].astype(np.int32),
-            n_attempts=packed[:, 17].astype(np.int32),
-            is_keyframe=packed[:, 18] > 0.5,
-            n_corners=packed[:, 19].astype(np.int32),
-            median_shift=packed[:, 20],
-        )
-        return SlamResult(stacked)
+        return SlamResult(unpack_infos(pack_infos(self._infos).cpu().numpy()))
+
+
+def pack_infos(infos: List[FrameInfo]) -> torch.Tensor:
+    """Frames' infos packed on their device into one (N, 21) float32 matrix
+    (pose 7 + world_tf 7 + 7 scalar columns; every int fits float32
+    exactly), for a single device->host copy."""
+    return torch.stack([
+        torch.cat([
+            info.pose, info.world_tf,
+            torch.stack([
+                info.state.float(), info.quality.float(),
+                info.n_matches.float(), info.n_attempts.float(),
+                info.is_keyframe.float(), info.n_corners.float(),
+                info.median_shift.float(),
+            ]),
+        ])
+        for info in infos
+    ])
+
+
+def unpack_infos(packed: np.ndarray) -> FrameInfo:
+    """Inverse of :func:`pack_infos` on the host: a FrameInfo of numpy
+    arrays with leading dim N."""
+    return FrameInfo(
+        pose=packed[:, 0:7],
+        world_tf=packed[:, 7:14],
+        state=packed[:, 14].astype(np.int32),
+        quality=packed[:, 15].astype(np.int32),
+        n_matches=packed[:, 16].astype(np.int32),
+        n_attempts=packed[:, 17].astype(np.int32),
+        is_keyframe=packed[:, 18] > 0.5,
+        n_corners=packed[:, 19].astype(np.int32),
+        median_shift=packed[:, 20],
+    )

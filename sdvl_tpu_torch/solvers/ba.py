@@ -26,6 +26,16 @@ system. The reference's CG is a ``while_loop`` that stops at an iteration
 bound or a residual tolerance; the port runs the same iterations with a
 frozen-lane flag (a lane past the tolerance no longer moves) and reads the
 flag on the host only every ``CG_CHECK_EVERY`` iterations to stop early.
+
+Every solve takes the reference's reduction hook (its ``axis``): ``group``,
+a ``torch.distributed`` process group the POINT dimension of the problem is
+sharded over (``dist/ba_sharded.py``). Each rank then holds its own point
+rows, and ``U``, ``b_c``, every point-contracted term and the cost are
+all-reduced over the group (:func:`_psum`): the dense path
+reduces the (K, K, 6, 6) ``S_cross`` once per LM step, the PCG one (K, 6)
+product per iteration. Every branch -- the PCG's early exit, its iteration
+bound, each LM step's accept -- reads reduced values only, so all ranks
+take it alike.
 """
 
 from __future__ import annotations
@@ -36,6 +46,16 @@ import torch
 
 from ..core import camera as cam
 from ..core import geometry, se3
+
+
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``group`` (a new tensor), or ``x``
+    itself where ``group`` is None: the reference's ``lax.psum``."""
+    if group is None:
+        return x
+    out = x.contiguous().clone()
+    torch.distributed.all_reduce(out, group=group)
+    return out
 
 
 class BAProblem(NamedTuple):
@@ -103,9 +123,11 @@ def _build_system(poses, points, r, w):
     return U, V, Wm, b_c, b_p
 
 
-def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam):
+def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     """Solve the damped normal equations by marginalizing point blocks.
-    A reduced system that is not positive definite gives a NaN step."""
+    A reduced system that is not positive definite gives a NaN step.
+    ``group``: the points are sharded over it (see the module note)."""
+    U, b_c = _psum(U, group), _psum(b_c, group)
     K = U.shape[0]
     dev = U.device
     eye3 = torch.eye(3, dtype=V.dtype, device=dev)
@@ -116,11 +138,11 @@ def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam):
 
     # S_kl = delta_kl (U_k + lam I) - sum_p W_pk Vinv_p W_pl^T
     WVinv = torch.einsum("pkij,pjl->pkil", Wm, Vinv)           # (P,K,6,3)
-    S = -torch.einsum("pkil,pmjl->kmij", WVinv, Wm)            # (K,K,6,6)
-    diag = torch.arange(K, device=dev)
+    S = -_psum(torch.einsum("pkil,pmjl->kmij", WVinv, Wm), group)
+    diag = torch.arange(K, device=dev)                         # (K,K,6,6)
     S[diag, diag] += U + lam * eye6[None]
 
-    rhs = b_c - torch.einsum("pkil,pl->ki", WVinv, b_p)        # (K,6)
+    rhs = b_c - _psum(torch.einsum("pkil,pl->ki", WVinv, b_p), group)
 
     # gauge/fixed handling: zero rows+cols of fixed cameras, identity diag
     free = (~fixed).to(S.dtype)
@@ -141,7 +163,7 @@ def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam):
 
 
 def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam,
-                    n_free: Optional[int] = None):
+                    n_free: Optional[int] = None, group=None):
     """Matrix-free PCG on the reduced camera system -- the large-map path.
 
     S is never formed: each iteration applies
@@ -157,6 +179,9 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam,
     tolerance the lane is frozen (nothing it holds changes any more); the
     flag is read every ``CG_CHECK_EVERY`` iterations to stop early.
 
+    ``group``: the points are sharded over it (see the module note): the
+    per-iteration wire cost is one (K, 6) all-reduce, whatever P and K.
+
     Returns ``(dc, dp, n_iter)``, ``n_iter`` the iterations the reference's
     loop runs on the same numbers.
     """
@@ -170,19 +195,20 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam,
     Vinv = torch.linalg.inv_ex(V_d).inverse                    # (P,3,3)
     WVinv = torch.einsum("pkij,pjl->pkil", Wm, Vinv)           # (P,K,6,3)
 
-    rhs = (b_c - torch.einsum("pkil,pl->ki", WVinv, b_p)) * free[:, None]
-    U_d = U + (lam + 1e-8) * eye6[None]
+    rhs = _psum(b_c - torch.einsum("pkil,pl->ki", WVinv, b_p),
+                group) * free[:, None]
+    U_d = _psum(U, group) + (lam + 1e-8) * eye6[None]
 
     def matvec(x):                                             # x (K,6)
         x = x * free[:, None]
         t = torch.einsum("pkij,ki->pj", Wm, x)                 # (P,3)
         y = torch.einsum("kij,kj->ki", U_d, x)
-        y = y - torch.einsum("pkil,pl->ki", WVinv, t)
+        y = y - _psum(torch.einsum("pkil,pl->ki", WVinv, t), group)
         # fixed cameras act as identity rows (keeps the operator PD)
         return y * free[:, None] + x * (1.0 - free)[:, None]
 
     # block-Jacobi preconditioner: exact 6x6 diagonal blocks of S
-    D = U_d - torch.einsum("pkil,pkjl->kij", WVinv, Wm)        # (K,6,6)
+    D = U_d - _psum(torch.einsum("pkil,pkjl->kij", WVinv, Wm), group)
     D = D * free[:, None, None] + eye6[None] * (1.0 - free)[:, None, None]
     Dinv = torch.linalg.inv_ex(D + 1e-8 * eye6[None]).inverse
 
@@ -230,7 +256,8 @@ def _robust_chi2(r, w, huber):
 
 
 def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
-          gate_thresh: Optional[float] = None) -> BAResult:
+          gate_thresh: Optional[float] = None, group=None,
+          method: Optional[str] = None) -> BAResult:
     """Two-stage Levenberg-Marquardt with Schur elimination.
 
     ``huber`` and ``gate_thresh`` are in unit-plane units (pixels / focal).
@@ -241,11 +268,17 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
     reduced camera system is solved by dense Cholesky up to
     ``CG_KF_THRESHOLD`` keyframe slots and by PCG above (one host read per
     ``CG_CHECK_EVERY`` CG iterations; the result's ``cg_iterations`` holds
-    the count of each LM step).
+    the count of each LM step); ``method`` ("chol" or "cg") overrides that
+    choice. ``group``: the problem holds this rank's point rows only, and
+    every sum over points is all-reduced over it (see the module note; the
+    result's ``points`` and ``inlier_mask`` are the local rows).
     """
     if gate_thresh is None:
         gate_thresh = huber
-    use_cg = problem.poses.shape[0] > CG_KF_THRESHOLD
+    if method not in (None, "chol", "cg"):
+        raise ValueError(f"method {method!r} is not 'chol' or 'cg'")
+    use_cg = (problem.poses.shape[0] > CG_KF_THRESHOLD if method is None
+              else method == "cg")
     cg_iterations = []
     if use_cg:
         # the CG bound's count of free cameras: one host read per solve
@@ -254,14 +287,18 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
 
     def schur(*system):
         if not use_cg:
-            return _schur_solve(*system)
-        dc, dp, n_iter = _schur_solve_cg(*system, n_free=n_free)
+            return _schur_solve(*system, group=group)
+        dc, dp, n_iter = _schur_solve_cg(*system, n_free=n_free, group=group)
         cg_iterations.append(n_iter)
         return dc, dp
 
+    def chi2_of(poses, points, w_mask):
+        r, _, w = _residuals(poses, points, problem.obs_uv, w_mask)
+        return _psum(_robust_chi2(r, _robust_weights(r, w, huber), huber),
+                     group)
+
     def lm_run(poses, points, w_mask, iters):
-        r0, _, w0 = _residuals(poses, points, problem.obs_uv, w_mask)
-        prev_chi2 = _robust_chi2(r0, _robust_weights(r0, w0, huber), huber)
+        prev_chi2 = chi2_of(poses, points, w_mask)
         lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
         for _ in range(iters):
             r, _, w0 = _residuals(poses, points, problem.obs_uv, w_mask)
@@ -270,9 +307,7 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
             dc, dp = schur(U, V, Wm, b_c, b_p, problem.fixed, lam)
             new_poses = se3.boxplus(poses, -dc)
             new_points = points - dp
-            r2, _, w2 = _residuals(new_poses, new_points, problem.obs_uv,
-                                   w_mask)
-            chi2 = _robust_chi2(r2, _robust_weights(r2, w2, huber), huber)
+            chi2 = chi2_of(new_poses, new_points, w_mask)
             accept = chi2 < prev_chi2
             poses = torch.where(accept, new_poses, poses)
             points = torch.where(accept, new_points, points)

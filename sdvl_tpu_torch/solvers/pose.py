@@ -7,6 +7,17 @@ reference ``vmap``s them). The reference's early-exit ``while_loop`` becomes a
 loop of fixed count whose pose freezes once ``stop`` is set. RANSAC takes its
 Gumbel noise as an argument, so that a test can hand both implementations the
 same draws.
+
+:func:`optimize` runs in float64 and returns float32 (the reference computes
+in float32). Its normal equations sum ~400 terms per step, and a float32 sum
+rounds by the order the device adds them in: over the 85-frame JAX record
+at 640x480 (``chip_smoke.py`` phase ``slam``), the card's order flipped one
+match's inlier decision on 3 of the first 66 frames where the CPU's did
+not, and 16 of 83 frames ended with other match counts than the reference
+(against 11 on the CPU). In float64 the steps round to the same float32
+pose on either device, and the card agrees with the reference on every one
+of the first 66 frames (6 of 83 differ by 1-2 matches; measured on the
+H100).
 """
 
 from __future__ import annotations
@@ -54,16 +65,19 @@ def optimize(pose_init: torch.Tensor, pts_w: torch.Tensor,
     """IRLS Gauss-Newton on unit-plane reprojection error.
 
     ``uv_obs`` are unit-plane measurements of world points ``pts_w`` from the
-    current camera; ``inlier_thresh`` in unit-plane units.
+    current camera; ``inlier_thresh`` in unit-plane units. Computed in
+    float64 (see the module note); the pose and error come back float32.
     """
-    vmask = valid.float()
-    eye = torch.eye(6, dtype=torch.float32, device=pts_w.device)
+    pose_init = pose_init.double()
+    pts_w, uv_obs = pts_w.double(), uv_obs.double()
+    vmask = valid.double()
+    eye = torch.eye(6, dtype=torch.float64, device=pts_w.device)
 
     def residuals(pose):
         p_cam = se3.transform(pose, pts_w)
         uv = cam.project_unit_plane(p_cam)
         r = uv_obs - uv
-        front = (p_cam[..., 2] > 1e-3).float() * vmask
+        front = (p_cam[..., 2] > 1e-3).double() * vmask
         return r, p_cam, front
 
     pose = pose_init
@@ -86,7 +100,7 @@ def optimize(pose_init: torch.Tensor, pts_w: torch.Tensor,
     r_norm = _norm(r)
     inliers = (front > 0) & (r_norm < inlier_thresh)
     err = torch.sum(r_norm * front) / torch.sum(front).clamp_min(1.0)
-    return PoseOptResult(pose=pose, inliers=inliers, error=err)
+    return PoseOptResult(pose=pose.float(), inliers=inliers, error=err.float())
 
 
 def ransac(pose_init: torch.Tensor, pts_w: torch.Tensor,

@@ -1,15 +1,15 @@
 """Where a full-SLAM frame's time goes on the GPU, by what the frame runs.
 
 Runs the map-building stream at the tum_f1 preset shape over the frames that
-``chip_smoke.py`` renders (the recorded 40 of
-``tests/data/torch_slam_record.npz`` and the ones that follow on the same
-trajectory, so that keyframes are inserted), fed the recorded draws, and
-prints
+``chip_smoke.py`` renders (the 85 of ``tests/data/torch_slam_record.npz``,
+which insert keyframes after the bootstrap), with the record's detection
+route and fed its draws, and prints
 
 * wall time per stage of the step, per frame, by what the frame ran (FIRST,
   SECOND, RUNNING without a keyframe, keyframe frames): each stage function
   waits for the device before and after itself, so a stage's time is its
-  host time plus its device time, with nothing overlapped;
+  host time plus its device time, with nothing overlapped; the pose IRLS
+  (``solvers.pose.optimize``) is timed too, as a part of ``track_frame``;
 * for a profiled window of RUNNING frames and for the keyframe frames:
   launches, memcpys and synchronisations per frame, device time and the
   device's busy share;
@@ -47,6 +47,10 @@ STAGES = (
     ("pipeline.depth_filter", "promote_converged"),
     ("pipeline.mapper", "check_redundant_keyframes"),
 )
+# stages inside one of the above, reported beside it and not in "rest"
+NESTED = (
+    ("solvers.pose", "optimize"),    # the pose IRLS, inside track_frame
+)
 
 
 class StageClock:
@@ -57,7 +61,7 @@ class StageClock:
         self._originals = []
 
     def __enter__(self):
-        for mod_name, fn_name in STAGES:
+        for mod_name, fn_name in STAGES + NESTED:
             mod = importlib.import_module(f"sdvl_tpu_torch.{mod_name}")
             fn = getattr(mod, fn_name)
 
@@ -125,7 +129,8 @@ def main(argv=None) -> int:
     card = chip_smoke.gpu_line()
     rec = dict(np.load(chip_smoke.SLAM_NPZ))
     frames, _ = chip_smoke.render_preset_frames(rec)
-    cfg = chip_smoke.preset_config(localize_only=False)
+    cfg = chip_smoke.preset_config(localize_only=False,
+                                   use_pallas_detect=True)
 
     def stream():
         return SdvlStream(cfg, seed=0, device="cuda",
@@ -155,18 +160,19 @@ def main(argv=None) -> int:
              "stage-timed run (device waited for around each stage), ms per "
              "frame:"]
     labels = [fn for _, fn in STAGES]
+    nested = [fn for _, fn in NESTED]
     for name, mask in groups.items():
         idx = np.nonzero(mask)[0]
         if not len(idx):
             continue
         mean = {k: float(np.mean([per_frame[i].get(k, 0.0) for i in idx]))
-                for k in labels + ["whole"]}
+                for k in labels + nested + ["whole"]}
         rest = mean["whole"] - sum(mean[k] for k in labels)
         lines.append(
             f"  {name} ({len(idx)} frames): whole {mean['whole']:.2f}; "
-            + ", ".join(f"{k} {v:.2f}" for k, v in mean.items()
-                        if k != "whole" and v > 0)
-            + f", rest {rest:.2f}")
+            + ", ".join(f"{k} {mean[k]:.2f}" for k in labels if mean[k] > 0)
+            + f", rest {rest:.2f}; inside them: "
+            + ", ".join(f"{k} {mean[k]:.2f}" for k in nested))
 
     # profiled windows on a fresh stream: RUNNING frames, then the
     # keyframe frames each fed alone

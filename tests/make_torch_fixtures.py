@@ -14,14 +14,16 @@ committed under ``tests/data/``:
   (fused detection off, ``seed=1``) and the Gumbel noise its pose RANSAC drew
   for each frame, so that the port can be fed the same draws.
 * ``torch_slam_record.npz`` (``--slam-record``, which writes this file
-  only) -- the JAX SLAM stream in full SLAM mode over the same 40 frames at
-  the same preset, fused detection on (the Pallas kernel in interpret
-  mode), so that the card's fused route is held to the same detection
-  function: the SHA-256 of the uint8 frames (the GPU run renders them
-  itself), the ground-truth poses, every random draw of the run (the
-  homography and ground-plane RANSAC noise, and the pose-RANSAC noise of
-  each frame that tracks), the per-frame record and the final map's
-  keyframe count, keyframe frame ids and point count.
+  only) -- the JAX SLAM stream in full SLAM mode over 85 frames of the same
+  trajectory (its first 40 are the map's frames: ``PlaneScene.trajectory``
+  is a prefix for any length) at the same preset, past the first keyframe
+  after the bootstrap, with ``use_pallas_detect`` on (the Pallas kernel in
+  interpret mode), so that the card's Pallas border rule is held to the
+  same detection function: the SHA-256 of the uint8 frames (the GPU run
+  renders them itself), the ground-truth poses, every random draw of the
+  run (the homography and ground-plane RANSAC noise, and the pose-RANSAC
+  noise of each frame that tracks), the per-frame record and the final
+  map's keyframe count, keyframe frame ids and point count.
 
 Run from the repository root (CPU is enough, a few minutes of XLA compile):
 
@@ -41,6 +43,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
 N_MAP_FRAMES = 40
+N_RECORD_FRAMES = 85
 QUERY = slice(8, 32)
 
 
@@ -130,7 +133,7 @@ def slam_record(out_dir: str) -> str:
     scene, cfg = preset_setup()
     cfg = dataclasses.replace(cfg, sdvl=dataclasses.replace(
         cfg.sdvl, use_pallas_detect=True))
-    poses_gt = scene.trajectory(N_MAP_FRAMES, translation_amp=1.0)
+    poses_gt = scene.trajectory(N_RECORD_FRAMES, translation_amp=1.0)
     frames = [np.clip(scene.render(p), 0, 255).astype(np.uint8)
               for p in poses_gt]
 
@@ -138,6 +141,7 @@ def slam_record(out_dir: str) -> str:
     for f in frames:
         slam.feed(f)
     r = slam.result()
+    assert r.is_keyframe[3:].any(), "no keyframe after the bootstrap"
     print("slam record: states", r.states.tolist())
     print("slam record: keyframes", r.is_keyframe.astype(int).tolist())
     print("slam record: matches", r.n_matches.tolist())

@@ -170,9 +170,7 @@ def test_sample_without_replacement_same_noise(n_valid):
 @pytest.mark.parametrize("name", ["tum_f1", "euroc", "zurich"])
 def test_load_cfg_matches_reference(name):
     """The port's own copy of the config loader reads the repo's preset
-    files to the same values; the one knob the port leaves out
-    (``use_pallas_detect``: the port detects by device) is read and
-    dropped."""
+    files to the same values, every field included."""
     import dataclasses
     import os
     import warnings
@@ -185,7 +183,6 @@ def test_load_cfg_matches_reference(name):
     assert dataclasses.asdict(ct.camera) == dataclasses.asdict(cj.camera)
     assert dataclasses.asdict(ct.video) == dataclasses.asdict(cj.video)
     dj, dt = dataclasses.asdict(cj.sdvl), dataclasses.asdict(ct.sdvl)
-    dj.pop("use_pallas_detect")
     assert dt == dj
     ij, it = jconfig.intrinsics(cj), tconfig.intrinsics(ct)
     assert (it.fx, it.fy, it.cx, it.cy) == tuple(
@@ -200,9 +197,10 @@ def test_use_pallas_detect_key_sets_use_fused_detect(tmp_path):
                    "SDVL.localize_only: false\nSDVL.max_matches: 77\n")
     c = tconfig.load_cfg(str(cfg))
     assert c.sdvl.localize_only is False and c.sdvl.max_matches == 77
-    # the key is read and ignored: detection follows the tensors' device
-    assert not hasattr(c.sdvl, "use_pallas_detect")
+    # the key sets the reference's field: the detection route's border rule
+    assert c.sdvl.use_pallas_detect is True
     assert not hasattr(c.sdvl, "use_fused_detect")
+    assert tconfig.SdvlConfig().use_pallas_detect is False
 
 
 def test_empty_map_and_store_pyramid():

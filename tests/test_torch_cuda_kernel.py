@@ -6,11 +6,11 @@ machine that has none:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernel.py -q
 
-Tolerance: the kernel keeps the plain version's float operation order and is
-built without multiply-add contraction, so finite masks must be equal, the
-cell winners (position, validity) equal, and scores agree to rounding (rtol
-1e-4 / atol 1e-2 allows another summation order, should a later kernel
-choose one).
+Tolerance: none. The kernel keeps the plain version's float operation order
+and is built without multiply-add contraction, so under both border rules
+(``plain``: the reference's plain route, scored to the image edge;
+``pallas``: its Pallas kernel's 4-px border cut) the score maps and the
+cell results (position, score, validity, level) are bit-identical.
 """
 
 import os
@@ -34,14 +34,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _assert_maps_equal(got, want):
+def _assert_maps_equal(got, want, border="pallas"):
     assert got.shape == want.shape and got.dtype == torch.float32
-    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
-    both = torch.isfinite(got)
-    torch.testing.assert_close(got[both], want[both], rtol=1e-4, atol=1e-2)
-    assert not bool(torch.isfinite(got[:4]).any())
-    assert not bool(torch.isfinite(got[:, -4:]).any())
-    return int(both.sum())
+    assert torch.equal(got, want)
+    if border == "pallas":
+        assert not bool(torch.isfinite(got[:4]).any())
+        assert not bool(torch.isfinite(got[:, -4:]).any())
+    return int(torch.isfinite(got).sum())
 
 
 @pytest.mark.cuda
@@ -76,30 +75,56 @@ def _levels(case, dev):
     return [view]
 
 
-def _assert_cells_equal(got, want):
+def _assert_cells_equal(got, want, border="pallas"):
     maps, xy, score, valid, level = got
     pmaps, pxy, pscore, pvalid, plevel = want
-    n = sum(_assert_maps_equal(a, b) for a, b in zip(maps, pmaps))
+    n = sum(_assert_maps_equal(a, b, border) for a, b in zip(maps, pmaps))
     assert n > 100
     assert torch.equal(valid, pvalid) and torch.equal(level, plevel)
-    assert torch.equal(xy, pxy)
-    torch.testing.assert_close(score, pscore, rtol=1e-4, atol=1e-2)
+    assert torch.equal(xy, pxy) and torch.equal(score, pscore)
     assert int(valid.sum()) > 0
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("border", detect.BORDERS)
 @pytest.mark.parametrize("cell", [16, 32, 64])
 @pytest.mark.parametrize("case", ["stream", "small", "ragged", "misaligned"])
-def test_cells_match_plain_on_card(cuda_device, case, cell):
+def test_cells_match_plain_on_card(cuda_device, case, cell, border):
     """All levels in one launch: maps, and cell winners exactly the plain
-    version's (per-level plain map plus ``grid_best``)."""
+    version's (per-level score map plus ``grid_best``), under both border
+    rules."""
     levels = _levels(case, cuda_device)
     before = detect.launch_count
-    got = detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T)
+    got = detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T, border)
     torch.cuda.synchronize()
     assert detect.launch_count == before + 1
-    want = detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T, ST_T)
-    _assert_cells_equal(got, want)
+    want = detect.fast_shi_tomasi_cells_plain(levels, cell, FAST_T, ST_T,
+                                              border)
+    _assert_cells_equal(got, want, border)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", detect.BORDERS)
+@pytest.mark.parametrize("shape", [(64, 96), (123, 171), (480, 640)])
+def test_both_rules_bit_identical_at_the_border(cuda_device, shape, border):
+    """Corners on the first and last rows and columns (where the plain rule
+    reads edge-replicated pixels for FAST and wrapped ones for the Sobel
+    derivatives, and counts zero beyond the edge in the box sums): the
+    kernel's maps and cells equal the plain version's; only the plain rule
+    scores there."""
+    img = T(blocky_image(16, shape)).to(cuda_device)
+    H, W = shape
+    img[:3, 10:14] = 250.0
+    img[H - 2:, W - 12:W - 9] = 0.0
+    img[20:23, :2] = 240.0
+    img[H // 2:H // 2 + 3, W - 2:] = 230.0
+    got = detect.fast_shi_tomasi_cells([img], 16, FAST_T, ST_T, border)
+    want = detect.fast_shi_tomasi_cells_plain([img], 16, FAST_T, ST_T,
+                                              border)
+    _assert_cells_equal(got, want, border)
+    ring = torch.ones((H, W), dtype=torch.bool, device=cuda_device)
+    ring[4:H - 4, 4:W - 4] = False
+    assert bool(torch.isfinite(got[0][0][ring]).any()) == (border == "plain")
 
 
 @pytest.mark.cuda
@@ -111,8 +136,9 @@ def test_cells_tie_image_on_card(cuda_device, cell):
     patch = rng.uniform(0, 50, (8, 8)).astype(np.float32)
     patch[2:5, 2:5] += 150.0                 # a bright square: corners
     img = T(patch).repeat(30, 40).to(cuda_device)          # 240x320
-    got = detect.fast_shi_tomasi_cells([img], cell, FAST_T, ST_T)
-    want = detect.fast_shi_tomasi_cells_plain([img], cell, FAST_T, ST_T)
+    got = detect.fast_shi_tomasi_cells([img], cell, FAST_T, ST_T, "pallas")
+    want = detect.fast_shi_tomasi_cells_plain([img], cell, FAST_T, ST_T,
+                                              "pallas")
     _assert_cells_equal(got, want)
     # ties really occur: a cell's best score appears more than once in it
     smap = want[0][0]
@@ -146,8 +172,9 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
 def test_shipped_config_detects_with_the_kernel(cuda_device, driver):
     """``SDVL(cfg, device="cuda")`` and ``SdvlStream(cfg, device="cuda")``
     with ``configs/tum_f1.cfg`` as shipped (which leaves
-    ``use_pallas_detect`` off) launch the kernel once per frame: the
-    detection route follows the device, not the config."""
+    ``use_pallas_detect`` off: the plain border rule) launch the kernel once
+    per frame: the implementation follows the device, the config only the
+    border rule."""
     from sdvl_tpu_torch.io.synthetic import PlaneScene
     from sdvl_tpu_torch.pipeline.config import load_cfg
     from sdvl_tpu_torch.pipeline.sdvl import SDVL

@@ -8,7 +8,9 @@ against the TPU kernel it replaces,
 against the reference's ``_grid_best`` on the Pallas maps of three levels.
 The kernel's cell keys are checked through their torch encoding: the
 unsigned maximum of the keys of a cell, decoded as the CUDA path decodes it,
-must be ``_grid_best``'s winner. The CUDA kernel itself cannot run here (no
+must be ``_grid_best``'s winner. The ``plain`` border rule's cells are held
+against the reference's plain route (``detect_level(use_pallas=False)``) per
+level, invalid cells' positions and scores included. The CUDA kernel itself cannot run here (no
 GPU, no nvcc); ``chip_smoke.py`` and ``tests/test_torch_cuda_kernel.py`` hold
 it against the same plain version on the card.
 
@@ -18,6 +20,9 @@ test grants for a different summation order. The finite masks must be equal
 except where a score sits within 1e-3 (relative) of the threshold.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,7 +107,8 @@ def test_plain_matches_plain_route_interior():
     np.testing.assert_allclose(g[both], w[both], rtol=1e-5)
 
 
-def test_wrapper_takes_plain_version_on_cpu_only():
+@pytest.mark.parametrize("border", detect.BORDERS)
+def test_wrapper_takes_plain_version_on_cpu_only(border):
     """On CPU tensors the wrappers run the plain versions and count no
     launch; the CUDA branch has no fallback (it builds and launches or
     raises), which this machine can only check by reading the dispatch."""
@@ -110,15 +116,17 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     before = detect.launch_count
     out = detect.fast_shi_tomasi_map(img, FAST_T, ST_T)
     cells = detect.fast_shi_tomasi_cells([img, img[::2, ::2].contiguous()],
-                                         16, FAST_T, ST_T)
+                                         16, FAST_T, ST_T, border)
     assert detect.launch_count == before
     torch.testing.assert_close(
         out, detect.fast_shi_tomasi_map_plain(img, FAST_T, ST_T),
         rtol=0, atol=0)
     want = detect.fast_shi_tomasi_cells_plain(
-        [img, img[::2, ::2].contiguous()], 16, FAST_T, ST_T)
+        [img, img[::2, ::2].contiguous()], 16, FAST_T, ST_T, border)
     for a, b in zip(cells[1:], want[1:]):
         assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="border"):
+        detect.fast_shi_tomasi_cells([img], 16, border="edge")
     import inspect
 
     src = "".join(inspect.getsource(f) for f in (
@@ -166,7 +174,7 @@ def test_plain_cells_match_pallas_grid_best(three_levels, cell):
     maps. At cell 32 the 30x40 level has no cell row, so no slot."""
     xy_j, score_j, valid_j = _jax_cells(three_levels, cell)
     maps, xy, score, valid, level = detect.fast_shi_tomasi_cells(
-        [T(l) for l in three_levels], cell, FAST_T, ST_T)
+        [T(l) for l in three_levels], cell, FAST_T, ST_T, border="pallas")
     counts = [(h // cell) * (w // cell) for h, w in
               (l.shape for l in three_levels)]
     assert xy.shape == (sum(counts), 2) and score.shape == valid.shape
@@ -263,18 +271,105 @@ def test_key_encoding_round_trip_and_order():
     assert (u > 0).all()
 
 
-def test_kernel_keys_decode_to_plain_cells(three_levels):
+@pytest.mark.parametrize("border", detect.BORDERS)
+def test_kernel_keys_decode_to_plain_cells(three_levels, border):
     """The CUDA path's decode on emulated kernel keys of the plain maps
-    equals the plain cell result of all levels, bit for bit."""
+    equals the plain cell result of all levels, bit for bit, under both
+    border rules (under ``plain``, with a threshold that leaves some FAST
+    corners below it, invalid cells carry their best corner's score)."""
     cell = 16
+    st = ST_T if border == "pallas" else 3000.0
     levels = [T(l) for l in three_levels]
     maps, xy, score, valid, level = detect.fast_shi_tomasi_cells_plain(
-        levels, cell, FAST_T, ST_T)
+        levels, cell, FAST_T, st, border)
     keys = torch.cat([_emulated_kernel_keys(N(m), cell) for m in maps])
     shapes = tuple(tuple(m.shape) for m in maps)
     kxy, kscore, kvalid, klevel = detect._cells_from_keys(
-        keys, shapes, cell, ST_T)
+        keys, shapes, cell, st)
     assert int(valid.sum()) >= 4
+    if border == "plain":
+        assert bool(((score != 0) & ~valid).any())
     for a, b in ((kxy, xy), (kscore, score), (kvalid, valid),
                  (klevel, level)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ------------------------------------------------- the plain border rule
+PLAIN_CASES = [((128, 160), 16), ((123, 171), 16), ((64, 96), 16)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_plain_level(cell):
+    """The reference's plain route on one level, jitted: its cells
+    (``detect_level(use_pallas=False)`` at level 0: unscaled positions)
+    and the score map ``where(fast_corner_mask, shi_tomasi, -inf)``."""
+    def level(img):
+        c = jfast.detect_level(img, 0, cell=cell, fast_threshold=FAST_T,
+                               st_threshold=ST_T)
+        smap = jnp.where(jfast.fast_corner_mask(img, FAST_T),
+                         jfast.shi_tomasi(img), -jnp.inf)
+        return c.xy, c.score, c.valid, smap
+
+    return jax.jit(level)
+
+
+@pytest.mark.parametrize("shape,cell", PLAIN_CASES,
+                         ids=[f"{h}x{w}-c{c}" for (h, w), c in PLAIN_CASES])
+def test_plain_border_cells_match_reference_plain_route(shape, cell):
+    """``border="plain"``: per level, every cell's position, score and
+    validity equal the reference's plain route
+    (``detect_level(use_pallas=False)``: FAST on edge-replicated pixels,
+    Shi-Tomasi with wrapped Sobel and zero-padded box sums, the best FAST
+    corner per cell whatever its score, then the threshold) -- invalid cells
+    included, which keep their best sub-threshold corner. The score maps
+    equal the reference's ``where(fast_corner_mask, shi_tomasi, -inf)``.
+    Scores to float32 rounding (rtol 1e-5: XLA and torch may order the
+    same float32 sums differently); positions and flags exactly."""
+    img = blocky_image(11, shape)
+    # corners at the image edge, where the two border rules part
+    img[:3, 10:14] = 250.0
+    img[-2:, -12:-9] = 0.0
+    img[20:23, :2] = 240.0
+    pj = jpyr.build_pyramid(jnp.asarray(img), 3)
+    levels = [np.asarray(p) for p in pj]
+    maps, xy, score, valid, level = detect.fast_shi_tomasi_cells(
+        [T(l) for l in levels], cell, FAST_T, ST_T, border="plain")
+    off = 0
+    n_edge = 0
+    for l, lev in enumerate(levels):
+        jxy, jscore, jvalid, want = (np.asarray(a) for a in
+                                     _jax_plain_level(cell)(lev))
+        n = jxy.shape[0]
+        sl = slice(off, off + n)
+        off += n
+        np.testing.assert_array_equal(N(xy[sl]), jxy * float(1 << l))
+        np.testing.assert_array_equal(N(valid[sl]), jvalid)
+        np.testing.assert_allclose(N(score[sl]), jscore, rtol=1e-5,
+                                   atol=1e-4)
+        assert (N(level[sl]) == l).all()
+        got = N(maps[l])
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+        f = np.isfinite(got)
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-5, atol=1e-4)
+        B = 4
+        edge = np.ones(got.shape, bool)
+        edge[B:-B, B:-B] = False
+        n_edge += int(np.isfinite(got[edge]).sum())
+    assert off == xy.shape[0]
+    assert int(valid.sum()) >= 4
+    assert n_edge > 0          # the rule was exercised at the border
+
+
+def test_plain_and_pallas_rules_part_at_the_border_only():
+    """The two rules' maps agree on which interior pixels are corners above
+    the threshold; the plain rule also scores the 4-px border."""
+    img = T(blocky_image(12, (64, 96)))
+    img[:2, 30:34] = 250.0
+    plain = N(detect.plain_route_map(img, FAST_T))
+    pallas = N(detect.fast_shi_tomasi_map_plain(img, FAST_T, ST_T))
+    B = 4
+    inner = (slice(B, -B), slice(B, -B))
+    np.testing.assert_array_equal((plain > ST_T)[inner],
+                                  np.isfinite(pallas)[inner])
+    assert np.isfinite(plain[:B]).any()
+    assert not np.isfinite(pallas[:B]).any()

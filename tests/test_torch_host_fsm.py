@@ -4,9 +4,10 @@ packages.
 
 Both drivers run the 320x240 ``PlaneScene`` frames of the other slice tests
 from an empty map, the port fed the random draws the JAX driver derives
-from ``fold_in(key, 0 | 1 | frame_id)``; the JAX driver detects with its
-Pallas kernel in interpret mode, the route the port's detection kernel
-ports (``torch_port_helpers.detect_route``).
+from ``fold_in(key, 0 | 1 | frame_id)``; both configs set
+``use_pallas_detect``, so the JAX driver detects with its Pallas kernel in
+interpret mode and the port under that kernel's border rule
+(``torch_port_helpers.detect_route``).
 
 Tolerances: per-frame states and keyframe flags equal; ``n_matches`` within
 1 on at most 15 % of RUNNING frames (the criteria of
@@ -51,6 +52,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("host")
     cfg_j, cfg_t, frames, poses = small_scene(N_FRAMES)
     cfg_j = with_knobs(cfg_j, use_pallas_detect=True)
+    cfg_t = with_knobs(cfg_t, use_pallas_detect=True)
     draws = jax_draws(cfg_t, np.asarray(jax.random.PRNGKey(0)))
     js = JSDVL(cfg_j, seed=0)
     ts = TSDVL(cfg_t, seed=0, device="cpu", gumbel_provider=draws)

@@ -1,7 +1,8 @@
 """The port stands alone: ``sdvl_tpu_torch/`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package, nor OpenCV (the card's machine
-has none): the one exception is the live-camera source, which needs a
-camera and OpenCV and says so where OpenCV is absent."""
+has none): the exceptions are the live-camera source and the live viewer's
+windows (``viz/live.py``'s ``LiveUI``), which need a camera or a display and
+OpenCV, import it when they open, and say so where it is absent."""
 
 import os
 import re
@@ -39,7 +40,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_port_package_mirrors_the_reference_layout():
     for sub in ("core", "ops", "solvers", "state", "pipeline", "io", "utils",
-                "cli"):
+                "cli", "dist", "viz"):
         assert os.path.isfile(
             os.path.join(ROOT, "sdvl_tpu_torch", sub, "__init__.py"))
     pairs = [
@@ -55,6 +56,9 @@ def test_port_package_mirrors_the_reference_layout():
         "io/synthetic.py", "io/evaluate.py",
         "io/dataset.py", "io/native_loader.py", "pipeline/sdvl.py",
         "pipeline/runtime.py", "utils/trace.py", "cli/run.py",
+        "dist/mesh.py", "dist/multi_stream.py", "dist/ba_sharded.py",
+        "dist/multihost.py", "viz/overlay.py", "viz/recorder.py",
+        "viz/scene.py", "viz/live.py",
     ]
     for rel in pairs:
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu", rel)), rel
@@ -73,9 +77,14 @@ def test_port_imports_no_opencv_but_for_the_live_camera():
     for f in _port_files():
         text = open(f).read()
         for m in CV2.finditer(text):
-            func = re.findall(r"^def (\w+)", text[:m.start()], re.M)[-1:]
+            func = re.findall(r"^\s*def (\w+)", text[:m.start()], re.M)[-1:]
             hits.append((os.path.relpath(f, ROOT), func))
-    assert hits == [("sdvl_tpu_torch/io/dataset.py", ["camera_source"])]
+    assert sorted(hits) == [
+        ("sdvl_tpu_torch/io/dataset.py", ["camera_source"]),
+        ("sdvl_tpu_torch/viz/live.py", ["_on_mouse"]),
+        ("sdvl_tpu_torch/viz/live.py", ["_run"]),
+        ("sdvl_tpu_torch/viz/live.py", ["available"]),
+    ]
     # and importing every module of the port loads neither cv2 nor jax
     mods = []
     for f in _port_files()[1:]:

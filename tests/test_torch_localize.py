@@ -3,10 +3,11 @@
 A JAX SLAM stream maps a 320x240 ``PlaneScene`` and writes a stream
 snapshot; both localizers load THAT FILE, start LOST, relocalize and track
 the same query frames with the same pose-RANSAC noise (the port is handed the
-Gumbel numbers the JAX stream draws from its key). The port detects one
-way (on the CPU tensor, the kernel's plain version); it is held against
-both JAX routes: the plain one, and the Pallas kernel in interpret mode
-(``sdvl_tpu.ops.pallas.detect.fast_shi_tomasi_map`` is swapped for its
+Gumbel numbers the JAX stream draws from its key). The port detects on the
+CPU tensor with the kernel's plain version, under the border rule that
+``use_pallas_detect`` picks; it is held against both JAX routes, the key set
+alike on both configs: the plain one, and the Pallas kernel in interpret
+mode (``sdvl_tpu.ops.pallas.detect.fast_shi_tomasi_map`` is swapped for its
 ``interpret=True`` form from here; ``ops/fast.py`` imports it at call
 time).
 
@@ -70,8 +71,8 @@ def _serve(mapped, fused: bool, monkeypatch, query=None, **knobs):
             pallas_detect, "fast_shi_tomasi_map",
             functools.partial(pallas_detect.fast_shi_tomasi_map,
                               interpret=True))
-        cfg_j = dataclasses.replace(cfg_j, sdvl=dataclasses.replace(
-            cfg_j.sdvl, use_pallas_detect=True))
+        cfg_j, cfg_t = (dataclasses.replace(c, sdvl=dataclasses.replace(
+            c.sdvl, use_pallas_detect=True)) for c in (cfg_j, cfg_t))
     if query is None:
         query = frames[QUERY]
 

@@ -178,10 +178,11 @@ _PYRAMID_CASES = [(False, None), (True, None), (True, 20), (False, 12)]
     ids=[f"{a}-{b}" for a, b in _PYRAMID_CASES]
     + [f"fused-{a}-{b}" for a, b in _PYRAMID_CASES])
 def test_detect_pyramid(use_lock, max_features, fused, monkeypatch):
-    """The port's one route (one call of the kernel's wrapper for all
-    levels, its plain version on the CPU) against both JAX routes:
-    ``use_pallas=False``, and ``use_pallas=True`` with the Pallas kernel in
-    interpret mode."""
+    """The port's route (one call of the kernel's wrapper for all levels,
+    its plain version on the CPU) against both JAX routes, each under its
+    border rule: ``use_pallas=False`` against ``border="plain"``, and
+    ``use_pallas=True`` with the Pallas kernel in interpret mode against
+    ``border="pallas"``."""
     img = blocky_image(2, (120, 160))
     pj = jpyr.build_pyramid(jnp.asarray(img), 4)
     pt = tpyr.build_pyramid(T(img), 4)
@@ -206,7 +207,8 @@ def test_detect_pyramid(use_lock, max_features, fused, monkeypatch):
         lock = dict(lock_xy=jnp.asarray(xy), lock_valid=jnp.asarray(ok))
         lock_t = dict(lock_xy=T(xy), lock_valid=T(ok))
     cj = jfast.detect_pyramid(pj, **kw, **lock, use_pallas=fused)
-    ct = tfast.detect_pyramid(pt, **kw, **lock_t)
+    ct = tfast.detect_pyramid(pt, **kw, **lock_t,
+                              border="pallas" if fused else "plain")
     vj = np.asarray(cj.valid)
     np.testing.assert_array_equal(N(ct.valid), vj)
     assert vj.sum() >= 5
@@ -215,6 +217,11 @@ def test_detect_pyramid(use_lock, max_features, fused, monkeypatch):
     np.testing.assert_array_equal(N(ct.level)[vj], np.asarray(cj.level)[vj])
     np.testing.assert_allclose(N(ct.score)[vj], np.asarray(cj.score)[vj],
                                rtol=1e-4)
+    if max_features is None:
+        # no top-k: every slot in cell order, invalid ones included
+        np.testing.assert_array_equal(N(ct.xy), np.asarray(cj.xy))
+        np.testing.assert_allclose(N(ct.score), np.asarray(cj.score),
+                                   rtol=1e-4)
 
 
 def test_occupied_cells_in_grid_rule():

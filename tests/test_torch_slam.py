@@ -6,10 +6,11 @@ Both streams start from an empty map over the same rendered 320x240
 local BA and depth filters), and the port is fed the random draws the JAX
 stream derives from its key (pose RANSAC per frame, the homography and
 ground-plane RANSACs of the bootstrap). Run with both detection routes
-(``torch_port_helpers.detect_route``): the port's own (on the CPU tensor,
-the kernel's plain version) against the Pallas kernel in interpret mode,
-and the reference's plain route, made of the port's functions and swapped
-in for the kernel's wrapper, against ``use_pallas_detect=False``.
+(``torch_port_helpers.detect_route``), ``use_pallas_detect`` set alike on
+both configs: the reference's plain route (the shipped configs' default)
+against the port's own plain border rule, and the Pallas kernel in
+interpret mode against the port's Pallas border rule -- the port's route on
+the CPU tensor being the kernel's plain version in either mode.
 
 Tolerances: per-frame states, keyframe flags and ``n_corners`` equal;
 ``n_matches`` within +-2 (a match on a threshold may flip under different
@@ -97,10 +98,10 @@ def test_chunked_feeding_equals_per_frame(runs, scene):
     """Chunks (one host->device copy each) and single frames mixed give
     the per-frame run's results exactly (the same ops on the CPU)."""
     _, cfg_t, frames, _ = scene
-    js, _, _, rt, _ = runs(True)        # the port's own detection
-    from torch_port_helpers import jax_draws
+    js, _, _, rt, _ = runs(True)        # the Pallas border rule
+    from torch_port_helpers import jax_draws, with_route
 
-    st = TStream(cfg_t, seed=0, device="cpu",
+    st = TStream(with_route(cfg_t, "pallas"), seed=0, device="cpu",
                  gumbel_provider=jax_draws(cfg_t, js.carry.key))
     stack = np.stack(frames)
     st.feed_chunk(stack[:10])

@@ -113,6 +113,15 @@ def with_knobs(cfg, **knobs):
                                                              **knobs))
 
 
+def lane_counts_of(cfg_t):
+    """(pose-RANSAC hypotheses, match lanes) of a port config: the shape of
+    one frame's pose noise."""
+    from sdvl_tpu_torch.pipeline.device_fsm import lane_counts
+
+    s = cfg_t.sdvl
+    return min(s.ransac_hypotheses, s.max_ransac_its), lane_counts(cfg_t)[1]
+
+
 def jax_draws(cfg_t, key):
     """A port ``Draws`` holding the numbers a JAX stream whose carry holds
     ``key`` draws: pose-RANSAC noise of frame ``i`` of a fresh stream, and
@@ -131,36 +140,16 @@ def jax_draws(cfg_t, key):
                  plane=plane_gumbel(key, s.max_points))
 
 
-def _reference_plain_cells(levels, cell, fast_threshold, st_threshold):
-    """The JAX package's plain detection route (per level: FAST mask, Shi-
-    Tomasi map, ``_grid_best``) composed of the port's counterparts of its
-    functions, each held against the reference in ``test_torch_ops.py``;
-    the signature and outputs of ``fast_shi_tomasi_cells`` (no maps)."""
-    from sdvl_tpu_torch.ops import fast
-
-    xy, score, valid, level = [], [], [], []
-    for l, img in enumerate(levels):
-        corner = fast.fast_corner_mask(img, fast_threshold)
-        p, best, ok = fast._grid_best(fast.shi_tomasi(img), corner, cell)
-        xy.append(p * float(1 << l))
-        score.append(best)
-        valid.append(ok & (best > st_threshold))
-        level.append(torch.full((p.shape[0],), l, dtype=torch.int32))
-    return (None, torch.cat(xy), torch.cat(score), torch.cat(valid),
-            torch.cat(level))
-
-
 @contextlib.contextmanager
 def detect_route(route: str):
-    """The detection both packages take inside the block.
+    """The detection both packages take inside the block, for configs whose
+    ``use_pallas_detect`` is set as :func:`with_route` sets it.
 
     ``"pallas"``: the JAX package's Pallas kernel in interpret mode (its own
-    tests' CPU route; the JAX config must set ``use_pallas_detect``) against
-    the port's own route (the kernel's plain version on CPU tensors).
-    ``"plain"``: the JAX package's plain route against the same route made
-    of the port's functions, swapped in for the kernel's wrapper."""
+    tests' CPU route) against the port's Pallas border rule (the kernel's
+    plain version on CPU tensors). ``"plain"``: the JAX package's plain route
+    against the port's plain border rule; nothing is patched."""
     import sdvl_tpu.ops.pallas.detect as pallas_detect
-    from sdvl_tpu_torch.ops.cuda import detect
 
     mp = pytest.MonkeyPatch()
     try:
@@ -168,24 +157,26 @@ def detect_route(route: str):
             mp.setattr(pallas_detect, "fast_shi_tomasi_map",
                        functools.partial(pallas_detect.fast_shi_tomasi_map,
                                          interpret=True))
-        else:
-            mp.setattr(detect, "fast_shi_tomasi_cells",
-                       _reference_plain_cells)
         yield
     finally:
         mp.undo()
 
 
+def with_route(cfg, route: str):
+    """``cfg`` (either package's) with ``use_pallas_detect`` set for the
+    detection ``route`` (``"pallas"`` or ``"plain"``)."""
+    return with_knobs(cfg, use_pallas_detect=route == "pallas")
+
+
 def slam_pair(cfg_j, cfg_t, frames, seed=0, route="pallas"):
     """The JAX SLAM stream and the port's (CPU, fed the JAX draws) over the
-    same frames, frame by frame, with the detection of :func:`detect_route`
-    (the port's own by default). Returns (jax stream, jax result, port
-    stream, port result)."""
+    same frames, frame by frame, both configs set to the detection
+    ``route`` (:func:`with_route`, :func:`detect_route`). Returns (jax
+    stream, jax result, port stream, port result)."""
     from sdvl_tpu.pipeline.stream import SdvlStream as JStream
     from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
 
-    if route == "pallas":
-        cfg_j = with_knobs(cfg_j, use_pallas_detect=True)
+    cfg_j, cfg_t = with_route(cfg_j, route), with_route(cfg_t, route)
     with detect_route(route):
         js = JStream(cfg_j, seed=seed, donate=False)
         for f in frames:
