@@ -13,49 +13,69 @@ ending the run with a non-zero exit code:
 
 1. device  -- requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` gives them, and the torch/CUDA versions.
-2. build   -- compiles ``sdvl_tpu_torch/csrc/detect.cu`` with ``nvcc`` for
-   ``sm_90a`` and loads it.
+2. build   -- compiles ``sdvl_tpu_torch/csrc/detect.cu`` and
+   ``sdvl_tpu_torch/csrc/graph_if.cu`` (the IF nodes of the CUDA graphs)
+   with ``nvcc`` for ``sm_90a``, one compiler per source, started together,
+   and loads them.
 3. kernel  -- holds the detection kernel (score maps and per-cell winners of
    all levels in one launch) against its plain torch version on the card,
    under both border rules (``plain``: the reference's plain route, the
    shipped configs'; ``pallas``: its Pallas kernel's): the three detection
    levels of the first query frame in one launch (at cell 32, then 16 and
-   64), each level alone, a small 64x96 level and a ragged 123x171 one
-   (scalar staging). Maps and cell results must be bit-identical. It times,
-   with CUDA events, the device time of one launch (many launches replayed
-   from a CUDA graph), one eager call of the launch and of the wrapper with
-   its cell decode, the plain version, and one eager ``detect_pyramid``
-   call on the first query frame, through the kernel against through its
-   plain version.
+   64; at cell 32 also the launch replayed from a CUDA graph, as the graph
+   path makes it), each level alone, a small 64x96 level and a ragged
+   123x171 one (scalar staging). Maps and cell results must be
+   bit-identical. It times, with CUDA events, the device time of one launch
+   (many launches replayed from a CUDA graph), one eager call of the launch
+   and of the wrapper with its cell decode, the plain version, and one
+   eager ``detect_pyramid`` call on the first query frame, through the
+   kernel against through its plain version.
 4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
    (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
    keyframe / 4096 point / 512 candidate slots, the Pallas border rule as
    the record was made) from an empty map over the 85 ``PlaneScene`` frames
    of ``tests/data/torch_slam_record.npz``, rendered here with
    ``sdvl_tpu_torch.io.synthetic`` and checked against its SHA-256, fed the
-   JAX run's random draws from that file. Three runs: cold (the first 40
-   frames), warm (timed per frame, kernel launches counted) and one
-   counting synchronisations. Each is held against the recorded JAX run:
-   bootstrap frame, states and keyframe flags equal (a tracked keyframe
-   after the bootstrap among them), ``n_matches`` within 2 on at most 15 %
-   of RUNNING frames, camera centres within 1 % of the trajectory extent,
-   Sim(3)-aligned ATE under 3 % of the extent, keyframe count within 1.
-   Then the port's own map is saved with ``save_stream_snapshot`` and
-   served by ``SdvlStream.localizer`` on ``frames[8:32]``: RUNNING within 5
-   frames and on the last 5, ATE under 5 %.
+   JAX run's random draws from that file, on the graph path (FIRST and
+   SECOND frames eager, every later frame one replay of the stream's CUDA
+   graph). Two runs: cold (the first 40 frames) and warm (timed per frame,
+   synchronised per frame, synchronisations counted per frame, kernel
+   launches and graph replays counted). Each is held against the recorded
+   JAX run: bootstrap frame, states and keyframe flags equal (a tracked
+   keyframe after the bootstrap among them), ``n_matches`` within 2 on at
+   most 15 % of RUNNING frames, camera centres within 1 % of the trajectory
+   extent, Sim(3)-aligned ATE under 3 % of the extent, keyframe count
+   within 1; one replay on every frame after the bootstrap and no
+   synchronisation on any after the capture frame. Then the port's own map
+   is saved with ``save_stream_snapshot`` and served by
+   ``SdvlStream.localizer`` on ``frames[8:32]``: RUNNING within 5 frames and
+   on the last 5, ATE under 5 %.
+   graph   -- the same 85 frames on the eager card path (``graphs=False``),
+   held to the record and to the graph run (every frame's packed info bit
+   for bit); prints synchronisations per frame by state, graph replays per
+   frame, the capture's time, ms per frame by state and frames/s of both
+   paths, the graph path's rate with nothing synchronised between frames,
+   one replay's kernels and device time (``torch.profiler``), and the
+   device memory of the graph's pool; dropping the stream must give at
+   least that pool back to the card.
 5. slice   -- ``SdvlStream.localizer`` at the tum_f1 preset shape on the
    committed JAX-built map snapshot, the 24 committed query frames through
    ``feed_chunk`` with the recorded RANSAC noise, ``result()``; checks
    relocalization, tracking, accuracy against ground truth, that the map is
    untouched and that every frame launched the kernel exactly once; prints
    the distance to the recorded JAX run (made with the plain route) for the
-   plain border rule beside the pallas rule the earlier slices ran.
+   plain border rule beside the pallas rule the earlier slices ran; then the
+   query frames one ``feed`` at a time on the graph path and on the eager
+   card path: one replay per frame, no synchronisation after the capture
+   frame, every frame's packed info bit-identical.
 6. multi   -- ``dist.multi_stream.MultiStream``: the JAX-built map, frozen
    and shared, served to 1, 4 and 8 streams on the 24 query frames (stream
-   ``i`` seeded ``1 + i``, lane 0 fed the recorded noise): every stream
-   RUNNING within 5 frames and on the last 5, the map bit-identical, kernel
-   launches = streams x frames, lane 0 equal to phase slice; aggregate
-   stream-frames/s. Then 2 full-SLAM streams with a map each over the 85
+   ``i`` seeded ``1 + i``, lane 0 fed the recorded noise), a graph per
+   stream captured in the first frame batch: every stream RUNNING within 5
+   frames and on the last 5, the map bit-identical, kernel launches and
+   graph replays = streams x frames, no synchronisation in the later
+   batches, lane 0 equal to phase slice; aggregate stream-frames/s after the
+   first batch and each stream's graph pool. Then 2 full-SLAM streams with a map each over the 85
    record frames, lane 0 fed the record's draws and held to its criteria.
 7. cli     -- the command-line program, ``sdvl_tpu_torch.cli.run.main``
    in process on the card, over 85 ``PlaneScene`` frames (plus 6 for a
@@ -86,9 +106,16 @@ ending the run with a non-zero exit code:
    100 slots (Cholesky) and padded to 1000 (PCG): poses within 5e-4,
    points within 5e-3, gated observations equal; both timed.
 9. prints one JSON line ``{"kernels": [...]}`` and, last,
-   ``{"ok": true, "device": {...}}``. The kernel's ``launches``, ``frames``
-   and ``frames_per_s`` are the slam phase's warm run; ``launches_by_path``
-   and ``frames_by_path`` give each path's count beside its frames
+   ``{"ok": true, "device": {...}}``. Launches are counted by the kernel
+   itself, in a counter on the card that each launch adds 1 to (a launch
+   replayed from a CUDA graph included), set to 0 just before a path is
+   driven and read just after. The kernel's ``launches``, ``frames`` and
+   ``frames_per_s`` are the slam phase's warm run (the graph path: one
+   launch per frame, and one in each of the two eager passes before the
+   capture); ``launches_by_path``, ``frames_by_path`` and
+   ``captures_by_path`` give each path's count beside its frames and its
+   graph captures
+   (``slam_eager``: the graph phase's eager card run)
    (stream-frames for ``multi_1``, ``multi_4``, ``multi_8`` and
    ``multi_slam``; ``cli_stream``, ``cli_host``, ``cli_async``, ``cli_viz``
    for the cli phase). ``ms`` is the pallas border rule's device time,
@@ -101,7 +128,9 @@ It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import gc
 import hashlib
 import json
 import os
@@ -320,6 +349,47 @@ def check_launch(name: str, levels, cell: int = 32, timed: bool = True,
     return out
 
 
+def check_graph_launch(levels, border: str, cell: int = 32) -> None:
+    """The wrapper called inside a CUDA graph, as the graph path calls it:
+    captured once, its outputs cleared, replayed, then held against the
+    plain version, maps and cell results bit-identical. Raises on
+    disagreement."""
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    out = []
+
+    def call():
+        out[:] = [detect.fast_shi_tomasi_cells(levels, cell, FAST_T, ST_T,
+                                               border)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        call()
+    maps, *cells = out[0]
+    for t in [*maps, *cells]:
+        t.zero_()
+    n0 = detect.launches()
+    g.replay()
+    torch.cuda.synchronize()
+    assert detect.launches() == n0 + 1, "the replay did not count its launch"
+    want_maps, *want_cells = detect.fast_shi_tomasi_cells_plain(
+        levels, cell, FAST_T, ST_T, border)
+    for l, (a, b) in enumerate(zip(maps, want_maps)):
+        check_map(f"graph launch {border} level {l}", a, b, border)
+    for name, a, b in zip(("xy", "score", "valid", "level"), cells,
+                          want_cells):
+        assert torch.equal(a, b), f"graph launch {border}: cell {name} differs"
+    say("kernel", f"the launch replayed from a CUDA graph, {border} border: "
+                  f"counted once by the kernel, maps and cells "
+                  f"bit-identical to the plain version")
+
+
 def run_kernel_phase():
     """Phase 3 (see the module docstring). Returns the checks by border rule
     and shape, and the eager ``detect_pyramid`` times."""
@@ -337,6 +407,7 @@ def run_kernel_phase():
     checks = {}
     for border in detect.BORDERS:
         c = {"pyramid": check_launch("pyramid", levels, border=border)}
+        check_graph_launch(levels, border)
         for cell in (16, 64):
             check_launch("pyramid", levels, cell=cell, timed=False,
                          border=border)
@@ -523,44 +594,100 @@ def check_slam_run(r, rec, n=None) -> dict:
                 max_match_diff=int(dm.max()))
 
 
-def run_slam(cfg, frames, rec, time_frames: bool, count_syncs: bool = False):
-    """One full-SLAM stream over the frames, frame by frame. Returns
-    (result, stream, per-frame seconds, per-frame synchronisation counts,
-    kernel launches)."""
+CAPTURES = [0]      # graph captures since reset_counts()
+
+
+def count_captures() -> None:
+    """Count every ``StepRunner`` capture in ``CAPTURES`` from now on (once
+    per process)."""
+    from sdvl_tpu_torch.pipeline.device_fsm import StepRunner
+
+    capture = StepRunner._capture
+    if getattr(capture, "counted", False):
+        return
+
+    def counted(self, *a, **k):
+        CAPTURES[0] += 1
+        return capture(self, *a, **k)
+
+    counted.counted = True
+    StepRunner._capture = counted
+
+
+def reset_counts() -> None:
+    """Just before a path is driven: the detection kernel's launch counters
+    (on the device, added to by the kernel itself) and the capture count
+    to 0."""
     from sdvl_tpu_torch.ops.cuda import detect
+
+    count_captures()
+    detect.reset_launches()
+    CAPTURES[0] = 0
+
+
+def read_counts() -> tuple:
+    """Just after a path was driven: (kernel launches as the kernel counted
+    them, graph captures)."""
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    return detect.launches(), CAPTURES[0]
+
+
+def frame_launches(launches: int, captures: int) -> int:
+    """The launches of a path's frames: those the kernel counted, less the
+    eager passes before each capture (each runs the frame's detection
+    once)."""
+    from sdvl_tpu_torch.pipeline.device_fsm import CAPTURE_PASSES
+
+    return launches - CAPTURE_PASSES * captures
+
+
+def sync_sites(fn) -> list:
+    """Run ``fn()`` under ``set_sync_debug_mode("warn")``; the Python line
+    of each synchronisation it made."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def run_slam(cfg, frames, rec, time_frames: bool, count_syncs: bool = False,
+             graphs: bool = True):
+    """One full-SLAM stream over the frames, frame by frame, on the graph
+    path (``graphs``) or the eager card path. Returns (result, stream,
+    per-frame seconds, per-frame synchronisation sites, (kernel launches,
+    graph captures), per-frame graph replays)."""
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
 
-    st = SdvlStream(cfg, seed=0, device="cuda", gumbel_provider=slam_draws(rec))
+    st = SdvlStream(cfg, seed=0, device="cuda", gumbel_provider=slam_draws(rec),
+                    graphs=graphs)
     torch.cuda.synchronize()
-    seconds, syncs = [], []
-    detect.launch_count = 0
+    seconds, syncs, replays = [], [], []
+    reset_counts()
     try:
         for f in frames:
+            n0 = st.runner.replays
             t0 = time.perf_counter()
             if count_syncs:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    torch.cuda.set_sync_debug_mode("warn")
-                    try:
-                        st.feed(f)
-                    finally:
-                        torch.cuda.set_sync_debug_mode(0)
-                # the Python line that synchronised, per sync
-                syncs.append([
-                    f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-                    for w in caught if "synchroniz" in str(w.message)])
+                syncs.append(sync_sites(lambda: st.feed(f)))
             else:
                 st.feed(f)
             if time_frames:
                 torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
+            replays.append(st.runner.replays - n0)
     except Exception:
-        if st._infos:
+        if st._rows:
             say("slam", "stopped; first divergence from the JAX record: "
                 + first_divergence(st.result(), rec))
         raise
-    launches = detect.launch_count
-    return st.result(), st, seconds, syncs, launches
+    counts = read_counts()
+    return st.result(), st, seconds, syncs, counts, replays
 
 
 def state_groups(r) -> dict:
@@ -575,19 +702,27 @@ def state_groups(r) -> dict:
     }
 
 
-def per_state(r, values) -> dict:
-    """Mean of per-frame ``values`` by :func:`state_groups`."""
+def per_state(r, values, skip: int = -1) -> dict:
+    """Mean of per-frame ``values`` by :func:`state_groups`, frame ``skip``
+    (the graph's capture frame) left out."""
     v = np.asarray(values, np.float64)
-    return {k: {"frames": int(m.sum()),
-                "mean": float(v[m].mean()) if m.any() else None}
+    keep = np.arange(len(v)) != skip
+    return {k: {"frames": int((m & keep).sum()),
+                "mean": float(v[m & keep].mean()) if (m & keep).any()
+                else None}
             for k, m in state_groups(r).items()}
+
+
+def capture_frame(replays) -> int:
+    """Index of the frame whose step captured the graph (the first replay),
+    or -1."""
+    return next((i for i, n in enumerate(replays) if n), -1)
 
 
 def run_slam_phase(card: str) -> dict:
     """Phase 4 (see the module docstring)."""
     from sdvl_tpu_torch.io import evaluate
     from sdvl_tpu_torch.io.snapshot import save_stream_snapshot
-    from sdvl_tpu_torch.ops.cuda import detect
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
 
     rec = dict(np.load(SLAM_NPZ))
@@ -601,42 +736,56 @@ def run_slam_phase(card: str) -> dict:
     cfg = preset_config(localize_only=False, use_pallas_detect=True)
 
     n_cold = 40
-    r0, _, s0, _, _ = run_slam(cfg, frames[:n_cold], rec, time_frames=True)
+    r0, _, s0, _, _, _ = run_slam(cfg, frames[:n_cold], rec,
+                                  time_frames=True)
     c0 = check_slam_run(r0, rec, n_cold)
-    say("slam", f"cold run: first frame {1e3 * s0[0]:.1f} ms, {n_cold} "
-                f"frames in {sum(s0):.2f} s; {c0}")
-    r, st, secs, _, launches = run_slam(cfg, frames, rec, time_frames=True)
+    say("slam", f"cold run (graph path): first frame {1e3 * s0[0]:.1f} ms, "
+                f"{n_cold} frames in {sum(s0):.2f} s; {c0}")
+    r, st, secs, sites, (launches, caps), replays = run_slam(
+        cfg, frames, rec, time_frames=True, count_syncs=True)
     chk = check_slam_run(r, rec)
     assert chk["tracked_keyframes"], "no keyframe after the bootstrap"
-    assert launches == n, f"kernel launches {launches} != one per frame ({n})"
-    ms = per_state(r, [1e3 * x for x in secs])
+    assert caps == 1 and frame_launches(launches, caps) == n, (
+        f"kernel launches {launches} with {caps} captures: one per frame "
+        f"({n}) and one per eager pass of the capture expected")
+    cap = capture_frame(replays)
+    boot = chk["bootstrap_frame"]
+    assert cap == boot + 1 and all(replays[cap:]) and sum(replays) == n - cap, (
+        f"graph replays per frame {replays}: one on every frame after the "
+        f"bootstrap expected")
+    syncs = [len(x) for x in sites]
+    assert not any(syncs[cap + 1:]), (
+        f"tracking frames synchronised: {syncs}; {sites[cap + 1:]}")
+    steady = [x for i, x in enumerate(secs) if i != cap]
+    ms = per_state(r, [1e3 * x for x in secs], skip=cap)
+    sy = per_state(r, syncs, skip=cap)
     say("slam", f"states {r.states.tolist()}")
     say("slam", f"keyframes {r.is_keyframe.astype(int).tolist()}")
     say("slam", f"n_matches {r.n_matches.tolist()}")
     say("slam", f"JAX n_matches {rec['jax_n_matches'].tolist()}")
-    say("slam", f"warm run, all {n} frames against the record: {chk}; "
-                f"{int(st.m.n_keyframes)} keyframes, "
+    say("slam", f"warm run (graph path), all {n} frames against the "
+                f"record: {chk}; {int(st.m.n_keyframes)} keyframes, "
                 f"{int(st.m.pt_valid.sum())} points; kernel launches "
-                f"{launches} = 1 x {n}")
-    say("slam", f"ms per frame by state (warm, synchronised per frame): "
-                + ", ".join(f"{k} {v['mean']:.1f} ({v['frames']} frames)"
+                f"(counted by the kernel) {launches} = 1 x {n} frames + "
+                f"{launches - n} in the capture's eager passes")
+    say("slam", f"graph replays per frame {replays}: one on every frame "
+                f"after the bootstrap (frame {cap} captured the graph: "
+                f"{1e3 * st.runner.capture_s:.1f} ms of warm-up and capture, "
+                f"{1e3 * secs[cap]:.1f} ms for the frame; the graph's pool "
+                f"holds {st.runner.pool_bytes / 2**20:.1f} MiB)")
+    say("slam", f"ms per frame by state (warm, synchronised per frame, "
+                f"capture frame apart): "
+                + ", ".join(f"{k} {v['mean']:.2f} ({v['frames']} frames)"
                             for k, v in ms.items() if v["frames"])
                 + f"; first frame of the cold run {1e3 * s0[0]:.1f} ms; "
-                  f"{n / sum(secs):.3f} frames/s on {card}")
-    r2, st2, _, sites, _ = run_slam(cfg, frames, rec, time_frames=False,
-                                    count_syncs=True)
-    check_slam_run(r2, rec)
-    syncs = [len(x) for x in sites]
-    sy = per_state(r2, syncs)
-    say("slam", "synchronisations per frame (set_sync_debug_mode): "
+                  f"{len(steady) / sum(steady):.3f} frames/s on {card}")
+    say("slam", "synchronisations per frame (set_sync_debug_mode), graph "
+                "path: "
                 + ", ".join(f"{k} {v['mean']:.2f}" for k, v in sy.items()
                             if v["frames"])
                 + f"; {syncs}")
-    by_site = {}
-    for i in (0, 1, 2, 10):      # FIRST, SECOND, bootstrap, RUNNING frames
-        by_site[i] = {x: sites[i].count(x) for x in sorted(set(sites[i]))}
-    for i in chk["tracked_keyframes"][:1]:
-        by_site[i] = {x: sites[i].count(x) for x in sorted(set(sites[i]))}
+    by_site = {i: {x: sites[i].count(x) for x in sorted(set(sites[i]))}
+               for i in (0, 1, boot, cap, cap + 5)}
     say("slam", f"where they are, by frame: {by_site}")
 
     # the port's own map, served
@@ -647,11 +796,11 @@ def run_slam_phase(card: str) -> dict:
         save_stream_snapshot(st, path)
         loc = SdvlStream.localizer(cfg_loc, path, seed=1, device="cuda")
         torch.cuda.synchronize()
-        detect.launch_count = 0
+        reset_counts()
         t0 = time.perf_counter()
         loc.feed_chunk(np.stack(query), block=True)
         loc_s = time.perf_counter() - t0
-        loc_launches = detect.launch_count
+        loc_launches, loc_caps = read_counts()
     rl = loc.result()
     running = rl.states == 2
     assert np.isfinite(rl.poses_raw).all()
@@ -662,41 +811,223 @@ def run_slam_phase(card: str) -> dict:
     extent = float(np.linalg.norm(np.ptp(p_gt, axis=0)))
     ate = evaluate.ate_rmse(p_est, p_gt, with_scale=True)
     assert ate < 0.05 * extent, f"served ATE {ate} vs extent {extent}"
-    assert loc_launches == len(query), loc_launches
+    assert loc_caps == 1 and frame_launches(loc_launches, loc_caps) == len(
+        query), (loc_launches, loc_caps)
     say("slam", f"served the port's own map: states {rl.states.tolist()}, "
                 f"ATE {ate:.5f} over {extent:.4f} ({100 * ate / extent:.2f} "
                 f"%), {len(query)} frames in {loc_s:.3f} s, kernel launches "
                 f"{loc_launches}")
-    return dict(launches=launches, loc_launches=loc_launches,
+    return dict(launches=launches, captures=caps, loc_launches=loc_launches,
+                loc_captures=loc_caps, pool_bytes=st.runner.pool_bytes,
                 loc_frames=len(query), check=chk,
-                ms_by_state=ms, syncs_by_state=sy,
+                ms_by_state=ms, syncs_by_state=sy, syncs=syncs,
+                replays=replays, capture_frame=cap,
+                capture_ms=1e3 * st.runner.capture_s,
+                capture_frame_ms=1e3 * secs[cap],
                 sync_sites=by_site, first_frame_ms=1e3 * s0[0], frames=n,
-                frames_per_s=n / sum(secs), served_ate_pct=100 * ate / extent)
+                frames_per_s=len(steady) / sum(steady),
+                served_ate_pct=100 * ate / extent,
+                _rows=torch.stack(st._rows), _secs=secs, _rec=rec,
+                _frames=frames, _cfg=cfg)
 
 
-def run_slice(cfg, query, count_launches: bool):
-    """One localizer run over the query frames. Returns (result,
-    seconds, launches, stream)."""
-    from sdvl_tpu_torch.ops.cuda import detect
+INFO_COLUMNS = ("pose",) * 7 + ("world_tf",) * 7 + (
+    "state", "quality", "n_matches", "n_attempts", "is_keyframe",
+    "n_corners", "median_shift")
+
+
+def replay_profile(st, img, reps: int = 3):
+    """Device activity of ``reps`` replays of the stream's graph on frame
+    ``img`` (the stream's state moves on: use a stream that is done):
+    kernels and copies per replay and device ms per replay, from
+    ``torch.profiler``; None where the profiler sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r = st.runner
+    r.img_in.copy_(torch.from_numpy(img).to(r.img_in.device))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            r.graph.replay()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    return dict(kernels=(len(dev) - len(copies)) / reps,
+                copies=len(copies) / reps,
+                device_ms=busy_us / 1e3 / reps)
+
+
+def run_graph_phase(card: str, slam: dict) -> dict:
+    """Phase graph (see the module docstring): the record on the eager card
+    path beside phase slam's graph run, and the graph path's steady rate
+    with nothing synchronised between frames."""
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+
+    rec, frames, cfg = slam["_rec"], slam["_frames"], slam["_cfg"]
+    n = len(frames)
+    cap = slam["capture_frame"]
+    r, st, secs, sites, (launches, caps), replays = run_slam(
+        cfg, frames, rec, time_frames=True, count_syncs=True, graphs=False)
+    chk = check_slam_run(r, rec)
+    assert launches == n and caps == 0 and not any(replays), (
+        launches, caps, replays)
+    syncs = [len(x) for x in sites]
+    sy = per_state(r, syncs, skip=cap)
+    ms = per_state(r, [1e3 * x for x in secs], skip=cap)
+    g_ms = slam["ms_by_state"]
+    # the graph path against the eager card path, frame by frame
+    rows_g, rows_e = slam["_rows"], torch.stack(st._rows)
+    equal = bool(torch.equal(rows_g, rows_e))
+    diff = (rows_g - rows_e).abs()
+    cols = {}
+    for c, name in enumerate(INFO_COLUMNS):
+        d = float(diff[:, c].max())
+        if d:
+            cols[name] = max(cols.get(name, 0.0), d)
+    frames_diff = torch.nonzero(diff.amax(1) > 0).flatten().tolist()
+    assert equal, (f"graph path differs from the eager card path in "
+                   f"{cols} on frames {frames_diff}")
+    # the graph path with nothing synchronised between frames: the bootstrap
+    # and the capture first, then the rest dispatched back to back
+    ga = SdvlStream(cfg, seed=0, device="cuda",
+                    gumbel_provider=slam_draws(rec))
+    for f in frames[:cap + 1]:
+        ga.feed(f)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in frames[cap + 1:]:
+        ga.feed(f)
+    t_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_async = time.perf_counter() - t0
+    n_async = n - cap - 1
+    assert read_counts() == (n_async, 0), read_counts()
+    check_slam_run(ga.result(), rec)
+    prof = replay_profile(ga, frames[-1])
+    # replays alone, back to back: how long the host spends in one
+    # replay call against the wall time of one replay
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ga.runner.graph.replay()
+    t_call = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    slots = [len(ga._uploads._slots), len(ga._noise._uploads._slots)]
+    # the graph's pool goes back to the card with the stream
+    pool = ga.runner.pool_bytes
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    del ga
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_reserved()
+    assert freed >= pool, (
+        f"dropping the stream freed {freed} bytes, its graph's pool holds "
+        f"{pool}")
+    e_steady = [x for i, x in enumerate(secs) if i != cap]
+    out = dict(
+        frames=n, eager_check=chk, equal_to_eager=equal,
+        eager_ms_by_state=ms, graph_ms_by_state=g_ms,
+        eager_syncs_by_state=sy, graph_syncs_by_state=slam["syncs_by_state"],
+        eager_syncs=syncs, graph_replays=slam["replays"],
+        capture_ms=slam["capture_ms"],
+        eager_frames_per_s=len(e_steady) / sum(e_steady),
+        graph_frames_per_s=slam["frames_per_s"],
+        graph_async_frames_per_s=n_async / t_async,
+        graph_async_host_ms_per_frame=1e3 * t_host / n_async,
+        replay_profile=prof, eager_launches=launches,
+        replay_call_host_ms=1e3 * t_call / reps,
+        replay_wall_ms=1e3 * t_wall / reps, pinned_slots=slots,
+        pool_bytes=pool, freed_on_drop_bytes=freed)
+    say("graph", f"eager card path (graphs=False), {n} record frames: {chk}")
+    say("graph", f"graph path against the eager card path: packed infos of "
+                 f"all {n} frames bit-identical ({equal})")
+    say("graph", "synchronisations per frame by state, graph / eager: "
+                 + ", ".join(f"{k} {slam['syncs_by_state'][k]['mean']:.2f} / "
+                             f"{v['mean']:.2f}" for k, v in sy.items()
+                             if v["frames"]))
+    say("graph", f"graph launches per frame {slam['replays']}; the graph "
+                 f"was captured at frame {cap} in {slam['capture_ms']:.1f} "
+                 f"ms (two eager passes through both sides of every branch, "
+                 f"then the capture)")
+    say("graph", "ms per frame by state (synchronised per frame), graph / "
+                 "eager: "
+                 + ", ".join(f"{k} {g_ms[k]['mean']:.2f} / {v['mean']:.2f}"
+                             for k, v in ms.items() if v["frames"])
+                 + f"; frames/s {out['graph_frames_per_s']:.3f} / "
+                   f"{out['eager_frames_per_s']:.3f}")
+    say("graph", f"graph path with no synchronisation between frames: "
+                 f"{n_async} frames after the capture in {t_async:.3f} s = "
+                 f"{out['graph_async_frames_per_s']:.3f} frames/s, the host "
+                 f"done after {1e3 * t_host / n_async:.3f} ms per frame")
+    say("graph", f"{reps} replays alone, back to back: the host spends "
+                 f"{out['replay_call_host_ms']:.3f} ms in a replay call, a "
+                 f"replay takes {out['replay_wall_ms']:.3f} ms of wall time; "
+                 f"pinned upload slots (image, noise) {slots}")
+    say("graph", f"the stream's graph pool holds {pool / 2**20:.1f} MiB "
+                 f"(phase slam's: {slam['pool_bytes'] / 2**20:.1f} MiB); "
+                 f"dropping the stream gave {freed / 2**20:.1f} MiB back to "
+                 f"the card, its pool included")
+    say("graph", "one replay of a tracking frame (torch.profiler, "
+                 f"{'3 replays' if prof else 'no device activity seen: not measured'}"
+                 + (f"): {prof['kernels']:.0f} kernels and {prof['copies']:.0f} "
+                    f"copies/memsets, {prof['device_ms']:.3f} ms of device "
+                    f"time" if prof else ")") + f" on {card}")
+    return out
+
+
+def run_slice(cfg, query, count_launches: bool, graphs: bool = True):
+    """One localizer run over the query frames, on the graph path
+    (``graphs``) or the eager card path. Returns (result, seconds,
+    (kernel launches, graph captures), stream)."""
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
 
     gumbel = query["gumbel"]
     loc = SdvlStream.localizer(cfg, MAP_NPZ, seed=1, device="cuda",
-                               gumbel_provider=lambda i: gumbel[i])
+                               gumbel_provider=lambda i: gumbel[i],
+                               graphs=graphs)
     before = [t.clone() for t in map_leaves(loc.m)]
     torch.cuda.synchronize()
     if count_launches:
-        detect.launch_count = 0
+        reset_counts()
     t0 = time.perf_counter()
     loc.feed_chunk(query["frames"], block=True)
     seconds = time.perf_counter() - t0
-    launches = detect.launch_count
+    counts = read_counts()
     r = loc.result()
     after = map_leaves(loc.m)
     assert len(before) == len(after)
     for a, b in zip(before, after):
         assert a.dtype == b.dtype and torch.equal(a, b), "map changed"
-    return r, seconds, launches, loc
+    return r, seconds, counts, loc
+
+
+def slice_syncs(cfg, query, graphs: bool) -> tuple:
+    """The localizer over the query frames one ``feed`` at a time, each
+    under ``set_sync_debug_mode("warn")``. Returns (synchronisations per
+    frame, graph replays per frame, packed infos)."""
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+
+    gumbel = query["gumbel"]
+    loc = SdvlStream.localizer(cfg, MAP_NPZ, seed=1, device="cuda",
+                               gumbel_provider=lambda i: gumbel[i],
+                               graphs=graphs)
+    syncs, replays = [], []
+    for f in query["frames"]:
+        n0 = loc.runner.replays
+        syncs.append(len(sync_sites(lambda: loc.feed(f))))
+        replays.append(loc.runner.replays - n0)
+    torch.cuda.synchronize()
+    return syncs, replays, torch.stack(loc._rows)
 
 
 # ---------------------------------------------------------------- multi
@@ -710,11 +1041,14 @@ def sync(device: str = "cuda") -> None:
 
 def run_multi_frozen(cfg, query, n_streams: int, device: str = "cuda"):
     """``MultiStream`` serving the JAX-built map to ``n_streams`` streams,
-    every stream fed the query frames (one host->device copy), stream ``i``
-    seeded ``1 + i`` and lane 0 fed the recorded pose noise. Checks the map
-    bit-identical. Returns (results, seconds, kernel launches)."""
+    every stream fed the query frames, stream ``i`` seeded ``1 + i`` and
+    lane 0 fed the recorded pose noise. The first frame batch captures each
+    stream's graph; the others are fed one batch at a time, each counted
+    for synchronisations (on the card) and timed together. Checks the map
+    bit-identical. Returns (results, steady seconds, (kernel launches,
+    graph captures), synchronisations per later batch, graph replays,
+    capture seconds, each stream's graph pool bytes)."""
     from sdvl_tpu_torch.dist.multi_stream import MultiStream
-    from sdvl_tpu_torch.ops.cuda import detect
 
     gumbel = query["gumbel"]
     ms = MultiStream(cfg, n_streams, seed=1, frozen_map=MAP_NPZ,
@@ -724,16 +1058,28 @@ def run_multi_frozen(cfg, query, n_streams: int, device: str = "cuda"):
     before = [t.clone() for t in map_leaves(ms.m)]
     batch = np.repeat(query["frames"][:, None], n_streams, axis=1)
     sync(device)
-    detect.launch_count = 0
+    reset_counts()
     t0 = time.perf_counter()
-    ms.feed_chunk(batch, block=True)
+    ms.feed(batch[0])
+    sync(device)
+    capture_s = time.perf_counter() - t0
+    syncs = []
+    t0 = time.perf_counter()
+    for b in batch[1:]:
+        if device == "cuda":
+            syncs.append(len(sync_sites(lambda: ms.feed(b))))
+        else:
+            ms.feed(b)
+    sync(device)
     seconds = time.perf_counter() - t0
-    launches = detect.launch_count
+    counts = read_counts()
     after = map_leaves(ms.m)
     assert len(before) == len(after)
     for a, b in zip(before, after):
         assert a.dtype == b.dtype and torch.equal(a, b), "shared map changed"
-    return ms.result(), seconds, launches
+    replays = sum(r.replays for r in ms.runners)
+    pools = [r.pool_bytes for r in ms.runners]
+    return ms.result(), seconds, counts, syncs, replays, capture_s, pools
 
 
 def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
@@ -741,7 +1087,6 @@ def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
     """Phase 6 (see the module docstring); ``slam_frames`` cuts the SLAM
     streams' frames (a rehearsal on the CPU)."""
     from sdvl_tpu_torch.dist.multi_stream import MultiStream
-    from sdvl_tpu_torch.ops.cuda import detect
 
     out = {}
     cfg = preset_config()
@@ -750,8 +1095,15 @@ def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
     extent = float(np.linalg.norm(np.ptp(
         camera_centres(query["poses_gt"]), axis=0)))
     for n in streams:
-        results, secs, launches = run_multi_frozen(cfg, query, n, device)
-        assert device != "cuda" or launches == n * T, f"{launches} launches != {n} x {T}"
+        results, secs, (launches, caps), syncs, replays, cap_s, pools = \
+            run_multi_frozen(cfg, query, n, device)
+        assert device != "cuda" or (
+            caps == n and frame_launches(launches, caps) == n * T), (
+            f"{launches} launches with {caps} captures: {n} x {T} frames "
+            f"and one per eager pass of each stream's capture expected")
+        assert device != "cuda" or replays == n * T, (
+            f"{replays} graph replays != {n} x {T}")
+        assert not any(syncs), f"frame batches synchronised: {syncs}"
         for i, r in enumerate(results):
             running = r.states == 2
             assert np.isfinite(r.poses_raw).all(), f"stream {i}: non-finite"
@@ -762,18 +1114,26 @@ def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
         assert (results[0].states == slice_result.states).all(), (
             results[0].states.tolist(), slice_result.states.tolist())
         assert d0 <= 1e-4 * extent, (d0, extent)
+        m = n * (T - 1)      # stream-frames after the capture batch
         out[f"multi_{n}"] = dict(
-            streams=n, frames=n * T, launches=launches, seconds=secs,
-            frames_per_s=n * T / secs, ms_per_stream_frame=1e3 * secs / (n * T),
+            streams=n, frames=n * T, launches=launches, captures=caps,
+            replays=replays, pool_bytes=pools, seconds=secs, capture_batch_s=cap_s, syncs_per_batch=syncs,
+            frames_per_s=m / secs, ms_per_stream_frame=1e3 * secs / m,
             lane0_vs_slice_centre=d0)
         say("multi", f"frozen JAX map, {n} streams x {T} frames: every "
                      f"stream RUNNING within 5 frames and on the last 5, "
                      f"map bit-identical, kernel launches {launches} = "
-                     f"{n} x {T}; lane 0 equal to phase slice (states "
+                     f"{n} x {T} + {launches - n * T} in the captures' "
+                     f"eager passes, graph replays {replays} (one graph per "
+                     f"stream, captured in the first batch: {cap_s:.2f} s; "
+                     f"pools of "
+                     f"{[round(b / 2**20, 1) for b in pools if b]} MiB), "
+                     f"synchronisations in the {T - 1} later batches "
+                     f"{sum(syncs)}; lane 0 equal to phase slice (states "
                      f"equal, centres within {d0:.3g} of extent "
-                     f"{extent:.4f}); {n * T / secs:.3f} stream-frames/s, "
-                     f"{1e3 * secs / (n * T):.1f} ms per stream-frame on "
-                     f"{card}")
+                     f"{extent:.4f}); after the first batch {m / secs:.3f} "
+                     f"stream-frames/s, {1e3 * secs / m:.2f} ms per "
+                     f"stream-frame on {card}")
 
     # two full-SLAM streams with their own maps, lane 0 on the record
     rec = dict(np.load(SLAM_NPZ))
@@ -783,27 +1143,37 @@ def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
     ms = MultiStream(cfg_slam, 2, seed=0, device=device,
                      gumbel_providers=[slam_draws(rec), None])
     sync(device)
-    detect.launch_count = 0
+    reset_counts()
     t0 = time.perf_counter()
     ms.feed_chunk(np.repeat(np.stack(frames)[:, None], 2, axis=1),
                   block=True)
     secs = time.perf_counter() - t0
-    launches = detect.launch_count
+    launches, caps = read_counts()
     r0, r1 = ms.result()
     chk = check_slam_run(r0, rec, len(frames))
-    assert device != "cuda" or launches == 2 * len(frames), launches
+    assert device != "cuda" or (
+        caps == 2 and frame_launches(launches, caps) == 2 * len(frames)), (
+        launches, caps)
     run1 = r1.states == 2
     assert run1.any() and run1[int(np.argmax(run1)):].all(), (
         r1.states.tolist())
     n_sf = 2 * len(frames)
+    replays = [r.replays for r in ms.runners]
+    assert device != "cuda" or replays[0] == len(frames) - 1 - chk[
+        "bootstrap_frame"], replays
+    pools = [r.pool_bytes for r in ms.runners]
     out["multi_slam"] = dict(streams=2, frames=n_sf, launches=launches,
-                             seconds=secs, frames_per_s=n_sf / secs,
-                             lane0=chk)
+                             captures=caps, replays=replays,
+                             pool_bytes=pools, seconds=secs,
+                             frames_per_s=n_sf / secs, lane0=chk)
     say("multi", f"2 full-SLAM streams x {len(frames)} record frames, a map "
                  f"each: lane 0 against the JAX record {chk}; lane 1 (own "
                  f"draws) RUNNING from frame {int(np.argmax(run1))} to the "
-                 f"end; kernel launches "
-                 f"{launches} = 2 x {len(frames)}; {n_sf / secs:.3f} "
+                 f"end; kernel launches {launches} = 2 x {len(frames)} + "
+                 f"{launches - n_sf} in the captures' eager passes, graph "
+                 f"replays {replays} (captures included), pools of "
+                 f"{[round((b or 0) / 2**20, 1) for b in pools]} MiB; "
+                 f"{n_sf / secs:.3f} "
                  f"stream-frames/s on {card}")
     return out
 
@@ -873,7 +1243,6 @@ def run_cli(argv, device: str = "cuda") -> dict:
     from unittest import mock
 
     from sdvl_tpu_torch.cli import run as cli
-    from sdvl_tpu_torch.ops.cuda import detect
     from sdvl_tpu_torch.pipeline import runtime
     from sdvl_tpu_torch.pipeline.sdvl import SDVL
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
@@ -918,7 +1287,7 @@ def run_cli(argv, device: str = "cuda") -> dict:
             rec["mappers"].append(self)
 
     buf = io.StringIO()
-    detect.launch_count = 0
+    reset_counts()
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(
             SdvlStream, "feed", counted(SdvlStream.feed)))
@@ -938,7 +1307,8 @@ def run_cli(argv, device: str = "cuda") -> dict:
         rc = cli.main(["--device", device, *argv])
         rec["wall_s"] = time.perf_counter() - t0
     assert rc == 0, rc
-    rec["launches"] = detect.launch_count
+    rec["launches"], rec["captures"] = read_counts()
+    rec["frame_launches"] = frame_launches(rec["launches"], rec["captures"])
     rec["lines"] = buf.getvalue().splitlines()
     summaries = [json.loads(ln) for ln in rec["lines"] if ln.startswith("{")]
     assert len(summaries) == 1, rec["lines"][-20:]
@@ -1003,7 +1373,8 @@ def per_frame(rec, card: str) -> str:
             f"{np.mean(rec['frame_syncs']):.2f} synchronisations per frame "
             f"({sum(rec['frame_syncs'])} in {n} frames, {rec['syncs']} in "
             f"the whole run; by site {dict(sites[:8])}); detection kernel "
-            f"{rec['launches']} launches in {n} frames; on {card}")
+            f"{rec['launches']} launches in {n} frames and "
+            f"{rec['captures']} graph captures; on {card}")
 
 
 CLI_VIZ_FRAMES = 30
@@ -1064,7 +1435,6 @@ def run_cli_viz(cfg_path: str, seq_dir: str, host_run: dict, device: str,
 
     import sdvl_tpu_torch.viz as viz
     from sdvl_tpu_torch.io import native_loader
-    from sdvl_tpu_torch.ops.cuda import detect
     from sdvl_tpu_torch.viz import scene
 
     out_dir = os.path.join(seq_dir, "viz")
@@ -1078,14 +1448,14 @@ def run_cli_viz(cfg_path: str, seq_dir: str, host_run: dict, device: str,
         have_mpl = False
     patches = contextlib.ExitStack()
     if not have_mpl:
-        detect.launch_count = 0
+        reset_counts()
         try:
             run_cli(argv, device)
         except RuntimeError as e:
             assert "matplotlib" in str(e), e
         else:
             raise AssertionError("--viz ran without matplotlib")
-        assert detect.launch_count == 0 and not os.path.exists(out_dir)
+        assert read_counts() == (0, 0) and not os.path.exists(out_dir)
         say("cli", "matplotlib is not installed: --viz stopped before the "
                    "first frame with an error naming it (checked); the "
                    "recorder runs on with its map figures off")
@@ -1096,7 +1466,7 @@ def run_cli_viz(cfg_path: str, seq_dir: str, host_run: dict, device: str,
             lambda *a, **k: viz.recorder.VizRecorder(*a, maps=False, **k)))
     with patches:
         rv = run_cli(argv, device)
-    assert device != "cuda" or rv["launches"] == CLI_VIZ_FRAMES, rv[
+    assert device != "cuda" or rv["frame_launches"] == CLI_VIZ_FRAMES, rv[
         "launches"]
     names = sorted(os.listdir(out_dir))
     recorded = [i for i in range(CLI_VIZ_FRAMES) if i % CLI_VIZ_EVERY == 0]
@@ -1130,6 +1500,7 @@ def run_cli_viz(cfg_path: str, seq_dir: str, host_run: dict, device: str,
                f"{[host_run['frame_syncs'][i] for i in recorded]}; "
                f"matplotlib present: {have_mpl}; " + per_frame(rv, card))
     return dict(summary=rv["summary"], launches=rv["launches"],
+                captures=rv["captures"],
                 frames=CLI_VIZ_FRAMES, overlays=len(overlays),
                 map_figures=len(maps), matplotlib=have_mpl,
                 skipped_frame_syncs=sum(s_viz),
@@ -1242,7 +1613,7 @@ def run_cli_phase(card: str, device: str = "cuda",
         ate_after = sim3_ate_pct(rows1[start:, 1:4], gt[start:])
         assert ate_before < 3.0 and ate_after < 3.0, (ate_before, ate_after)
         assert r1["cg_iterations"], "global BA did not take the PCG path"
-        assert r1["launches"] == n, r1["launches"]
+        assert r1["frame_launches"] == n, r1["launches"]
         st = SdvlStream(cfg, device=device)
         load_stream_snapshot(st, p["s1.npz"])
         assert st.m.capacities[0] == K
@@ -1257,6 +1628,7 @@ def run_cli_phase(card: str, device: str = "cuda",
                    f"snapshot loads in SdvlStream")
         say("cli", "run 1: " + per_frame(r1, card))
         out["stream"] = dict(summary=r1["summary"], launches=r1["launches"],
+                             captures=r1["captures"],
                              frames=n, syncs_per_frame=float(
                                  np.mean(r1["frame_syncs"])),
                              ate_pct_before=ate_before,
@@ -1274,7 +1646,7 @@ def run_cli_phase(card: str, device: str = "cuda",
         d_cap = float(np.abs(camera_centres(r2["traj_before"])
                              - camera_centres(r1["traj_before"])).max())
         assert d_cap <= 1e-4 * extent, (d_cap, extent)
-        assert r2["launches"] == n and not r2["cg_iterations"]
+        assert r2["frame_launches"] == n and not r2["cg_iterations"]
         # PCG against the dense solve on one map: run 2's final map as it
         # is (100 slots, Cholesky) and padded to the shipped capacity (PCG)
         m2 = r2["map_before"]
@@ -1331,7 +1703,7 @@ def run_cli_phase(card: str, device: str = "cuda",
         with open(p["s3.json"]) as f:
             trace = json.load(f)
         assert "preprocess" in trace and "track" in trace, sorted(trace)
-        assert r3["launches"] == n
+        assert r3["frame_launches"] == n
         say("cli", f"run 3, host driver, 100 slots: trajectory within "
                    f"{d_host:.3g} of run 2's, n_matches off by "
                    f"{int(dm.max())} on {int((dm > 0).sum())} of "
@@ -1340,6 +1712,7 @@ def run_cli_phase(card: str, device: str = "cuda",
                                trace.items()))
         say("cli", "run 3: " + per_frame(r3, card))
         out["host"] = dict(summary=r3["summary"], launches=r3["launches"],
+                             captures=r3["captures"],
                            frames=n, max_traj_diff=d_host,
                            syncs_per_frame=float(np.mean(r3["frame_syncs"])),
                            trace=trace)
@@ -1363,7 +1736,7 @@ def run_cli_phase(card: str, device: str = "cuda",
         assert r4["summary"]["points"] >= 30
         assert r4["summary"]["keyframes"] >= 2
         assert ate4 < 5.0, ate4
-        assert r4["launches"] == n
+        assert r4["frame_launches"] == n
         say("cli", f"run 4, --async-mapping: mapper processed "
                    f"{mapper4.processed} items, dropped "
                    f"{mapper4.dropped_frames} frames; {int(running4.sum())} "
@@ -1371,6 +1744,7 @@ def run_cli_phase(card: str, device: str = "cuda",
                    f"them >= {min_m} matches; ATE {ate4:.4f} %")
         say("cli", "run 4: " + per_frame(r4, card))
         out["async"] = dict(summary=r4["summary"], launches=r4["launches"],
+                             captures=r4["captures"],
                             frames=n, ate_pct=ate4,
                             processed=mapper4.processed,
                             dropped=mapper4.dropped_frames,
@@ -1384,7 +1758,7 @@ def run_cli_phase(card: str, device: str = "cuda",
         assert f"[INFO] resumed from {p['s3.npz']} at frame {n}" \
             in r5["lines"]
         assert r5["summary"]["frames"] == CLI_RESUME_FRAMES
-        assert r5["launches"] == CLI_RESUME_FRAMES
+        assert r5["frame_launches"] == CLI_RESUME_FRAMES
         q0, q1 = CLI_QUERY
         r6 = run_cli(["--config", cfg_path, "--images", tmp, "--filename",
                       "query.txt", "--stream", "--localize", p["s1.npz"],
@@ -1396,7 +1770,7 @@ def run_cli_phase(card: str, device: str = "cuda",
         rows6 = tum_rows(p["s5.txt"], q1 - q0)
         ate6 = sim3_ate_pct(rows6[running6, 1:4], poses[q0:q1][running6])
         assert ate6 < 5.0, ate6
-        assert r6["launches"] == q1 - q0
+        assert r6["frame_launches"] == q1 - q0
         say("cli", f"run 5, --resume of run 3's snapshot: "
                    f"{r5['summary']}, {r5['launches']} launches; "
                    f"--stream --localize of run 1's map on frames {q0}-"
@@ -1428,9 +1802,16 @@ def main() -> int:
     from sdvl_tpu_torch.ops.cuda import detect
 
     # ----------------------------------------------------------- 2 build
+    from sdvl_tpu_torch.ops.cuda import graph_if
+
     t0 = time.perf_counter()
-    detect.load_library(verbose=True)
-    say("build", f"csrc/detect.cu -> _build/libsdvl_detect.so in "
+    # one nvcc per source, started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(detect.load_library, verbose=True),
+                    pool.submit(graph_if.load_library, verbose=True)]:
+            job.result()
+    say("build", f"csrc/detect.cu -> _build/libsdvl_detect.so and "
+                 f"csrc/graph_if.cu -> _build/libsdvl_graph_if.so in "
                  f"{time.perf_counter() - t0:.1f} s ({' '.join(detect.NVCC_FLAGS)})")
     # ---------------------------------------------------------- 3 kernel
     t0 = time.perf_counter()
@@ -1444,13 +1825,21 @@ def main() -> int:
     slam = run_slam_phase(card)
     say("slam", f"phase took {time.perf_counter() - t0:.1f} s")
 
+    # ----------------------------------------------------------- graph
+    t0 = time.perf_counter()
+    graph = run_graph_phase(card, slam)
+    say("graph", f"phase took {time.perf_counter() - t0:.1f} s")
+    for k in [k for k in slam if k.startswith("_")]:
+        del slam[k]
+
     # ----------------------------------------------------------- 5 slice
     t_phase = time.perf_counter()
     n = len(query["frames"])
     _, cold_s, _, _ = run_slice(cfg, query, count_launches=False)
     say("slice", f"first run (cold: cuBLAS/cuSOLVER set-up, allocator): "
                  f"{n} frames in {cold_s:.3f} s")
-    r, seconds, launches, loc = run_slice(cfg, query, count_launches=True)
+    r, seconds, (launches, slice_caps), loc = run_slice(
+        cfg, query, count_launches=True)
     states = r.states.tolist()
     say("slice", f"states {states}")
     say("slice", f"n_matches {r.n_matches.tolist()}")
@@ -1466,7 +1855,9 @@ def main() -> int:
     extent = float(np.linalg.norm(np.ptp(p_gt, axis=0)))
     ate = umeyama_ate(p_est, p_gt)
     assert ate < 0.05 * max(extent, 1e-6), f"ATE {ate} vs extent {extent}"
-    assert launches == n, f"kernel launches {launches} != one per frame ({n})"
+    assert slice_caps == 1 and frame_launches(launches, slice_caps) == n, (
+        f"kernel launches {launches} with {slice_caps} captures: one per "
+        f"frame ({n}) and one per eager pass of the capture expected")
     n_corners = int(loc.last_corners.valid.sum())
     assert n_corners > 0, "fused detection found no corner on the last frame"
     vs_jax = {}
@@ -1484,7 +1875,9 @@ def main() -> int:
                  f"{frac:.2f} of RUNNING frames >= {min_matches} matches, "
                  f"ATE {ate:.5f} over extent {extent:.4f} "
                  f"({100 * ate / extent:.2f} %), map bit-identical, "
-                 f"kernel launches {launches} = 1 x {n}, corners on last "
+                 f"kernel launches {launches} = 1 x {n} frames + "
+                 f"{launches - n} in the capture's eager passes, corners on "
+                 f"last "
                  f"frame {n_corners}")
     say("slice", "against the recorded JAX run (CPU, plain detection), "
                  "the plain border rule (this route) beside the pallas rule "
@@ -1494,9 +1887,27 @@ def main() -> int:
                              f"largest camera-centre distance "
                              f"{v['max_centre_dist']:.3g}"
                              for k, v in vs_jax.items()))
-    say("slice", f"{n} frames in {seconds:.4f} s = {n / seconds:.2f} frames/s "
-                 f"(one stream, eager, one host read per frame) on {card}; "
+    cap_s = loc.runner.capture_s
+    # every frame a replay with no synchronisation but the capture frame's,
+    # and bit-identical to the eager card path
+    g_syncs, g_replays, g_rows = slice_syncs(cfg, query, graphs=True)
+    e_syncs, _, e_rows = slice_syncs(cfg, query, graphs=False)
+    assert g_replays == [1] * n, g_replays
+    assert not any(g_syncs[1:]), f"serving frames synchronised: {g_syncs}"
+    assert torch.equal(g_rows, e_rows), (
+        "localizer: graph path differs from the eager card path on frames "
+        f"{torch.nonzero((g_rows != e_rows).any(1)).flatten().tolist()}")
+    say("slice", f"graph path: one replay per frame {g_replays}, "
+                 f"synchronisations per frame {g_syncs} (the first frame "
+                 f"captures), eager card path {e_syncs}; packed infos "
+                 f"bit-identical to the eager card path")
+    say("slice", f"{n} frames in {seconds:.4f} s (graph path, the capture "
+                 f"{cap_s:.3f} s included) = {n / (seconds - cap_s):.2f} "
+                 f"frames/s with the capture apart, one stream, on {card}; "
                  f"phase took {time.perf_counter() - t_phase:.1f} s")
+    slice_out = dict(graph_syncs=g_syncs, eager_syncs=e_syncs,
+                     replays=g_replays, capture_s=cap_s,
+                     frames_per_s=n / (seconds - cap_s))
 
     # ----------------------------------------------------------- 6 multi
     t0 = time.perf_counter()
@@ -1515,11 +1926,15 @@ def main() -> int:
 
     # --------------------------------------------------------- 9 kernels
     p3, p3_plain = checks["pallas"]["pyramid"], checks["plain"]["pyramid"]
-    paths = {"slam": (slam["launches"], slam["frames"]),
-             "slam_map_served": (slam["loc_launches"], slam["loc_frames"]),
-             "localizer": (launches, n)}
-    paths.update({k: (v["launches"], v["frames"]) for k, v in multi.items()})
-    paths.update({f"cli_{k}": (cli[k]["launches"], cli[k]["frames"])
+    paths = {"slam": (slam["launches"], slam["frames"], slam["captures"]),
+             "slam_eager": (graph["eager_launches"], graph["frames"], 0),
+             "slam_map_served": (slam["loc_launches"], slam["loc_frames"],
+                                 slam["loc_captures"]),
+             "localizer": (launches, n, slice_caps)}
+    paths.update({k: (v["launches"], v["frames"], v["captures"])
+                  for k, v in multi.items()})
+    paths.update({f"cli_{k}": (cli[k]["launches"], cli[k]["frames"],
+                               cli[k]["captures"])
                   for k in ("stream", "host", "async", "viz")})
     kernels = {"kernels": [{
         "name": "fast_shi_tomasi_cells",
@@ -1535,7 +1950,8 @@ def main() -> int:
         # (for the multi paths, stream-frames)
         "launches_by_path": {k: v[0] for k, v in paths.items()},
         "frames_by_path": {k: v[1] for k, v in paths.items()},
-        "localizer_frames_per_s": n / seconds,
+        "captures_by_path": {k: v[2] for k, v in paths.items()},
+        "localizer_frames_per_s": slice_out["frames_per_s"],
         "max_abs_err": max(c["max_abs_err"] for by in checks.values()
                            for c in by.values()),
         # the pallas border rule (the earlier slices' route) in "ms" and
@@ -1554,6 +1970,8 @@ def main() -> int:
         "by_shape": checks,
         "detect_pyramid_ms": dp,
         "slam": slam,
+        "graph": graph,
+        "slice": slice_out,
         "slice_vs_jax": vs_jax,
         "multi": multi,
         "cli": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}

@@ -24,7 +24,9 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 
-@functools.lru_cache(maxsize=256)
+# never evicted: a captured CUDA graph keeps reading the tensors it was
+# given, so a constant must live as long as the process
+@functools.lru_cache(maxsize=None)
 def _const(values, dtype, device: str) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)
 

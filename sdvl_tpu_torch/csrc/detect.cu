@@ -115,6 +115,7 @@ struct Levels {
     int n, cell;
     int owned;                  // 1: TILE % cell == 0, each cell in one block
     float fast_threshold, st_threshold;
+    unsigned long long* launches;   // block 0 adds 1 per launch (or null)
 };
 
 // Bresenham circle of radius 3, the order of the reference's _CIRCLE.
@@ -217,6 +218,9 @@ detect_levels_kernel(const Levels P) {
         if (i < P.n && static_cast<int>(blockIdx.x) >= P.lv[i].block0) L = P.lv[i];
 
     const int tid = threadIdx.x;
+    // the launch counts itself: a replayed graph runs no host code
+    if (blockIdx.x == 0 && tid == 0 && P.launches != nullptr)
+        atomicAdd(P.launches, 1ull);
     const int tx = tid & (TILE - 1), ty = tid / TILE;
     const int local = blockIdx.x - L.block0;
     const int by = local / L.tiles_x;
@@ -402,12 +406,15 @@ detect_levels_kernel(const Levels P) {
 // buffer of
 // sum_l (H_l / cell) * (W_l / cell) uint64 words (``cell`` = 0: maps only, no
 // keys), zeroed here on ``stream`` before the launch unless each cell lies in
-// one block. Launches without synchronising and returns a cudaError_t as an
+// one block. ``launches``, where not null, is a device uint64 that the
+// kernel adds 1 to each time it runs (a launch replayed from a CUDA graph
+// included). Launches without synchronising and returns a cudaError_t as an
 // int (0 = success).
 extern "C" int sdvl_detect_levels(const void* const* imgs, void* const* outs,
                                   const int* dims, int n, int cell, int plain,
                                   float fast_threshold, float st_threshold,
-                                  void* keys, void* stream) {
+                                  void* keys, void* launches,
+                                  void* stream) {
     if (n < 1 || n > MAX_LEVELS || cell < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     Levels P{};
@@ -416,6 +423,7 @@ extern "C" int sdvl_detect_levels(const void* const* imgs, void* const* outs,
     P.owned = cell > 0 && TILE % cell == 0;
     P.fast_threshold = fast_threshold;
     P.st_threshold = st_threshold;
+    P.launches = static_cast<unsigned long long*>(launches);
     int blocks = 0;
     size_t n_cells = 0;
     for (int l = 0; l < n; ++l) {

@@ -3,9 +3,12 @@
 Counterpart of ``sdvl_tpu/dist/multi_stream.py``. The JAX package runs the
 sessions as one ``shard_map``-ped launch per frame batch; inside a shard a
 host-unrolled loop steps the device's own streams one after the other. On
-one device that loop is the whole program, and so it is here: one
-``make_step`` call per stream per frame, each stream with its own carry and
-its own random draws. Streams never communicate.
+one device that loop is the whole program, and so it is here: one step per
+stream per frame (``device_fsm.StepRunner``), each stream with its own carry
+and its own random draws. On the card every stream has a CUDA graph of its
+own, captured at its first tracking frame, so a frame batch of tracking
+streams is N replays with no host read (``graphs=False``: eager steps).
+Streams never communicate.
 
 Two modes, as in the reference:
 
@@ -14,15 +17,16 @@ Two modes, as in the reference:
     mode;
   * a frozen shared map (``frozen_map``: a stream snapshot path or a live
     ``(MapState, SlamCarry)`` tuple): ONE map, adopted by reference and
-    never written or copied, served read-only to every stream; its
+    never written or copied, served read-only to every stream (every
+    stream's graph reads the one map); its
     capacities must equal the config's. ``localize_only`` is forced on.
     Stream ``i``'s carry is ``init_carry(config, seed + i)`` in LOST with
     ``lost_frames = 3`` and the snapshot's pose (not the snapshot's whole
     carry, as ``SdvlStream.localizer`` keeps).
 
-The multi-stream step never undistorts (``make_step(config,
-undistort=False)``, as the reference's): frames of a distorted config are
-used as given.
+The multi-stream step never undistorts (its runners step with
+``undistort=False``, as the reference's ``make_step``): frames of a
+distorted config are used as given.
 
 Over a mesh with a ``stream`` axis of R ranks, rank r runs streams
 ``r * N/R .. (r + 1) * N/R - 1`` of the batch every rank is fed;
@@ -40,9 +44,9 @@ import torch
 
 from .. import require_device
 from ..pipeline.config import Config
-from ..pipeline.device_fsm import (STATE_LOST, cropped_shape, init_carry,
-                                   init_state, make_step)
-from ..pipeline.stream import (NoiseSource, SlamResult, pack_infos,
+from ..pipeline.device_fsm import (STATE_LOST, StepRunner, cropped_shape,
+                                   init_carry, init_state)
+from ..pipeline.stream import (HostUploads, NoiseSource, SlamResult,
                                unpack_infos)
 from . import mesh as mesh_mod
 
@@ -55,14 +59,18 @@ class MultiStream:
     ``SdvlStream``'s ``gumbel_provider``), indexed by the global stream
     number; by default stream ``i`` draws from ``NoiseSource(seed + i)``.
 
-    After construction ``m`` is the shared map (frozen mode) or the local
-    streams' maps (a list), ``carries`` the local streams' carries.
+    ``graphs`` (default: on for a CUDA device): each local stream replays
+    its own CUDA graph on tracking frames.
+
+    ``m`` is the shared map (frozen mode) or the local streams' maps (a
+    list), ``carries`` the local streams' carries.
     """
 
     def __init__(self, config: Config, n_streams: int, seed: int = 0,
                  frozen_map=None, device="cuda", mesh=None,
                  axis: str = "stream",
-                 gumbel_providers: Optional[Sequence] = None):
+                 gumbel_providers: Optional[Sequence] = None,
+                 graphs: Optional[bool] = None):
         self.frozen = frozen_map is not None
         if self.frozen and not config.sdvl.localize_only:
             config = dataclasses.replace(
@@ -75,6 +83,8 @@ class MultiStream:
         self.cfg = config
         self.n = n_streams
         self.device = require_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
         self.crop_h, self.crop_w = cropped_shape(config)
         self._group = mesh_mod.axis_group(mesh, axis)
         self.local = range(n_streams)[mesh_mod.shard_rows(n_streams, mesh,
@@ -93,39 +103,57 @@ class MultiStream:
             if m0.capacities != caps:
                 raise ValueError(
                     f"snapshot capacities {m0.capacities} != config {caps}")
-            self.m = m0
-            self.carries = [
-                init_carry(config, seed + i, device=dev)._replace(
+            self._shared = m0
+            states = [
+                (m0, init_carry(config, seed + i, device=dev)._replace(
                     state=torch.tensor(STATE_LOST, dtype=torch.int32,
                                        device=dev),
                     lost_frames=torch.tensor(3, dtype=torch.int32,
                                              device=dev),
                     pose=c_snap.pose.to(dev).clone(),
-                )
+                ))
                 for i in self.local
             ]
         else:
             states = [init_state(config, seed + i, device=dev)
                       for i in self.local]
-            self.m = [m for m, _ in states]
-            self.carries = [c for _, c in states]
+        self._runners = [
+            StepRunner(config, False, m, carry, graphs=graphs,
+                       frozen_map=self.frozen)
+            for m, carry in states
+        ]
         self._noise = [
             NoiseSource(config, seed + i, dev,
                         None if gumbel_providers is None
                         else gumbel_providers[i])
             for i in self.local
         ]
-        self._step = make_step(config, undistort=False)
+        self._uploads = HostUploads(dev)
         self._n_fed = 0
-        # per local stream, the FrameInfo of every frame fed
-        self._infos: List[list] = [[] for _ in self.local]
+        # per local stream, the packed FrameInfo of every frame fed
+        self._rows: List[list] = [[] for _ in self.local]
+
+    @property
+    def m(self):
+        if self.frozen:
+            return self._shared
+        return [r.st.m for r in self._runners]
+
+    @property
+    def carries(self):
+        return [r.st.carry for r in self._runners]
+
+    @property
+    def runners(self) -> List[StepRunner]:
+        """The local streams' step runners (their graphs and counts)."""
+        return self._runners
 
     def _upload(self, imgs: np.ndarray) -> torch.Tensor:
         """The local streams' frames, cropped, in one host->device copy;
         ``imgs`` has the stream axis at dim -3."""
         imgs = np.asarray(imgs)[..., self.local.start:self.local.stop,
                                 : self.crop_h, : self.crop_w]
-        return torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+        return self._uploads.upload(imgs)
 
     def _run(self, frames: torch.Tensor) -> None:
         """Step every local stream over ``frames`` (T, local, H, W), frame
@@ -133,14 +161,10 @@ class MultiStream:
         T = frames.shape[0]
         noise = [src.pose(self._n_fed, T) for src in self._noise]
         for t in range(T):
-            for j in range(len(self.local)):
-                m = self.m if self.frozen else self.m[j]
-                m, self.carries[j], info, _ = self._step(
-                    m, self.carries[j], frames[t, j], None, noise[j][t],
-                    self._noise[j].boot)
-                if not self.frozen:
-                    self.m[j] = m
-                self._infos[j].append(info)
+            for j, r in enumerate(self._runners):
+                row, _ = r.step(frames[t, j], noise[j][t],
+                                self._noise[j].boot)
+                self._rows[j].append(row)
         self._n_fed += T
 
     def feed(self, imgs: np.ndarray, block: bool = False) -> None:
@@ -168,7 +192,7 @@ class MultiStream:
         every rank calls it."""
         if not self._n_fed:
             raise ValueError("no frames fed")
-        packed = torch.stack([pack_infos(infos) for infos in self._infos])
+        packed = torch.stack([torch.stack(rows) for rows in self._rows])
         packed = mesh_mod.gather_rows(packed, self._group).cpu().numpy()
         results = [SlamResult(unpack_infos(p)) for p in packed]
         return results if stream is None else results[stream]

@@ -3,7 +3,8 @@
 Counterpart of ``sdvl_tpu/dist/multihost.py``. One process per device:
 
   * every process calls :func:`initialize` first -- ``init_process_group``
-    with gloo on the CPU or nccl on the card, a TCP rendezvous at the
+    with nccl on the card (gloo on the CPU where the caller asks for it),
+    a TCP rendezvous at the
     coordinator's address, the world size and the process's rank (nothing
     on the machine announces a cluster);
   * meshes are built over every rank (:func:`global_mesh`,
@@ -28,14 +29,18 @@ from . import mesh as mesh_mod
 def initialize(coordinator_address: str, num_processes: int, process_id: int,
                backend: Optional[str] = None, timeout_s: float = 120.0) -> str:
     """Join the process group: ``coordinator_address`` is ``host:port``
-    (rank 0 listens there), ``backend`` defaults to nccl where CUDA is
-    available (the process then uses card ``process_id`` modulo the cards
-    it sees) and gloo elsewhere. Returns the backend."""
+    (rank 0 listens there). ``backend`` defaults to nccl (the process then
+    uses card ``process_id`` modulo the cards it sees), which raises where
+    there is no card; gloo, on the CPU, only when asked for. Returns the
+    backend."""
     import datetime
 
+    from .. import require_device
+
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        backend = "nccl"
     if backend == "nccl":
+        require_device("cuda")
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}",
@@ -87,14 +92,17 @@ def process_count() -> int:
 
 def demo_ba_problem(seed: int = 11, K: int = 4, P: int = 256,
                     noise: float = 0.05 / 420.0, perturb: float = 0.05,
-                    device="cpu"):
+                    device=None):
     """Deterministic synthetic BA problem: every process builds the SAME
     problem from the seed (no broadcast needed). K cameras on a line looking
     at P points, noisy unit-plane observations (about 15 % missing), the
-    first two cameras fixed, the points perturbed."""
+    first two cameras fixed, the points perturbed. On ``device``, by default
+    this process's (:func:`local_device`)."""
     from ..core import se3
     from ..solvers import ba
 
+    if device is None:
+        device = local_device()
     rs = np.random.default_rng(seed)
     pts = rs.uniform([-3, -3, 4], [3, 3, 12], size=(P, 3)).astype(np.float32)
     xi = torch.tensor([[0.4 * k / K, 0, 0, 0, 0.01 * k, 0] for k in range(K)],

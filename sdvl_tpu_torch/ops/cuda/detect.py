@@ -72,12 +72,11 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Number of kernel launches (a plain integer; the smoke run zeroes it, drives
-# the stream and reads it back).
-launch_count = 0
-
 _lib = None
 _lib_lock = threading.Lock()
+# per CUDA device index, the () int64 count of the kernel's launches, added
+# to by the kernel itself (a launch replayed from a CUDA graph included)
+_counters = {}
 
 
 def _find_nvcc() -> str:
@@ -124,7 +123,8 @@ def bind_library(path: str):
     fn.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
@@ -139,6 +139,34 @@ def load_library(verbose: bool = False):
     return _lib
 
 
+def _counter(dev: torch.device) -> torch.Tensor:
+    """The launch counter of ``dev``, made at the first launch there. A
+    graph holds its address, so it must exist before a capture."""
+    c = _counters.get(dev.index)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the detection kernel's first launch on a device must be "
+                "eager: a CUDA graph cannot make its launch counter")
+        c = _counters[dev.index] = torch.zeros((), dtype=torch.int64,
+                                               device=dev)
+    return c
+
+
+def reset_launches() -> None:
+    """Set every device's launch count to 0 (on the device's current
+    stream, without synchronising)."""
+    for c in _counters.values():
+        c.zero_()
+
+
+def launches() -> int:
+    """The kernel's launches on every device since :func:`reset_launches`
+    (or the first launch), as the kernel counted them. Reads the counters
+    back: waits for the work before it on the current streams."""
+    return sum(int(c) for c in _counters.values())
+
+
 def _check_border(border: str) -> None:
     if border not in BORDERS:
         raise ValueError(f"border {border!r} is not one of {BORDERS}")
@@ -148,8 +176,8 @@ def _launch(levels: Sequence[torch.Tensor], cell: int, fast_threshold: float,
             st_threshold: float, lib=None, border: str = "pallas"):
     """One kernel launch over ``levels`` (CUDA tensors) under the ``border``
     rule, with ``lib`` or the package's library. Returns the maps and the
-    (sum of cells,) int64 key buffer (``cell`` = 0: no cells)."""
-    global launch_count
+    (sum of cells,) int64 key buffer (``cell`` = 0: no cells). The kernel
+    adds 1 to the device's launch counter each time it runs."""
     _check_border(border)
     n = len(levels)
     if not 1 <= n <= MAX_LEVELS:
@@ -176,6 +204,7 @@ def _launch(levels: Sequence[torch.Tensor], cell: int, fast_threshold: float,
     lib = lib or load_library()
     maps = [torch.empty_like(img) for img in levels]
     keys = torch.empty(n_cells, dtype=torch.int64, device=dev)
+    counter = _counter(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sdvl_detect_levels(
@@ -183,11 +212,10 @@ def _launch(levels: Sequence[torch.Tensor], cell: int, fast_threshold: float,
             (ctypes.c_void_p * n)(*[m.data_ptr() for m in maps]),
             (ctypes.c_int * (3 * n))(*dims), n, cell, int(border == "plain"),
             float(fast_threshold), float(st_threshold), keys.data_ptr(),
-            stream,
+            counter.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"detection kernel launch failed: CUDA error {err}")
-    launch_count += 1
     return maps, keys
 
 
@@ -211,7 +239,7 @@ def decode_keys(keys: torch.Tensor):
     return bits.view(torch.float32), (keys & _LOW32) ^ _LOW32
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)   # never evicted: graphs read them
 def _cell_grid(shapes, cell: int, device: str):
     """Per cell of all levels: origin (x, y) in level pixels (int64),
     level-0 scale (float32, (n, 1)) and level (int32). Built once per
@@ -427,7 +455,7 @@ def fast_shi_tomasi_cells(levels: Sequence[torch.Tensor], cell: int = 32,
     (N,) bool, level (N,) int32.
 
     CUDA tensors: one kernel launch for all levels on the current stream (no
-    synchronisation), counted; then ~15 torch ops decode the cells of all
+    synchronisation), counted on the device (:func:`launches`); then ~15 torch ops decode the cells of all
     levels together. CPU tensors: the plain version.
     """
     if not levels[0].is_cuda:
@@ -447,7 +475,7 @@ def fast_shi_tomasi_map(img: torch.Tensor, fast_threshold: float = 10.0,
     counterpart of the TPU function.
 
     CUDA tensor: launches the same kernel with one level and no cells (no
-    synchronisation) and counts the launch. CPU tensor: the plain version.
+    synchronisation), counted on the device. CPU tensor: the plain version.
     """
     if img.is_cuda:
         return _launch([img], 0, fast_threshold, st_threshold)[0][0]

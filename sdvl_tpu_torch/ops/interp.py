@@ -155,7 +155,7 @@ class FlatPyramid(NamedTuple):
     Ws: torch.Tensor     # (L,) int64
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)   # never evicted: graphs read them
 def _pyr_meta(shapes: Tuple[Tuple[int, int], ...], device: str):
     Hs = [s[0] for s in shapes]
     Ws = [s[1] for s in shapes]

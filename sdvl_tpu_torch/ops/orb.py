@@ -43,7 +43,7 @@ def _circle_offsets(r: int) -> np.ndarray:
     return np.stack([ox[keep], oy[keep]], axis=-1).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)   # never evicted: graphs read them
 def _table(kind: str, radius: int, device: str) -> torch.Tensor:
     """Device copies of the static tables, made once per device."""
     arr = _circle_offsets(radius) if kind == "circle" else \

@@ -10,16 +10,32 @@ insertion with local BA and pruning, the depth-filter update). With
 tracks; no bootstrap and no mapping stage run.
 
 Branches. The reference compiles every decision into one device program
-(``lax.switch``/``lax.cond``). Eager torch has no such thing, and the
-branches not taken must not run, so the step reads small scalars back to
-the host and takes Python branches:
+(``lax.switch``/``lax.cond``). Here each decision of a tracking (RUNNING or
+LOST) frame is a :func:`device_if` on a () bool tensor:
 
-* every frame: ``(state, lost_frames)``, one 2-element read;
-* SECOND frames: ``success`` of the bootstrap (seed the map or not);
-* RUNNING/LOST frames in full SLAM mode: ``(good, is_kf)`` after tracking
-  (run the keyframe stage, and the map update, only where they are kept).
+* LOST relocalizes, RUNNING predicts from the motion model; after
+  ``reloc_escalate_after`` failed LOST frames the relocalizer tries every
+  keyframe (a nested IF: the two sweeps differ in shape);
+* in full SLAM mode a good frame runs the map update, a good keyframe frame
+  the keyframe stage before it.
 
-FIRST's decisions, and the good/bad path of serving, are ``where`` selects.
+Eagerly (the CPU, or the card with graphs off) :func:`device_if` reads its
+predicate and runs one Python branch. While a CUDA graph captures, it adds
+an IF node per branch (``ops/cuda/graph_if.py``), so that a replayed frame
+decides on the device and reads nothing back. Point statistics and the
+motion model select with ``where``. FIRST and SECOND frames run eagerly and
+read back ``state`` (which branch) and, on SECOND, ``success`` of the
+bootstrap. A stream never goes back from RUNNING/LOST to FIRST/SECOND (as in
+the reference), so once a SECOND frame succeeded, or a localizer started
+LOST, every later frame is a tracking frame and the state is not read.
+
+State. A step reads and writes a :class:`StepState`. Functionally it rebinds
+its fields as ``_replace`` does (:func:`make_step`); in place it copies
+each leaf a branch changed into the storage it was made with, so every
+leaf keeps its address from frame to frame (the counterpart of the
+reference stream's buffer donation). :class:`StepRunner` steps one stream in
+place and, on the card, captures its first tracking frame into a CUDA graph
+that every later tracking frame replays: one launch, no host read.
 
 Random draws come in as arguments: the pose RANSAC's Gumbel noise per
 tracking frame, and the bootstrap's two (the homography and ground-plane
@@ -29,7 +45,10 @@ key that does not change).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import contextlib
+import threading
+import time
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +57,8 @@ from ..core import camera as cam
 from ..core import se3
 from ..ops import fast as fast_ops
 from ..ops import interp, orb, pyramid
+from ..ops.cuda import graph_if
+from ..solvers import ba
 from ..state.map_state import (MapState, alloc_slots, empty_map, scatter,
                                set_row, store_pyramid)
 from . import bootstrap, depth_filter, mapper, matcher, relocalize, tracker
@@ -88,6 +109,140 @@ class FrameInfo(NamedTuple):
     is_keyframe: torch.Tensor  # () bool
     n_corners: torch.Tensor    # () int32
     median_shift: torch.Tensor # () f32 (bootstrap diagnostics)
+
+
+# the packed layout of one frame's FrameInfo (pack_info): pose 7, world_tf
+# 7, then the scalars in this order
+INFO_WIDTH = 21
+
+
+def pack_info(info: FrameInfo) -> torch.Tensor:
+    """One frame's FrameInfo as a (21,) float32 tensor on its device (every
+    int fits float32 exactly): what a recorded frame keeps, and what the
+    stream copies to the host once, in its ``result``."""
+    return torch.cat([
+        info.pose, info.world_tf,
+        torch.stack([
+            info.state.float(), info.quality.float(),
+            info.n_matches.float(), info.n_attempts.float(),
+            info.is_keyframe.float(), info.n_corners.float(),
+            info.median_shift.float(),
+        ]),
+    ])
+
+
+def unpack_info(row: torch.Tensor) -> FrameInfo:
+    """Inverse of :func:`pack_info` on the device."""
+    return FrameInfo(
+        pose=row[0:7], world_tf=row[7:14],
+        state=row[14].to(torch.int32), quality=row[15].to(torch.int32),
+        n_matches=row[16].to(torch.int32),
+        n_attempts=row[17].to(torch.int32), is_keyframe=row[18] > 0.5,
+        n_corners=row[19].to(torch.int32), median_shift=row[20],
+    )
+
+
+# ------------------------------------------------------------ branches
+_warming = threading.local()
+
+
+def _host_read(pred: torch.Tensor) -> bool:
+    """The one host read of an eager :func:`device_if`."""
+    return bool(pred)
+
+
+@contextlib.contextmanager
+def warming():
+    """Within the block every :func:`device_if` of this thread runs both of
+    its branches, each on the stream its IF node would capture it on: the
+    eager pass before a capture, which loads every kernel and library
+    handle the graph will hold."""
+    was = getattr(_warming, "on", False)
+    _warming.on = True
+    try:
+        yield
+    finally:
+        _warming.on = was
+
+
+def _copy_into(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (same structure of
+    tuples), leaving alone a leaf that is its own destination."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"cannot write {tuple(src.shape)} "
+                                 f"{src.dtype} into {tuple(dst.shape)} "
+                                 f"{dst.dtype}")
+            dst.copy_(src)
+        return
+    for d, x in zip(dst, src, strict=True):
+        _copy_into(d, x)
+
+
+def device_if(pred: torch.Tensor, body, orelse=None):
+    """``body()`` where the () bool tensor ``pred`` is true, else
+    ``orelse()`` where one is given; returns what the branch returned (a
+    tensor, a tuple of them, or None).
+
+    Eagerly: one host read of ``pred``, then one Python branch. While a CUDA
+    graph captures: an IF node on ``pred`` around ``body``, and one on
+    ``~pred`` around ``orelse``, which copies its outputs into ``body``'s
+    there, so that the code after reads the same tensors whichever branch
+    ran (as ``torch.cond``'s graph form does). A branch that changes the
+    step's state writes it through :class:`StepState`.
+    """
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        not_pred = torch.logical_not(pred) if orelse is not None else None
+        with graph_if.if_node(pred):
+            out = body()
+        if orelse is not None:
+            with graph_if.if_node(not_pred):
+                _copy_into(out, orelse())
+        return out
+    if getattr(_warming, "on", False):
+        with graph_if.warm_body(pred.device):
+            out = body()
+        if orelse is not None:
+            with graph_if.warm_body(pred.device):
+                _copy_into(out, orelse())
+        return out
+    if _host_read(pred):
+        return body()
+    return None if orelse is None else orelse()
+
+
+class StepState:
+    """The ``(MapState, SlamCarry)`` a step reads and writes.
+
+    Functional (``inplace=False``): :meth:`update` rebinds ``m`` and
+    ``carry``, as ``_replace`` does, and never writes a tensor. In place:
+    :meth:`update` copies each leaf that changed into the storage the state
+    was made with (a leaf that is its own storage is left alone), so ``m``
+    and ``carry`` hold the same tensors on every frame: what a replayed CUDA
+    graph reads and writes. ``frozen_map``: the map is shared and must never
+    be written.
+    """
+
+    def __init__(self, m: MapState, carry: SlamCarry, inplace: bool,
+                 frozen_map: bool = False):
+        self.m, self.carry = m, carry
+        self.inplace, self.frozen_map = inplace, frozen_map
+
+    def update(self, m: Optional[MapState] = None,
+               carry: Optional[SlamCarry] = None) -> None:
+        if m is not None:
+            if self.frozen_map:
+                raise RuntimeError("a step wrote the frozen shared map")
+            if self.inplace:
+                _copy_into(self.m, m)
+            else:
+                self.m = m
+        if carry is not None:
+            if self.inplace:
+                _copy_into(self.carry, carry)
+            else:
+                self.carry = carry
 
 
 def cropped_shape(cfg: Config) -> Tuple[int, int]:
@@ -262,17 +417,21 @@ def seed_map(m: MapState, cfg: Config, pyr1, pyr2, boot, corners2,
     return m
 
 
-def make_step(cfg: Config, undistort: bool):
-    """Build ``step(m, carry, img, grid, gumbel, boot) ->
-    (m, carry, FrameInfo, Corners)``.
+def make_frame(cfg: Config, undistort: bool):
+    """Build ``frame(st, img, grid, gumbel, boot, tracking) ->
+    (FrameInfo, Corners, tracking)``: one frame of the state machine on the
+    :class:`StepState` ``st``.
 
     ``img`` is the raw (cropped) frame on the device, any integer/float
     dtype (uint8 recommended). ``grid`` is the undistort map (ignored when
     ``undistort`` is False). ``gumbel`` is the (n_hyp, S) Gumbel noise of
     this frame's pose RANSAC, or None where the caller has none (a frame
     that tracks then raises). ``boot`` is the :class:`BootNoise` of the
-    stream (unused while serving). The frame's detected corners are
-    returned beside the FrameInfo.
+    stream (unused while serving). ``tracking``: the caller knows the state
+    is RUNNING or LOST, so it is not read back. Returns the frame's info and
+    detected corners, and whether the stream is tracking after the frame.
+    The info may hold the state's own tensors: pack it (:func:`pack_info`)
+    before the next frame where the state is updated in place.
     """
     s = cfg.sdvl
     intr = intrinsics(cfg)
@@ -280,6 +439,9 @@ def make_step(cfg: Config, undistort: bool):
     escalates = (s.reloc_escalate_after >= 0
                  and s.max_keyframes > s.reloc_max_keyframes)
     orb_radius = s.orb_size // 2
+    ba_window = min(10, s.max_keyframes - 1)
+    # local BA must take the dense Cholesky solve: PCG reads back to stop
+    assert ba_window + 1 <= ba.CG_KF_THRESHOLD
 
     preprocess = make_preprocess(cfg, undistort)
 
@@ -302,9 +464,10 @@ def make_step(cfg: Config, undistort: bool):
         return const(v, torch.int32, dev)
 
     # ------------------------------------------------------------ FIRST
-    def first_frame(m, carry, pyr, corners):
+    def first_frame(st, pyr, corners):
         """Keep the frame if it has enough corners, else try again next
         frame (where selects: nothing is read back)."""
+        carry = st.carry
         dev = carry.pose.device
         n = torch.sum(corners.valid).to(torch.int32)
         ok = n >= s.min_init_corners
@@ -316,7 +479,8 @@ def make_step(cfg: Config, undistort: bool):
             c1_xy=torch.where(ok, corners.xy, carry.c1_xy),
             c1_valid=torch.where(ok, corners.valid, carry.c1_valid),
         )
-        return m, carry, _info(carry, n_corners=n)
+        st.update(carry=carry)
+        return _info(carry, n_corners=n)
 
     # ------------------------------------------------------------ SECOND
     def bootstrap_map(m, carry, pyr, corners, boot, noise: BootNoise):
@@ -353,9 +517,11 @@ def make_step(cfg: Config, undistort: bool):
         )
         return m, carry, T
 
-    def second_frame(m, carry, pyr, corners, noise: BootNoise):
+    def second_frame(st, pyr, corners, noise: BootNoise):
         """Flow + homography: restart on flow collapse, wait on low
-        parallax, seed the map on success (one host read: ``success``)."""
+        parallax, seed the map on success (one host read: ``success``).
+        Returns the info and whether the stream now tracks."""
+        carry = st.carry
         dev = carry.pose.device
         boot = bootstrap.init_two_view(
             intr, carry.pyr1, pyr, carry.c1_xy, carry.c1_valid,
@@ -365,20 +531,23 @@ def make_step(cfg: Config, undistort: bool):
         )
         success = (boot.ok_flow & (boot.median_shift >= s.min_avg_shift)
                    & (boot.n_inliers >= s.min_init_corners))
-        if bool(success):
-            m, carry, T = bootstrap_map(m, carry, pyr, corners, boot,
+        tracking = bool(success)
+        if tracking:
+            m, carry, T = bootstrap_map(st.m, carry, pyr, corners, boot,
                                         noise)
+            st.update(m=m)
         else:
             carry = carry._replace(state=torch.where(
                 boot.ok_flow, i32(STATE_SECOND, dev), i32(STATE_FIRST, dev)))
             T = se3.identity(device=dev)
+        st.update(carry=carry)
         info = _info(carry, world_tf=T, is_keyframe=success,
                      n_matches=boot.n_inliers,
                      median_shift=boot.median_shift)
-        return m, carry, info
+        return info, tracking
 
     # ----------------------------------------------------------- RUNNING
-    def do_reloc(m, carry, pyr, lost_frames: int):
+    def do_reloc(m, carry, pyr):
         """Relocalize: the alignment reference becomes the best-matching
         KEYFRAME (its pyramid, pose and observed points), not the previous
         -- possibly garbage -- frame. After ``reloc_escalate_after`` failed
@@ -386,11 +555,17 @@ def make_step(cfg: Config, undistort: bool):
         tried instead of the nearest ``reloc_max_keyframes``."""
         S = carry.last_idx.shape[0]
         lvl = min(4, levels - 1)
-        sweep_all = escalates and lost_frames >= 3 + s.reloc_escalate_after
-        rl = relocalize.relocalize(
-            m, intr, pyr, carry.pose, level=lvl,
-            max_kf=s.max_keyframes if sweep_all else s.reloc_max_keyframes)
-        return reloc_reference(m, rl.kf, S) + (rl.pose,)
+
+        def sweep(max_kf):
+            rl = relocalize.relocalize(m, intr, pyr, carry.pose, level=lvl,
+                                       max_kf=max_kf)
+            return reloc_reference(m, rl.kf, S) + (rl.pose,)
+
+        if not escalates:
+            return sweep(s.reloc_max_keyframes)
+        sweep_all = carry.lost_frames >= 3 + s.reloc_escalate_after
+        return device_if(sweep_all, lambda: sweep(s.max_keyframes),
+                         lambda: sweep(s.reloc_max_keyframes))
 
     def do_predict(carry):
         pred = se3.compose(se3.exp(carry.xi_model), carry.pose)
@@ -413,29 +588,41 @@ def make_step(cfg: Config, undistort: bool):
             corner_gate=s.epipolar_corner_gate,
             corner_thresh=s.min_feature_score,
         )
-        m = mapper.local_ba(m, intr, slot,
-                            window=min(10, s.max_keyframes - 1),
+        m = mapper.local_ba(m, intr, slot, window=ba_window,
                             max_points=min(s.max_points, 512))
         # redundant-keyframe pruning runs in update_map, every frame
         return mapper.prune_weak_points(m)
 
-    def running(m, carry, pyr, corners, is_lost: bool, lost_frames: int,
-                gumbel):
+    def update_map(m, pyr, pose):
+        return mapper.update_map(
+            m, intr, pyr, pose, n_samples=s.epipolar_samples,
+            threshold_converged=s.threshold_converged,
+            max_failed=s.max_failed, use_orb=s.use_orb,
+            patch_half=s.patch_size // 2, lk_iters=s.max_align_its,
+            orb_radius=orb_radius,
+            stale_kf_window=2 * s.max_search_keyframes,
+            map_scale=s.map_scale, scale_min_dist=s.scale_min_dist,
+            corner_gate=s.epipolar_corner_gate,
+            corner_thresh=s.min_feature_score,
+        )
+
+    def running(st, pyr, corners, gumbel):
         """One steady-state tracking step (RUNNING or LOST), then, in full
-        SLAM mode on a good frame, the mapping stage."""
+        SLAM mode on a good frame, the mapping stage. Every decision is a
+        device predicate."""
+        carry = st.carry
         dev = carry.pose.device
         if gumbel is None:
             raise ValueError(
                 f"frame {int(carry.frame_id)} tracks but no pose-RANSAC "
                 "noise was provided for it")
-        if is_lost:
-            ref = do_reloc(m, carry, pyr, lost_frames)
-        else:
-            ref = do_predict(carry)
+        is_lost = carry.state == STATE_LOST
+        ref = device_if(is_lost, lambda: do_reloc(st.m, carry, pyr),
+                        lambda: do_predict(carry))
         ref_pyr, ref_idx, ref_ok, pose_ref, pose_pred = ref
 
         tr = tracker.track_frame(
-            m, intr, ref_pyr, ref_idx, ref_ok,
+            st.m, intr, ref_pyr, ref_idx, ref_ok,
             pose_ref, pyr, pose_pred,
             cell=s.cell_size, align_max_level=s.max_align_level,
             align_min_level=s.min_align_level,
@@ -454,8 +641,9 @@ def make_step(cfg: Config, undistort: bool):
         if not s.localize_only:
             # a frozen map counts nothing, and NO frame counts while
             # relocalizing (else a LOST stretch deletes the map)
-            m = tracker.update_point_stats(m, tr, max_failed=s.max_failed,
-                                           enabled=not is_lost)
+            st.update(m=tracker.update_point_stats(
+                st.m, tr, max_failed=s.max_failed,
+                enabled=torch.logical_not(is_lost)))
 
         ratio = tr.n_matches / tr.n_attempts.clamp_min(1)
         quality = torch.where(
@@ -470,35 +658,26 @@ def make_step(cfg: Config, undistort: bool):
         # guess, so the velocity estimate is meaningless: coast from rest.
         xi_model, _ = tracker.motion_model_update(
             carry.xi_model, tr.pose, carry.pose)
-        if is_lost:
-            xi_model = torch.zeros_like(xi_model)
+        xi_model = torch.where(is_lost, torch.zeros_like(xi_model),
+                               xi_model)
         frames_since_kf = carry.frames_since_kf + 1
         if s.localize_only:
             is_kf = const(False, torch.bool, dev)
         else:
-            is_kf = mapper.need_keyframe(tr.n_matches, carry.kf_matches,
-                                         frames_since_kf, s.min_keyframe_its)
-            # the second host read of the frame: which stages to run
-            good_h, is_kf_h = torch.stack([good, is_kf]).tolist()
-            if good_h:
-                if is_kf_h:
-                    m = with_kf(m, carry, pyr, corners, tr)
-                m = mapper.update_map(
-                    m, intr, pyr, tr.pose, n_samples=s.epipolar_samples,
-                    threshold_converged=s.threshold_converged,
-                    max_failed=s.max_failed, use_orb=s.use_orb,
-                    patch_half=s.patch_size // 2, lk_iters=s.max_align_its,
-                    orb_radius=orb_radius,
-                    stale_kf_window=2 * s.max_search_keyframes,
-                    map_scale=s.map_scale, scale_min_dist=s.scale_min_dist,
-                    corner_gate=s.epipolar_corner_gate,
-                    corner_thresh=s.min_feature_score,
-                )
+            is_kf = good & mapper.need_keyframe(
+                tr.n_matches, carry.kf_matches, frames_since_kf,
+                s.min_keyframe_its)
+
+            def mapping():
+                device_if(is_kf, lambda: st.update(
+                    m=with_kf(st.m, carry, pyr, corners, tr)))
+                st.update(m=update_map(st.m, pyr, tr.pose))
+
+            device_if(good, mapping)
         # bad path: coast on the prediction, count the failure, go LOST at 3
         lost_bad = carry.lost_frames + 1
         state_bad = torch.where(lost_bad >= 3, i32(STATE_LOST, dev),
                                 i32(STATE_RUNNING, dev))
-        is_kf = good & is_kf
 
         carry = carry._replace(
             pose=torch.where(good, tr.pose, pose_pred),
@@ -517,53 +696,157 @@ def make_step(cfg: Config, undistort: bool):
             last_idx=torch.where(good, tr.match_pt_idx, carry.last_idx),
             last_ok=torch.where(good, tr.match_ok, carry.last_ok),
         )
-        info = _info(carry, quality=quality, n_matches=tr.n_matches,
+        st.update(carry=carry)
+        return _info(carry, quality=quality, n_matches=tr.n_matches,
                      n_attempts=tr.n_attempts, is_keyframe=is_kf)
-        return m, carry, info
 
-    # -------------------------------------------------------------- step
-    def step(m: MapState, carry: SlamCarry, img, grid, gumbel,
-             boot: BootNoise = None):
+    # -------------------------------------------------------------- frame
+    def frame(st: StepState, img, grid, gumbel, boot: BootNoise = None,
+              tracking: bool = False):
+        carry = st.carry
         # steady-state cell locking: suppress detector cells that already
         # hold tracked map points, projected at the previous frame's pose.
         # A stale match index is clamped, as the reference's gather does.
         # In FIRST/SECOND, last_ok is all-False: no lock.
-        lock_xy, lock_valid = lock_points(intr, m, carry.pose,
+        lock_xy, lock_valid = lock_points(intr, st.m, carry.pose,
                                           carry.last_idx, carry.last_ok)
         pyr, corners = preprocess(img, grid, lock_xy, lock_valid)
 
-        # the first host read of the frame: which branch to take
-        state, lost_frames = torch.stack(
-            [carry.state, carry.lost_frames]).tolist()
-        state = min(max(state, 0), 3)
-        if not s.localize_only and state == STATE_FIRST:
-            m, carry, info = first_frame(m, carry, pyr, corners)
-        elif not s.localize_only and state == STATE_SECOND:
-            m, carry, info = second_frame(m, carry, pyr, corners, boot)
+        # serving starts LOST against a loaded map: all its frames track
+        if s.localize_only or tracking:
+            state = STATE_RUNNING
+        else:   # the host read of a frame that may not track
+            state = min(max(int(carry.state), 0), 3)
+        if state == STATE_FIRST:
+            info = first_frame(st, pyr, corners)
+        elif state == STATE_SECOND:
+            info, tracking = second_frame(st, pyr, corners, boot)
         else:
-            # serving starts LOST against a loaded map: all states track
-            m, carry, info = running(m, carry, pyr, corners,
-                                     state == STATE_LOST, lost_frames,
-                                     gumbel)
-        carry = carry._replace(last_pyr=pyr, frame_id=carry.frame_id + 1)
-        return m, carry, info, corners
+            info, tracking = running(st, pyr, corners, gumbel), True
+        st.update(carry=st.carry._replace(
+            last_pyr=pyr, frame_id=st.carry.frame_id + 1))
+        return info, corners, tracking
+
+    return frame
+
+
+def make_step(cfg: Config, undistort: bool):
+    """Build the functional ``step(m, carry, img, grid, gumbel, boot) ->
+    (m, carry, FrameInfo, Corners)`` (arguments as :func:`make_frame`'s):
+    nothing it is given is written, the state is read back on every frame,
+    and every branch is an eager :func:`device_if`."""
+    frame = make_frame(cfg, undistort)
+
+    def step(m: MapState, carry: SlamCarry, img, grid, gumbel,
+             boot: BootNoise = None):
+        st = StepState(m, carry, inplace=False)
+        info, corners, _ = frame(st, img, grid, gumbel, boot)
+        return st.m, st.carry, info, corners
 
     return step
 
 
-def make_chunk_step(cfg: Config, undistort: bool):
-    """``chunk_step(m, carry, imgs (T,H,W), grid, gumbels, boot)``: a Python
-    loop of :func:`make_step` over a stack of frames that is already on the
-    device (one host->device copy per chunk). ``gumbels`` is a sequence of
-    T per-frame pose-RANSAC noise tensors (or None). Returns the list of
-    FrameInfo and the last frame's corners."""
-    step = make_step(cfg, undistort)
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*map(_clone, tree)) if hasattr(tree, "_fields") \
+        else tuple(map(_clone, tree))
 
-    def chunk_step(m, carry, imgs, grid, gumbels, boot=None):
-        infos, corners = [], None
-        for img, g in zip(imgs, gumbels):
-            m, carry, info, corners = step(m, carry, img, grid, g, boot)
-            infos.append(info)
-        return m, carry, infos, corners
 
-    return chunk_step
+# the eager passes through every branch before a capture (each runs the
+# frame's preprocessing, its detection launch included, once)
+CAPTURE_PASSES = 2
+
+
+class StepRunner:
+    """One stream's step over fixed storage.
+
+    ``m`` and ``carry`` become the storage (they are written in place, the
+    map never where ``frozen_map``). Every frame that may not track runs
+    eagerly. With ``graphs`` (CUDA only), the first tracking frame is
+    captured into a CUDA graph, after :data:`CAPTURE_PASSES` eager passes
+    through both branches of every :func:`device_if` on a copy of the state,
+    the last under ``set_sync_debug_mode("error")``; that frame and every
+    later one is an upload into the graph's input buffers and one replay. A
+    capture that fails raises; nothing falls back to eager.
+
+    :meth:`step` returns the frame's packed info (:func:`pack_info`, a
+    tensor of its own) and its corners.
+    """
+
+    def __init__(self, cfg: Config, undistort: bool, m: MapState,
+                 carry: SlamCarry, grid=None, graphs: bool = False,
+                 tracking: bool = False, frozen_map: bool = False):
+        if graphs and carry.pose.device.type != "cuda":
+            raise ValueError("CUDA graphs need a CUDA device")
+        self.cfg = cfg
+        self.st = StepState(m, carry, inplace=True, frozen_map=frozen_map)
+        self.grid = grid
+        self.graphs = graphs
+        self.tracking = tracking or cfg.sdvl.localize_only
+        self._frame = make_frame(cfg, undistort)
+        self.graph = None
+        self.capture_s = None          # warm-up + capture, host seconds
+        self.pool_bytes = None         # device memory of the graph's pool
+        self.replays = 0
+        self.img_in = self.noise_in = None
+
+    def step(self, img: torch.Tensor, gumbel: Optional[torch.Tensor],
+             boot: Optional[BootNoise] = None):
+        if not (self.graphs and self.tracking):
+            info, corners, self.tracking = self._frame(
+                self.st, img, self.grid, gumbel, boot, self.tracking)
+            return pack_info(info), corners
+        if gumbel is None:
+            raise ValueError("a tracking frame needs its pose-RANSAC noise")
+        if self.graph is None:
+            self._capture(img, gumbel)
+        self.img_in.copy_(img)
+        self.noise_in.copy_(gumbel)
+        self.graph.replay()
+        self.replays += 1
+        return self._info_out.clone(), type(self._corners_out)(
+            *(t.clone() for t in self._corners_out))
+
+    def _capture(self, img, gumbel) -> None:
+        """Warm up, check and capture the tracking frame's graph. The
+        sync-debug mode of the checked pass is the process's: a
+        synchronisation that another thread makes meanwhile raises too."""
+        t0 = time.perf_counter()
+        st = self.st
+        # every branch, eagerly, on a copy of the state: a first pass makes
+        # the lazily built tables and loads the kernels and library handles
+        # (each body on its capture stream), the last fails on any
+        # synchronisation
+        shared = st.frozen_map or self.cfg.sdvl.localize_only
+        for i in range(CAPTURE_PASSES):
+            scratch = StepState(st.m if shared else _clone(st.m),
+                                _clone(st.carry), inplace=True,
+                                frozen_map=st.frozen_map)
+            with warming(), (_sync_errors() if i == CAPTURE_PASSES - 1
+                             else contextlib.nullcontext()):
+                self._frame(scratch, img, self.grid, gumbel, None, True)
+            del scratch
+        torch.cuda.synchronize()
+        self.img_in, self.noise_in = img.clone(), gumbel.clone()
+        graph = torch.cuda.CUDAGraph()
+        with graph_if.capture(graph) as cap:
+            info, corners, _ = self._frame(st, self.img_in, self.grid,
+                                           self.noise_in, None, True)
+            self._info_out = pack_info(info)
+            self._corners_out = corners
+        self.graph = graph
+        self.pool_bytes = cap.pool_bytes
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """Raise on any synchronising CUDA call within the block."""
+    was = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(was)

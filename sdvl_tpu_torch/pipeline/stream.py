@@ -6,10 +6,19 @@ map as it tracks); :meth:`SdvlStream.localizer` serves against a map
 snapshot written by either package, starting LOST. The loop
 
   * uploads each frame (uint8), or a whole chunk of frames in one copy,
-  * runs one step per frame (a Python loop; the step reads a few scalars
-    back per frame to choose its branches, see ``pipeline/device_fsm.py``),
-  * accumulates per-frame ``FrameInfo`` as device tensors,
+    asynchronously, through a ring of pinned host buffers
+    (:class:`HostUploads`);
+  * steps the frame (``device_fsm.StepRunner``): FIRST and SECOND frames
+    eagerly, reading back their state; on the card every tracking frame
+    (RUNNING or LOST: a localizer's from its first frame) is one replay of
+    a CUDA graph captured at the first of them, which decides its branches
+    on the device and reads nothing back (``graphs=False``: the eager card
+    path, one host read per decision);
+  * keeps each frame's ``FrameInfo`` packed in a device tensor of its own,
   * transfers all of them device->host exactly once, in :meth:`result`.
+
+So on the card ``feed(block=False)`` returns before the frame is done, and
+nothing synchronises between tracking frames.
 
 Random draws (:class:`NoiseSource`, shared with the host driver
 ``pipeline/sdvl.py``). The pose RANSAC needs Gumbel noise on every tracking
@@ -36,8 +45,8 @@ import torch
 from .. import require_device
 from ..core import se3
 from .config import Config
-from .device_fsm import (BootNoise, FrameInfo, STATE_LOST, cropped_shape,
-                         init_state, lane_counts, make_chunk_step, make_step,
+from .device_fsm import (BootNoise, FrameInfo, STATE_LOST, StepRunner,
+                         cropped_shape, init_state, lane_counts, unpack_info,
                          undistort_grid)
 
 STATE_NAMES = {0: "FIRST_FRAME", 1: "SECOND_FRAME", 2: "RUNNING", 3: "LOST"}
@@ -103,6 +112,41 @@ class Draws(NamedTuple):
     plane: np.ndarray
 
 
+class HostUploads:
+    """Host->device copies through a ring of pinned host buffers.
+
+    A copy from pageable memory makes the CUDA runtime wait for the stream;
+    from pinned memory it is asynchronous, so the host buffer must not be
+    rewritten before the copy has run. Each slot records an event after its
+    copy and is reused only once that event is done; while none is, the
+    ring grows by a slot. Nothing waits. On the CPU a copy is a plain
+    ``copy_``/``from_numpy``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._slots: List[list] = []    # [pinned uint8 buffer, event]
+
+    def upload(self, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` in a new tensor on the device."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return src.to(self.device)
+        n = src.numel() * src.element_size()
+        for slot in self._slots:
+            if slot[0].numel() >= n and slot[1].query():
+                break
+        else:
+            slot = [torch.empty(max(n, 1), dtype=torch.uint8,
+                                pin_memory=True), torch.cuda.Event()]
+            self._slots.append(slot)
+        host = slot[0][:n].view(src.dtype).view(src.shape)
+        host.copy_(src)
+        out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        out.copy_(host, non_blocking=True)
+        slot[1].record()
+        return out
+
+
 # the reference's fixed hypothesis counts of the two bootstrap RANSACs
 HOMOGRAPHY_HYPOTHESES = 128
 PLANE_HYPOTHESES = 64
@@ -125,6 +169,7 @@ class NoiseSource:
         self.seed = seed
         self.provider = provider
         self.n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
+        self._uploads = HostUploads(torch.device(device))
         n_corners, self.n_lanes = lane_counts(config)
         if isinstance(provider, Draws):
             self._pose_provider = provider.pose
@@ -173,34 +218,66 @@ class NoiseSource:
         g = np.stack([np.asarray(a, np.float32) for a in have])
         if g.shape[1:] != shape:
             raise ValueError(f"gumbel noise {g.shape[1:]}, expected {shape}")
-        dev = iter(torch.from_numpy(g).to(self.device).unbind(0))
+        dev = iter(self._uploads.upload(g).unbind(0))
         return [None if a is None else next(dev) for a in got]
 
 
 class SdvlStream:
-    """Streaming run over the per-frame state machine."""
+    """Streaming run over the per-frame state machine.
+
+    ``graphs`` (default: on for a CUDA device): tracking frames replay a
+    CUDA graph (see the module note); ``graphs=False`` steps them eagerly.
+    On the CPU every frame runs eagerly."""
 
     def __init__(self, config: Config, seed: int = 0, device="cuda",
-                 gumbel_provider=None):
+                 gumbel_provider=None, graphs: Optional[bool] = None):
         self.cfg = config
         self.device = require_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True needs a CUDA device")
+        self.graphs = graphs
         self.crop_h, self.crop_w = cropped_shape(config)
         self._grid = undistort_grid(config, self.device)
         self._undistort = self._grid is not None
-        self._step = make_step(config, self._undistort)
-        self._chunk_step = make_chunk_step(config, self._undistort)
-
-        self.m, self.carry = init_state(config, seed, device=self.device)
+        self._adopt(*init_state(config, seed, device=self.device))
+        self._uploads = HostUploads(self.device)
         self._noise = NoiseSource(config, seed, self.device, gumbel_provider)
         self._boot = self._noise.boot
         self._n_fed = 0
-        self._infos: List[FrameInfo] = []
+        self._rows: List[torch.Tensor] = []   # packed FrameInfo per frame
         self.last_corners = None   # Corners of the newest frame
+
+    def _adopt(self, m, carry) -> None:
+        """Make ``(m, carry)`` the stream's state, written in place from
+        now on. A captured graph holds the old state's addresses, so the
+        stream starts a new runner; it reads the state back on its first
+        frame unless it is a localizer's."""
+        self.runner = StepRunner(self.cfg, self._undistort, m, carry,
+                                 self._grid, self.graphs)
+
+    @property
+    def m(self):
+        return self.runner.st.m
+
+    @m.setter
+    def m(self, m) -> None:
+        self._adopt(m, self.carry)
+
+    @property
+    def carry(self):
+        return self.runner.st.carry
+
+    @carry.setter
+    def carry(self, carry) -> None:
+        self._adopt(self.m, carry)
 
     # --------------------------------------------------------- serving
     @classmethod
     def localizer(cls, config: Config, snapshot_path: str, seed: int = 0,
-                  device="cuda", gumbel_provider=None) -> "SdvlStream":
+                  device="cuda", gumbel_provider=None,
+                  graphs: Optional[bool] = None) -> "SdvlStream":
         """Localization-only serving stream against a frozen, prebuilt map.
 
         Loads a stream snapshot (``io.snapshot``; the JAX package's
@@ -216,7 +293,7 @@ class SdvlStream:
                 sdvl=dataclasses.replace(config.sdvl, localize_only=True),
             )
         stream = cls(config, seed=seed, device=device,
-                     gumbel_provider=gumbel_provider)
+                     gumbel_provider=gumbel_provider, graphs=graphs)
         m, carry = load_stream_arrays(snapshot_path, device=stream.device)
         if m.capacities != stream.m.capacities:
             raise ValueError(
@@ -224,24 +301,25 @@ class SdvlStream:
                 f"{stream.m.capacities}"
             )
         dev = stream.device
-        stream.m = m
-        stream.carry = carry._replace(
+        stream._adopt(m, carry._replace(
             state=torch.tensor(STATE_LOST, dtype=torch.int32, device=dev),
             lost_frames=torch.tensor(3, dtype=torch.int32, device=dev),
             xi_model=torch.zeros(6, dtype=torch.float32, device=dev),
-        )
+        ))
         return stream
 
     # ------------------------------------------------------------- feeding
+    def _step(self, img: torch.Tensor, gumbel) -> FrameInfo:
+        row, self.last_corners = self.runner.step(img, gumbel, self._boot)
+        self._n_fed += 1
+        self._rows.append(row)
+        return unpack_info(row)
+
     def feed(self, img: np.ndarray, block: bool = False) -> FrameInfo:
         """Process one frame. Returns its FrameInfo as device tensors."""
-        img = np.ascontiguousarray(
-            np.asarray(img)[: self.crop_h, : self.crop_w])
-        self.m, self.carry, info, self.last_corners = self._step(
-            self.m, self.carry, torch.from_numpy(img).to(self.device),
-            self._grid, self._noise.pose(self._n_fed, 1)[0], self._boot)
-        self._n_fed += 1
-        self._infos.append(info)
+        img = np.asarray(img)[: self.crop_h, : self.crop_w]
+        info = self._step(self._uploads.upload(img),
+                          self._noise.pose(self._n_fed, 1)[0])
         if block:
             self.block()
         return info
@@ -249,15 +327,12 @@ class SdvlStream:
     def feed_chunk(self, imgs: np.ndarray, block: bool = False
                    ) -> List[FrameInfo]:
         """Process a (T, H, W) stack of frames: ONE host->device copy, then
-        a Python loop over its frames."""
-        imgs = np.ascontiguousarray(
-            np.asarray(imgs)[:, : self.crop_h, : self.crop_w])
-        dev_imgs = torch.from_numpy(imgs).to(self.device)
+        one step (on the card, one graph replay per tracking frame) per
+        frame."""
+        imgs = np.asarray(imgs)[:, : self.crop_h, : self.crop_w]
+        dev_imgs = self._uploads.upload(imgs)
         gumbels = self._noise.pose(self._n_fed, len(imgs))
-        self.m, self.carry, infos, self.last_corners = self._chunk_step(
-            self.m, self.carry, dev_imgs, self._grid, gumbels, self._boot)
-        self._n_fed += len(imgs)
-        self._infos.extend(infos)
+        infos = [self._step(img, g) for img, g in zip(dev_imgs, gumbels)]
         if block:
             self.block()
         return infos
@@ -269,34 +344,16 @@ class SdvlStream:
 
     # ------------------------------------------------------------- results
     def result(self) -> SlamResult:
-        """ONE device->host transfer of every recorded frame's info
-        (:func:`pack_infos`)."""
-        if not self._infos:
+        """ONE device->host transfer of every recorded frame's packed
+        info."""
+        if not self._rows:
             raise ValueError("no frames fed")
-        return SlamResult(unpack_infos(pack_infos(self._infos).cpu().numpy()))
-
-
-def pack_infos(infos: List[FrameInfo]) -> torch.Tensor:
-    """Frames' infos packed on their device into one (N, 21) float32 matrix
-    (pose 7 + world_tf 7 + 7 scalar columns; every int fits float32
-    exactly), for a single device->host copy."""
-    return torch.stack([
-        torch.cat([
-            info.pose, info.world_tf,
-            torch.stack([
-                info.state.float(), info.quality.float(),
-                info.n_matches.float(), info.n_attempts.float(),
-                info.is_keyframe.float(), info.n_corners.float(),
-                info.median_shift.float(),
-            ]),
-        ])
-        for info in infos
-    ])
+        return SlamResult(unpack_infos(torch.stack(self._rows).cpu().numpy()))
 
 
 def unpack_infos(packed: np.ndarray) -> FrameInfo:
-    """Inverse of :func:`pack_infos` on the host: a FrameInfo of numpy
-    arrays with leading dim N."""
+    """Frames' packed infos (N, 21) (``device_fsm.pack_info``) on the host:
+    a FrameInfo of numpy arrays with leading dim N."""
     return FrameInfo(
         pose=packed[:, 0:7],
         world_tf=packed[:, 7:14],

@@ -108,13 +108,14 @@ def track_frame(m: MapState, intr, last_pyr, last_pt_idx: torch.Tensor,
 
 
 def update_point_stats(m: MapState, tr: TrackResult, max_failed: int = 15,
-                       enabled: bool = True) -> MapState:
+                       enabled=True) -> MapState:
     """Success/failure counters on tracked points: a match counts one
     success and clears the failure run, an attempted miss counts one
     failure, and a point with more than ``max_failed`` consecutive failures
-    dies. ``enabled`` (a host bool: the step knows its branch) turns the
-    counting off, as while relocalizing nothing is counted."""
-    if not enabled:
+    dies. ``enabled`` (a host bool, or a () bool tensor that is selected on
+    the device) turns the counting off, as while relocalizing nothing is
+    counted."""
+    if isinstance(enabled, bool) and not enabled:
         return m._replace(pt_valid=m.pt_valid & (m.pt_fail <= max_failed))
     P = m.pt_valid.shape[0]
     dump = torch.full_like(tr.match_pt_idx, P)
@@ -124,6 +125,9 @@ def update_point_stats(m: MapState, tr: TrackResult, max_failed: int = 15,
     pt_found = scatter(m.pt_found, idx_ok, 1, accumulate=True)
     pt_fail = scatter(m.pt_fail, idx_ok, 0)
     pt_fail = scatter(pt_fail, idx_bad, 1, accumulate=True)
+    if isinstance(enabled, torch.Tensor):
+        pt_found = torch.where(enabled, pt_found, m.pt_found)
+        pt_fail = torch.where(enabled, pt_fail, m.pt_fail)
     pt_valid = m.pt_valid & (pt_fail <= max_failed)
     return m._replace(pt_found=pt_found, pt_fail=pt_fail, pt_valid=pt_valid)
 

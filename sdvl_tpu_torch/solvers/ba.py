@@ -153,7 +153,12 @@ def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     S_full = S.transpose(1, 2).reshape(K * 6, K * 6)
     L, info = torch.linalg.cholesky_ex(
         S_full + 1e-8 * torch.eye(K * 6, dtype=S.dtype, device=dev))
-    dc = torch.cholesky_solve(rhs.reshape(K * 6, 1), L).reshape(K, 6)
+    # the reference's cho_solve: two triangular solves. (cholesky_solve
+    # would be cuSOLVER's potrs, which can allocate stream-ordered memory
+    # inside a CUDA graph capture; a conditional node's body cannot hold
+    # such an allocation.)
+    y = torch.linalg.solve_triangular(L, rhs.reshape(K * 6, 1), upper=False)
+    dc = torch.linalg.solve_triangular(L.mT, y, upper=True).reshape(K, 6)
     dc = torch.where(info != 0, torch.full_like(dc, float("nan")), dc)
 
     # back-substitute points: dp = Vinv (b_p - sum_k W_pk^T dc_k)

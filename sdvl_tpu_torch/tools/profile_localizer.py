@@ -1,4 +1,5 @@
-"""Where a localizer frame's time goes on the GPU: a torch.profiler trace.
+"""Where a localizer frame's time goes on the GPU: a torch.profiler trace
+of the eager card path (``graphs=False``).
 
 Runs the localization-only stream at the tum_f1 preset shape on the committed
 fixtures (``tests/data/torch_localize_*.npz``), warms up on the first frames,
@@ -108,9 +109,12 @@ def main(argv=None) -> int:
         detect.fast_shi_tomasi_cells = detect.fast_shi_tomasi_cells_plain
     query = dict(np.load(chip_smoke.QUERY_NPZ))
     gumbel = query["gumbel"]
+    # the eager card path: the stage clocks wait for the device, which a
+    # graph capture cannot
     loc = SdvlStream.localizer(cfg, chip_smoke.MAP_NPZ, seed=1,
                                device="cuda",
-                               gumbel_provider=lambda i: gumbel[i])
+                               gumbel_provider=lambda i: gumbel[i],
+                               graphs=False)
     frames = query["frames"]
     if args.warm + 3 * args.frames > len(frames):
         ap.error(f"warm + 3 * frames exceeds the {len(frames)} query frames")

@@ -1,4 +1,6 @@
-"""Where a full-SLAM frame's time goes on the GPU, by what the frame runs.
+"""Where a full-SLAM frame's time goes on the GPU, by what the frame runs,
+on the eager card path (``graphs=False``: one launch per op, as a graph
+replays them).
 
 Runs the map-building stream at the tum_f1 preset shape over the frames that
 ``chip_smoke.py`` renders (the 85 of ``tests/data/torch_slam_record.npz``,
@@ -133,8 +135,11 @@ def main(argv=None) -> int:
                                    use_pallas_detect=True)
 
     def stream():
+        # the eager card path: the stage clocks wait for the device, which
+        # a graph capture cannot
         return SdvlStream(cfg, seed=0, device="cuda",
-                          gumbel_provider=chip_smoke.slam_draws(rec))
+                          gumbel_provider=chip_smoke.slam_draws(rec),
+                          graphs=False)
 
     # warm-up run (kernel libraries, allocator), then the stage-timed run
     st = stream()

@@ -113,11 +113,11 @@ def test_wrapper_takes_plain_version_on_cpu_only(border):
     launch; the CUDA branch has no fallback (it builds and launches or
     raises), which this machine can only check by reading the dispatch."""
     img = T(blocky_image(6, (64, 96)))
-    before = detect.launch_count
+    before = detect.launches()
     out = detect.fast_shi_tomasi_map(img, FAST_T, ST_T)
     cells = detect.fast_shi_tomasi_cells([img, img[::2, ::2].contiguous()],
                                          16, FAST_T, ST_T, border)
-    assert detect.launch_count == before
+    assert detect.launches() == before
     torch.testing.assert_close(
         out, detect.fast_shi_tomasi_map_plain(img, FAST_T, ST_T),
         rtol=0, atol=0)

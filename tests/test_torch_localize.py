@@ -90,14 +90,14 @@ def _serve(mapped, fused: bool, monkeypatch, query=None, **knobs):
     tloc = TStream.localizer(cfg_t, snap, seed=1, device="cpu",
                              gumbel_provider=lambda i: noise[i])
     before = [t.clone() for t in _leaves(tloc.m)]
-    launches = t_detect.launch_count
+    launches = t_detect.launches()
     half = len(query) // 2
     for f in query[:half]:                      # frame by frame ...
         tloc.feed(f)
     tloc.feed_chunk(np.stack(query[half:]), block=True)   # ... and chunked
     rt = tloc.result()
     return rj, rt, before, _leaves(tloc.m), \
-        t_detect.launch_count - launches, tloc
+        t_detect.launches() - launches, tloc
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])

@@ -22,6 +22,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 N_FRAMES = 10
@@ -61,7 +62,8 @@ def _run(mesh_point=None, mesh_stream=None) -> dict:
     from sdvl_tpu_torch.solvers import ba
 
     out = {}
-    problem = multihost.demo_ba_problem()
+    # the CPU on every rank (gloo) and in the one-process reference
+    problem = multihost.demo_ba_problem(device="cpu")
     for method in METHODS:
         if mesh_point is None:
             r = ba.solve(problem, huber=HUBER, method=method)
@@ -144,3 +146,17 @@ def test_two_processes_match_one(tmp_path):
 
 if __name__ == "__main__":
     sys.exit(_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]))
+
+
+def test_initialize_defaults_to_the_card_and_never_falls_back():
+    """``backend=None`` is nccl on the card: without one it raises the
+    error ``require_device`` gives, and does not pick gloo on its own."""
+    import torch.distributed as dist
+
+    from sdvl_tpu_torch.dist import multihost
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: nccl would start")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        multihost.initialize("127.0.0.1:1", 1, 0, backend=None)
+    assert not dist.is_initialized()

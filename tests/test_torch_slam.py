@@ -48,10 +48,10 @@ def runs(scene):
 
     def get(fused: bool):
         if fused not in out:
-            launches = t_detect.launch_count
+            launches = t_detect.launches()
             out[fused] = slam_pair(
                 cfg_j, cfg_t, frames, route="pallas" if fused else "plain"
-            ) + (t_detect.launch_count - launches,)
+            ) + (t_detect.launches() - launches,)
         return out[fused]
 
     return get

@@ -222,3 +222,47 @@ def synthetic_ba_problem(K, P, seed=0, noise=0.02, span=None):
         np.float32)
     pts_init = pts + rs.normal(0, noise, (P, 3)).astype(np.float32)
     return (poses_init, fixed, pts_init, uv, np.ones((P, K), bool), poses)
+
+
+GRAPH_STEP_SHAPE = (128, 160)
+
+
+def graph_step_scene(n_scene=30, n_blank=6, **knobs):
+    """The small full-SLAM sequence of the device-resident step's tests
+    (port only, no JAX): a 128x160 ``PlaneScene`` whose stream bootstraps
+    and inserts tracked keyframes, then ``n_blank`` featureless frames after
+    frame 22 that send it LOST long enough for the relocalizer to sweep
+    every keyframe. Returns (config, uint8 frames)."""
+    from sdvl_tpu_torch.io.synthetic import PlaneScene
+    from sdvl_tpu_torch.pipeline import config as tcfg
+
+    H, W = GRAPH_STEP_SHAPE
+    cam = dict(width=W, height=H, fx=105.0, fy=105.0, u0=79.5, v0=63.5,
+               dist=(0, 0, 0, 0, 0))
+    sdvl = dict(cell_size=16, min_avg_shift=3.0, max_keyframes=8,
+                min_keyframe_its=4, min_init_corners=20, max_points=256,
+                max_candidates=128, min_matches=10, map_scale=4.0,
+                # two relocalization lanes, every keyframe after one more
+                # failed LOST frame
+                reloc_max_keyframes=2, reloc_escalate_after=1)
+    sdvl.update(knobs)
+    cfg = tcfg.Config(camera=tcfg.CameraConfig(**cam),
+                      sdvl=tcfg.SdvlConfig(**sdvl))
+    scene = PlaneScene(fx=105.0, fy=105.0, cx=79.5, cy=63.5, width=W,
+                       height=H, plane_z=4.0)
+    seq = [np.clip(scene.render(p), 0, 255).astype(np.uint8)
+           for p in scene.trajectory(n_scene, translation_amp=1.0)]
+    blank = [np.full((H, W), 40 + 10 * i, np.uint8) for i in range(n_blank)]
+    return cfg, seq[:22] + blank + seq[22:]
+
+
+def jax_config(cfg_t):
+    """The JAX package's ``Config`` with the numbers of the port's
+    ``cfg_t``."""
+    import dataclasses
+
+    from sdvl_tpu.pipeline import config as jcfg
+
+    return jcfg.Config(
+        camera=jcfg.CameraConfig(**dataclasses.asdict(cfg_t.camera)),
+        sdvl=jcfg.SdvlConfig(**dataclasses.asdict(cfg_t.sdvl)))
