@@ -58,6 +58,16 @@ ending the run with a non-zero exit code:
    one replay's kernels and device time (``torch.profiler``), and the
    device memory of the graph's pool; dropping the stream must give at
    least that pool back to the card.
+   host    -- the host driver ``SDVL`` on the same 85 frames and draws, on
+   the graph path (each stage a replay of its own CUDA graph) and on the
+   eager card path (``graphs=False``): both held to the record; states,
+   match counts, keyframe flags, poses and trajectory bit-identical between
+   the two; one synchronisation on each tracking frame that captures no
+   graph; two or more stage replays on each tracking frame and none on the
+   others; kernel launches = frames + 2 in the preprocess graph's capture;
+   prints synchronisations, replays and ms per frame by state, frames/s of
+   both paths, each stage graph's pool and capture time; dropping the
+   driver must give its pool back.
 5. slice   -- ``SdvlStream.localizer`` at the tum_f1 preset shape on the
    committed JAX-built map snapshot, the 24 committed query frames through
    ``feed_chunk`` with the recorded RANSAC noise, ``result()``; checks
@@ -90,15 +100,21 @@ ending the run with a non-zero exit code:
    same at 100 slots: states and keyframe flags equal run 1's, centres
    within 1e-4 of the extent; then ``mapper.global_ba`` on its final map
    at 100 slots (Cholesky) and padded to 1000 (PCG): poses within 5e-4,
-   points within 5e-3; (3) the host driver with ``--trace --snapshot``:
-   trajectory within 1e-4 of run 2's, ``n_matches`` within 1 on at most
-   15 % of RUNNING frames, the trace holds ``preprocess`` and ``track``;
+   points within 5e-3; (3) the host driver (its stages CUDA graph
+   replays) with ``--trace --snapshot``: trajectory within 1e-4 of run
+   2's, ``n_matches`` within 1 on at most 15 % of RUNNING frames, the trace
+   holds ``preprocess`` and ``track``, one synchronisation on each tracking
+   frame that captures no graph;
    (3b) the host driver with ``--viz DIR --viz-every 10`` over 30 frames:
    the PNGs exist and decode, and the frames it does not record synchronise
    as run 3's do (without matplotlib: ``--viz`` must stop before the first
    frame with an error naming it, then the recorder runs with its map
-   figures off); (4) ``--async-mapping``: the criteria of
-   ``tests/test_runtime_async.py``; (5) ``--resume`` of run 3's snapshot
+   figures off); (3c) the host driver at the shipped capacity: states
+   equal run 3's, camera centres within 1e-4 of the extent, one
+   synchronisation per tracking frame; (4) ``--async-mapping`` at 100 and
+   at 1000 slots: the criteria of ``tests/test_runtime_async.py``, one
+   synchronisation per tracking frame; each host run prints frames/s,
+   replays per frame and its graphs' pools; (5) ``--resume`` of run 3's snapshot
    over 6 more frames, and ``--stream --localize`` of run 1's map on frames
    8-31 (RUNNING within 5 frames and on the last 5, ATE under 5 %).
 8. dist    -- ``torch.distributed`` with nccl at world size 1:
@@ -117,8 +133,10 @@ ending the run with a non-zero exit code:
    graph captures
    (``slam_eager``: the graph phase's eager card run)
    (stream-frames for ``multi_1``, ``multi_4``, ``multi_8`` and
-   ``multi_slam``; ``cli_stream``, ``cli_host``, ``cli_async``, ``cli_viz``
-   for the cli phase). ``ms`` is the pallas border rule's device time,
+   ``multi_slam``; ``cli_stream``, ``cli_host``, ``cli_host_1000``,
+   ``cli_async``, ``cli_async_1000``, ``cli_viz``
+   for the cli phase; ``host``, ``host_eager`` for phase host). ``ms`` is
+   the pallas border rule's device time,
    ``plain_border_ms`` the plain rule's.
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
@@ -594,24 +612,28 @@ def check_slam_run(r, rec, n=None) -> dict:
                 max_match_diff=int(dm.max()))
 
 
-CAPTURES = [0]      # graph captures since reset_counts()
+CAPTURES = [0]      # captures of graphs that hold the kernel, since
+                    # reset_counts()
+# the stage graphs that launch the detection kernel: the stream's step and
+# the host driver's locked preprocess
+KERNEL_GRAPHS = ("step", "preprocess")
 
 
 def count_captures() -> None:
-    """Count every ``StepRunner`` capture in ``CAPTURES`` from now on (once
-    per process)."""
-    from sdvl_tpu_torch.pipeline.device_fsm import StepRunner
+    """Count every capture of a graph that holds the detection kernel in
+    ``CAPTURES`` from now on (once per process)."""
+    from sdvl_tpu_torch.pipeline.device_fsm import StageGraph
 
-    capture = StepRunner._capture
-    if getattr(capture, "counted", False):
+    init = StageGraph.__init__
+    if getattr(init, "counted", False):
         return
 
-    def counted(self, *a, **k):
-        CAPTURES[0] += 1
-        return capture(self, *a, **k)
+    def counted(self, name, *a, **k):
+        CAPTURES[0] += name in KERNEL_GRAPHS
+        return init(self, name, *a, **k)
 
     counted.counted = True
-    StepRunner._capture = counted
+    StageGraph.__init__ = counted
 
 
 def reset_counts() -> None:
@@ -702,11 +724,11 @@ def state_groups(r) -> dict:
     }
 
 
-def per_state(r, values, skip: int = -1) -> dict:
+def per_state(r, values, skip=-1) -> dict:
     """Mean of per-frame ``values`` by :func:`state_groups`, frame ``skip``
-    (the graph's capture frame) left out."""
+    (the graph's capture frame; or a list of frames) left out."""
     v = np.asarray(values, np.float64)
-    keep = np.arange(len(v)) != skip
+    keep = ~np.isin(np.arange(len(v)), skip)
     return {k: {"frames": int((m & keep).sum()),
                 "mean": float(v[m & keep].mean()) if (m & keep).any()
                 else None}
@@ -844,13 +866,14 @@ def replay_profile(st, img, reps: int = 3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    r = st.runner
-    r.img_in.copy_(torch.from_numpy(img).to(r.img_in.device))
+    g = st.runner.graph
+    img_in = g.inputs[0]
+    img_in.copy_(torch.from_numpy(img).to(img_in.device))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            r.graph.replay()
+            g.graph.replay()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
@@ -916,7 +939,7 @@ def run_graph_phase(card: str, slam: dict) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        ga.runner.graph.replay()
+        ga.runner.graph.graph.replay()
     t_call = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t0
@@ -982,6 +1005,166 @@ def run_graph_phase(card: str, slam: dict) -> dict:
                  + (f"): {prof['kernels']:.0f} kernels and {prof['copies']:.0f} "
                     f"copies/memsets, {prof['device_ms']:.3f} ms of device "
                     f"time" if prof else ")") + f" on {card}")
+    return out
+
+
+STATE_CODES = {"FIRST_FRAME": 0, "SECOND_FRAME": 1, "RUNNING": 2, "LOST": 3}
+
+
+def graph_replays(slam) -> int:
+    """Replays so far of the host driver's stage graphs."""
+    return sum(g.replays for g in slam._graphs.values())
+
+
+def run_host(cfg, frames, rec, graphs: bool):
+    """The host driver ``SDVL`` over the frames, frame by frame,
+    synchronised and timed per frame, its synchronisations counted. Returns
+    (driver, infos, seconds, synchronisation sites, (kernel launches,
+    captures of the preprocess graph), graph replays, stage graphs captured)
+    per frame."""
+    from sdvl_tpu_torch.pipeline.sdvl import SDVL
+
+    slam = SDVL(cfg, seed=0, device="cuda", gumbel_provider=slam_draws(rec),
+                graphs=graphs)
+    torch.cuda.synchronize()
+    infos, seconds, sites, replays, captured = [], [], [], [], []
+    reset_counts()
+    for f in frames:
+        n0, g0 = graph_replays(slam), set(slam._graphs)
+        t0 = time.perf_counter()
+        sites.append(sync_sites(lambda: infos.append(slam.handle_frame(f))))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        replays.append(graph_replays(slam) - n0)
+        captured.append(sorted(set(slam._graphs) - g0))
+    return slam, infos, seconds, sites, read_counts(), replays, captured
+
+
+def host_result(slam, infos):
+    """A host-driver run in the layout ``check_slam_run`` reads: the state
+    after each frame, the bootstrap frames' inlier counts as their
+    ``n_matches`` (as the stream reports them)."""
+    import types
+
+    traj = np.stack([p for _, p in slam.trajectory])
+    states = [STATE_CODES[i["state"]] for i in infos[1:]] + [
+        slam.state.value]
+    return types.SimpleNamespace(
+        n_frames=len(infos), poses_raw=traj, trajectory=traj,
+        states=np.asarray(states),
+        is_keyframe=np.asarray([i["keyframe"] for i in infos]),
+        n_matches=np.asarray([i.get("n_inliers", i["n_matches"])
+                              for i in infos]))
+
+
+def packed_host_infos(slam, infos) -> np.ndarray:
+    """Each frame's (state, n_matches, n_attempts, keyframe, pose (7,)) and
+    its trajectory row: what the driver returned and kept."""
+    traj = np.stack([p for _, p in slam.trajectory])
+    head = np.asarray([[STATE_CODES[i["state"]], i["n_matches"],
+                        i["n_attempts"], i["keyframe"]] for i in infos],
+                      np.float64)
+    return np.concatenate([head, np.stack([i["pose"] for i in infos]),
+                           traj], axis=1)
+
+
+def run_host_phase(card: str, slam_out: dict) -> dict:
+    """Phase host (see the module docstring): the host driver on the 85
+    record frames, on the graph path and on the eager card path."""
+    rec, frames, cfg = slam_out["_rec"], slam_out["_frames"], slam_out["_cfg"]
+    n = len(frames)
+    runs = {}
+    for graphs in (True, False):
+        runs[graphs] = run_host(cfg, frames, rec, graphs)
+    out = {}
+    g_slam, g_infos, g_secs, g_sites, (g_l, g_c), g_rep, g_cap = runs[True]
+    e_slam, e_infos, e_secs, e_sites, (e_l, e_c), e_rep, _ = runs[False]
+    r = host_result(g_slam, g_infos)
+    chk = check_slam_run(r, rec)
+    check_slam_run(host_result(e_slam, e_infos), rec)
+    pg, pe = packed_host_infos(g_slam, g_infos), packed_host_infos(e_slam,
+                                                                   e_infos)
+    frames_diff = np.nonzero((pg != pe).any(1))[0].tolist()
+    assert not frames_diff, (
+        f"host driver: graph path differs from the eager card path on "
+        f"frames {frames_diff}")
+    # one read per tracking frame, once its stages' graphs exist
+    tracking = [i for i, x in enumerate(g_infos)
+                if x["state"] in ("RUNNING", "LOST")]
+    capture_frames = [i for i, c in enumerate(g_cap) if c]
+    g_syncs = [len(x) for x in g_sites]
+    e_syncs = [len(x) for x in e_sites]
+    steady = [i for i in tracking if i not in capture_frames]
+    bad = {i: g_sites[i] for i in steady if g_syncs[i] != 1}
+    assert not bad, f"tracking frames with other than 1 synchronisation: {bad}"
+    assert all(g_rep[i] >= 2 for i in tracking) and not any(
+        g_rep[i] for i in range(n) if i not in tracking), g_rep
+    assert g_c == 1 and frame_launches(g_l, g_c) == n, (g_l, g_c)
+    assert e_l == n and e_c == 0 and not any(e_rep), (e_l, e_c)
+    ms_g = per_state(r, [1e3 * x for x in g_secs])
+    ms_g_steady = per_state(r, [1e3 * x for x in g_secs],
+                            skip=capture_frames)
+    ms_e = per_state(r, [1e3 * x for x in e_secs])
+    sy_g = per_state(r, g_syncs, skip=capture_frames)
+    sy_e = per_state(r, e_syncs)
+    rp = per_state(r, g_rep)
+    g_steady = [x for i, x in enumerate(g_secs) if i in steady]
+    e_steady = [x for i, x in enumerate(e_secs) if i in steady]
+    pools = {k: v.pool_bytes for k, v in g_slam._graphs.items()}
+    capture_s = {k: v.capture_s for k, v in g_slam._graphs.items()}
+    # the driver's pool goes back to the card with the driver
+    pool = g_slam.pool_bytes
+    del runs, e_slam
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    del g_slam
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_reserved()
+    assert freed >= pool, (freed, pool)
+    out = dict(frames=n, check=chk, equal_to_eager=True,
+               launches=g_l, captures=g_c, eager_launches=e_l,
+               capture_frames=capture_frames,
+               captured={i: g_cap[i] for i in capture_frames},
+               syncs=g_syncs, eager_syncs=e_syncs, replays=g_rep,
+               syncs_by_state=sy_g, eager_syncs_by_state=sy_e,
+               replays_by_state=rp, ms_by_state=ms_g,
+               ms_by_state_steady=ms_g_steady, eager_ms_by_state=ms_e,
+               frames_per_s=len(g_steady) / sum(g_steady),
+               eager_frames_per_s=len(e_steady) / sum(e_steady),
+               pool_bytes=pool, pool_bytes_by_stage=pools,
+               capture_s_by_stage=capture_s, freed_on_drop_bytes=freed)
+
+    def fmt(d):
+        return ", ".join(f"{k} {v['mean']:.2f}" for k, v in d.items()
+                         if v["frames"])
+
+    say("host", f"SDVL on the {n} record frames, graph path, held to the "
+                f"JAX record: {chk}")
+    say("host", f"graph path against the eager card path (graphs=False): "
+                f"states, match counts, keyframe flags, poses and trajectory "
+                f"of all {n} frames bit-identical")
+    say("host", f"stage graphs captured at frames "
+                + ", ".join(f"{i}: {g_cap[i]}" for i in capture_frames)
+                + "; warm-up and capture s "
+                + ", ".join(f"{k} {v:.2f}" for k, v in capture_s.items()))
+    say("host", f"synchronisations per frame by state, graph (capture "
+                f"frames apart) / eager: {fmt(sy_g)} / {fmt(sy_e)}; "
+                f"{g_syncs}")
+    say("host", f"graph replays per frame by state: {fmt(rp)}; {g_rep}")
+    say("host", f"ms per frame by state (synchronised per frame), graph "
+                f"(capture frames apart) / eager: {fmt(ms_g_steady)} / "
+                f"{fmt(ms_e)}; tracking frames/s {out['frames_per_s']:.3f} / "
+                f"{out['eager_frames_per_s']:.3f} on {card}")
+    say("host", f"kernel launches (counted by the kernel) {g_l} = 1 x {n} "
+                f"frames + {g_l - n} in the preprocess graph's capture; "
+                f"eager {e_l}")
+    say("host", f"the driver's stage graphs share one pool: "
+                f"{pool / 2**20:.1f} MiB ("
+                + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in pools.items())
+                + f" MiB); dropping the driver gave {freed / 2**20:.1f} MiB "
+                  f"back to the card")
     return out
 
 
@@ -1248,13 +1431,28 @@ def run_cli(argv, device: str = "cuda") -> dict:
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
 
     on_card = device == "cuda"
-    rec = {"frame_syncs": [], "mappers": [], "sync_sites": {}}
+    rec = {"frame_syncs": [], "mappers": [], "sync_sites": {},
+           "frame_replays": [], "frame_captures": []}
     caught = []
+
+    def graphs(drv):
+        """(stage graphs, their replays) of a host driver and its mapper."""
+        if not isinstance(drv, SDVL):
+            return 0, 0
+        gs = list(drv._graphs.values())
+        if drv._async_mapper is not None:
+            gs += list(drv._async_mapper._graphs.values())
+        return len(gs), sum(g.replays for g in gs)
 
     def counted(fn):
         def wrapper(self, *a, **k):
+            rec["driver"] = self
             n0 = len(caught)
+            c0, r0 = graphs(self)
             out = fn(self, *a, **k)
+            c1, r1 = graphs(self)
+            rec["frame_captures"].append(c1 - c0)
+            rec["frame_replays"].append(r1 - r0)
             new = [w for w in caught[n0:] if "synchroniz" in str(w.message)]
             rec["frame_syncs"].append(len(new))
             for w in new:
@@ -1286,6 +1484,12 @@ def run_cli(argv, device: str = "cuda") -> dict:
             super().__init__(*a, **k)
             rec["mappers"].append(self)
 
+        def stop(self):
+            # stopping drops the graphs: their pools, before
+            rec["pool_bytes"] = self.slam.pool_bytes
+            rec["mapper_pool_bytes"] = self.pool_bytes
+            super().stop()
+
     buf = io.StringIO()
     reset_counts()
     with contextlib.ExitStack() as stack:
@@ -1307,6 +1511,12 @@ def run_cli(argv, device: str = "cuda") -> dict:
         rc = cli.main(["--device", device, *argv])
         rec["wall_s"] = time.perf_counter() - t0
     assert rc == 0, rc
+    drv = rec.pop("driver", None)
+    if isinstance(drv, SDVL):
+        rec.setdefault("pool_bytes", drv.pool_bytes)
+    elif drv is not None and drv.runner.graph is not None:
+        rec["pool_bytes"] = drv.runner.pool_bytes
+    del drv
     rec["launches"], rec["captures"] = read_counts()
     rec["frame_launches"] = frame_launches(rec["launches"], rec["captures"])
     rec["lines"] = buf.getvalue().splitlines()
@@ -1364,17 +1574,36 @@ def pad_keyframe_slots(m, n_slots: int):
     return m._replace(**out)
 
 
+def tracking_syncs(rec) -> list:
+    """The synchronisations of each tracking (RUNNING or LOST) frame of a
+    host-driver CLI run that captured no graph."""
+    return [n for st, n, c in zip(rec["states"], rec["frame_syncs"],
+                                  rec["frame_captures"])
+            if st in ("RUNNING", "LOST") and not c]
+
+
 def per_frame(rec, card: str) -> str:
     s = rec["summary"]
     n = len(rec["frame_syncs"])
     sites = sorted(rec["sync_sites"].items(), key=lambda kv: -kv[1])
+    graphs = ""
+    if any(rec["frame_captures"]):
+        pools = rec.get("pool_bytes", 0) + rec.get("mapper_pool_bytes", 0)
+        graphs = (f"; {np.mean(rec['frame_replays']):.2f} stage graph "
+                  f"replays per frame, {sum(rec['frame_captures'])} stage "
+                  f"graphs captured at frames "
+                  f"{np.nonzero(rec['frame_captures'])[0].tolist()}, pools "
+                  f"{rec.get('pool_bytes', 0) / 2**20:.1f} MiB (tracker) + "
+                  f"{rec.get('mapper_pool_bytes', 0) / 2**20:.1f} MiB "
+                  f"(mapper) = {pools / 2**20:.1f} MiB")
     return (f"{s['fps']} frames/s, {s['mean_ms']} ms per frame (the CLI's "
             f"steady-state numbers), {rec['wall_s']:.1f} s in all; "
             f"{np.mean(rec['frame_syncs']):.2f} synchronisations per frame "
             f"({sum(rec['frame_syncs'])} in {n} frames, {rec['syncs']} in "
             f"the whole run; by site {dict(sites[:8])}); detection kernel "
             f"{rec['launches']} launches in {n} frames and "
-            f"{rec['captures']} graph captures; on {card}")
+            f"{rec['captures']} captures of a graph that holds it"
+            f"{graphs}; on {card}")
 
 
 CLI_VIZ_FRAMES = 30
@@ -1565,6 +1794,84 @@ def run_dist_phase(card: str, m100, device: str = "cuda",
     return out
 
 
+def host_run_summary(rec) -> dict:
+    """What a host-driver CLI run reports: its summary, the kernel's
+    launches, synchronisations per frame and per steady tracking frame,
+    stage graph replays per frame and the graphs' pools."""
+    return dict(summary=rec["summary"], launches=rec["launches"],
+                captures=rec["captures"], frames=len(rec["frame_syncs"]),
+                syncs_per_frame=float(np.mean(rec["frame_syncs"])),
+                tracking_syncs_per_frame=float(np.mean(tracking_syncs(rec))),
+                replays_per_frame=float(np.mean(rec["frame_replays"])),
+                pool_bytes=rec.get("pool_bytes"),
+                mapper_pool_bytes=rec.get("mapper_pool_bytes"))
+
+
+def check_async_run(rec, txt: str, gt, min_m: int) -> dict:
+    """An ``--async-mapping`` run against the criteria of
+    ``tests/test_runtime_async.py``, with 1 synchronisation on each
+    tracking frame that captured no graph."""
+    n = CLI_FRAMES
+    states = np.asarray(rec["states"])
+    mapper_ = rec["mappers"][0]
+    running = states == "RUNNING"
+    nm = np.asarray(rec["n_matches"])[running]
+    rows = tum_rows(txt, n)
+    ate = sim3_ate_pct(rows[running, 1:4], gt[running])
+    assert mapper_.processed > 0 and states[-1] == "RUNNING"
+    assert running.mean() >= 18 / 26, states.tolist()
+    assert (nm >= min_m).mean() > 0.8, nm.tolist()
+    assert rec["summary"]["points"] >= 30
+    assert rec["summary"]["keyframes"] >= 2
+    assert ate < 5.0, ate
+    assert rec["frame_launches"] == n
+    syncs = tracking_syncs(rec)
+    assert syncs and set(syncs) == {1}, (
+        f"async mapper: tracking frames synchronised {syncs} times")
+    return dict(host_run_summary(rec), ate_pct=ate,
+                processed=mapper_.processed, dropped=mapper_.dropped_frames,
+                running=int(running.sum()),
+                good_share=float((nm >= min_m).mean()))
+
+
+def time_publish(cfg_path: str, reps: int = 20) -> dict:
+    """Device ms of the async mapper's publish at a config's capacities:
+    the map copied into the tracker's storage whole (after a keyframe) and
+    without the keyframe pyramids (after frame work), as
+    ``AsyncMapper.publish`` copies it; CUDA events around ``reps`` copies."""
+    from sdvl_tpu_torch.pipeline.config import load_cfg
+    from sdvl_tpu_torch.pipeline.device_fsm import StepState, cropped_shape
+    from sdvl_tpu_torch.state.map_state import empty_map
+
+    cfg = load_cfg(cfg_path)
+    s = cfg.sdvl
+
+    def make():
+        return empty_map(n_kf=s.max_keyframes, n_pts=s.max_points,
+                         n_cand=s.max_candidates, img_shape=cropped_shape(cfg),
+                         levels=s.pyramid_levels, device="cuda")
+
+    src, dst = make(), StepState(make(), None, inplace=True)
+    out = {}
+    for name, m in (("whole", src),
+                    ("no_kf_pyr", src._replace(kf_pyr=dst.m.kf_pyr))):
+        moved = sum(a.numel() * a.element_size()
+                    for a, b in zip(map_leaves(m), map_leaves(dst.m))
+                    if a is not b)
+        dst.update(m=m)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            dst.update(m=m)
+        e1.record()
+        torch.cuda.synchronize()
+        out[name] = dict(bytes=moved, ms=e0.elapsed_time(e1) / reps,
+                         bound_ms=1e3 * 2 * moved / PEAK_BYTES_PER_S)
+    return out
+
+
 def run_cli_phase(card: str, device: str = "cuda",
                   cfg_path: str = TUM_F1_CFG) -> dict:
     """Phase 6 (see the module docstring)."""
@@ -1596,7 +1903,7 @@ def run_cli_phase(card: str, device: str = "cuda",
                                  "SDVL.max_keyframes: 100"))
         p = {name: os.path.join(tmp, name) for name in (
             "s1.npz", "s1.txt", "s2.txt", "s3.npz", "s3.txt", "s3.json",
-            "s4.txt", "s5.txt")}
+            "s3c.txt", "s4.txt", "s4b.txt", "s5.txt")}
         gt = poses[:n]
 
         # 1. the stream at the shipped capacity, global BA at the end
@@ -1704,52 +2011,63 @@ def run_cli_phase(card: str, device: str = "cuda",
             trace = json.load(f)
         assert "preprocess" in trace and "track" in trace, sorted(trace)
         assert r3["frame_launches"] == n
+        syncs3 = tracking_syncs(r3)
+        assert syncs3 and set(syncs3) == {1}, (
+            f"host driver: tracking frames synchronised {syncs3} times")
         say("cli", f"run 3, host driver, 100 slots: trajectory within "
                    f"{d_host:.3g} of run 2's, n_matches off by "
                    f"{int(dm.max())} on {int((dm > 0).sum())} of "
-                   f"{int(run2.sum())} RUNNING frames; trace spans "
+                   f"{int(run2.sum())} RUNNING frames; 1 synchronisation on "
+                   f"each of the {len(syncs3)} tracking frames that captured "
+                   f"nothing; trace spans "
                    + ", ".join(f"{k} {v['mean_ms']} ms" for k, v in
                                trace.items()))
         say("cli", "run 3: " + per_frame(r3, card))
-        out["host"] = dict(summary=r3["summary"], launches=r3["launches"],
-                             captures=r3["captures"],
-                           frames=n, max_traj_diff=d_host,
-                           syncs_per_frame=float(np.mean(r3["frame_syncs"])),
+        out["host"] = dict(host_run_summary(r3), max_traj_diff=d_host,
                            trace=trace)
 
         # 3b. the host driver with --viz, a short run
         out["viz"] = run_cli_viz(cfg100, tmp, r3, device, card)
 
-        # 4. the host driver with the async mapper
-        r4 = run_cli(["--config", cfg100, "--images", tmp,
-                      "--async-mapping", "--output", p["s4.txt"]], device)
-        states4 = np.asarray(r4["states"])
-        mapper4 = r4["mappers"][0]
-        running4 = states4 == "RUNNING"
-        nm4 = np.asarray(r4["n_matches"])[running4]
-        min_m = cfg.sdvl.min_matches
-        rows4 = tum_rows(p["s4.txt"], n)
-        ate4 = sim3_ate_pct(rows4[running4, 1:4], gt[running4])
-        assert mapper4.processed > 0 and states4[-1] == "RUNNING"
-        assert running4.mean() >= 18 / 26, states4.tolist()
-        assert (nm4 >= min_m).mean() > 0.8, nm4.tolist()
-        assert r4["summary"]["points"] >= 30
-        assert r4["summary"]["keyframes"] >= 2
-        assert ate4 < 5.0, ate4
-        assert r4["frame_launches"] == n
-        say("cli", f"run 4, --async-mapping: mapper processed "
-                   f"{mapper4.processed} items, dropped "
-                   f"{mapper4.dropped_frames} frames; {int(running4.sum())} "
-                   f"of {n} frames RUNNING, {(nm4 >= min_m).mean():.2f} of "
-                   f"them >= {min_m} matches; ATE {ate4:.4f} %")
-        say("cli", "run 4: " + per_frame(r4, card))
-        out["async"] = dict(summary=r4["summary"], launches=r4["launches"],
-                             captures=r4["captures"],
-                            frames=n, ate_pct=ate4,
-                            processed=mapper4.processed,
-                            dropped=mapper4.dropped_frames,
-                            syncs_per_frame=float(
-                                np.mean(r4["frame_syncs"])))
+        # 3c. the host driver at the shipped capacity
+        r3c = run_cli(["--config", cfg_path, "--images", tmp, "--output",
+                       p["s3c.txt"]], device)
+        rows3c = tum_rows(p["s3c.txt"], n)
+        assert r3c["states"] == r3["states"], "states differ"
+        d_cap3 = float(np.abs(rows3c[:, 1:4] - rows3[:, 1:4]).max())
+        assert d_cap3 <= 1e-4 * extent, (d_cap3, extent)
+        assert r3c["frame_launches"] == n
+        syncs3c = tracking_syncs(r3c)
+        assert syncs3c and set(syncs3c) == {1}, syncs3c
+        say("cli", f"run 3c, host driver, {K} slots: states equal run 3's, "
+                   f"camera centres within {d_cap3:.3g}; "
+                   + per_frame(r3c, card))
+        out["host_1000"] = dict(host_run_summary(r3c),
+                                max_centre_diff=d_cap3)
+
+        # 4. the host driver with the async mapper, at 100 and at the
+        # shipped capacity
+        for name, cfg_run, txt in (("async", cfg100, "s4.txt"),
+                                   ("async_1000", cfg_path, "s4b.txt")):
+            r4 = run_cli(["--config", cfg_run, "--images", tmp,
+                          "--async-mapping", "--output", p[txt]], device)
+            out[name] = check_async_run(r4, p[txt], gt, cfg.sdvl.min_matches)
+            say("cli", f"run 4 ({name}), --async-mapping: mapper processed "
+                       f"{out[name]['processed']} items, dropped "
+                       f"{out[name]['dropped']} frames; "
+                       f"{out[name]['running']} of {n} frames RUNNING, "
+                       f"{out[name]['good_share']:.2f} of them >= "
+                       f"{cfg.sdvl.min_matches} matches; ATE "
+                       f"{out[name]['ate_pct']:.4f} %")
+            say("cli", f"run 4 ({name}): " + per_frame(r4, card))
+        for name, cfg_run in (("100", cfg100), (str(K), cfg_path)):
+            pub = out[f"publish_{name}"] = time_publish(cfg_run)
+            say("cli", f"the async mapper's publish at {name} keyframe "
+                       f"slots (device ms per copy into the tracker's map): "
+                       + "; ".join(f"{k} {v['bytes'] / 1e6:.1f} MB in "
+                                   f"{v['ms']:.4f} ms (bound {v['bound_ms']:.4f}"
+                                   f" ms, bytes)" for k, v in pub.items())
+                       + f" on {card}")
 
         # 5. follow-on runs: resume run 3's session, serve run 1's map
         r5 = run_cli(["--config", cfg100, "--images", tmp, "--filename",
@@ -1829,6 +2147,11 @@ def main() -> int:
     t0 = time.perf_counter()
     graph = run_graph_phase(card, slam)
     say("graph", f"phase took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------ host
+    t0 = time.perf_counter()
+    host = run_host_phase(card, slam)
+    say("host", f"phase took {time.perf_counter() - t0:.1f} s")
     for k in [k for k in slam if k.startswith("_")]:
         del slam[k]
 
@@ -1928,6 +2251,8 @@ def main() -> int:
     p3, p3_plain = checks["pallas"]["pyramid"], checks["plain"]["pyramid"]
     paths = {"slam": (slam["launches"], slam["frames"], slam["captures"]),
              "slam_eager": (graph["eager_launches"], graph["frames"], 0),
+             "host": (host["launches"], host["frames"], host["captures"]),
+             "host_eager": (host["eager_launches"], host["frames"], 0),
              "slam_map_served": (slam["loc_launches"], slam["loc_frames"],
                                  slam["loc_captures"]),
              "localizer": (launches, n, slice_caps)}
@@ -1935,7 +2260,8 @@ def main() -> int:
                   for k, v in multi.items()})
     paths.update({f"cli_{k}": (cli[k]["launches"], cli[k]["frames"],
                                cli[k]["captures"])
-                  for k in ("stream", "host", "async", "viz")})
+                  for k in ("stream", "host", "host_1000", "async",
+                            "async_1000", "viz")})
     kernels = {"kernels": [{
         "name": "fast_shi_tomasi_cells",
         "route": "cuda",
@@ -1971,6 +2297,7 @@ def main() -> int:
         "detect_pyramid_ms": dp,
         "slam": slam,
         "graph": graph,
+        "host": host,
         "slice": slice_out,
         "slice_vs_jax": vs_jax,
         "multi": multi,

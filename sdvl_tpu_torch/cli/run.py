@@ -381,7 +381,9 @@ def _apply_global_ba(slam, cfg, traj, traj_ids):
     from ..pipeline.config import intrinsics
 
     m = slam.m
-    kf_old = m.kf_pose.cpu().numpy()
+    # a copy: the host driver's map is storage written in place, and on
+    # the CPU .numpy() would be a view of it
+    kf_old = m.kf_pose.cpu().numpy().copy()
     m_new = mapper.global_ba(m, intrinsics(cfg))
     slam.m = m_new
     n_kf = int(m_new.kf_valid.sum())

@@ -112,21 +112,24 @@ def warm_body(device: torch.device):
 
 class Capture:
     """What :func:`capture` yields. ``pool_bytes`` is set when the block
-    ends: the device memory the graph's private pool then holds (what the
-    capture added to ``torch.cuda.memory_reserved``)."""
+    ends: what the capture added to the graph's pool (to
+    ``torch.cuda.memory_reserved``)."""
 
     pool_bytes = None
 
 
 @contextlib.contextmanager
-def capture(graph: torch.cuda.CUDAGraph):
-    """``torch.cuda.graph(graph)``, with every allocation this thread makes
-    during the capture (on the capture stream and on the IF bodies' streams)
-    taken from the graph's private pool. The graph holds the only reference
-    to the pool when the block ends, so the pool is freed with the graph.
-    Yields a :class:`Capture`."""
+def capture(graph: torch.cuda.CUDAGraph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)``, with every allocation this
+    thread makes during the capture (on the capture stream and on the IF
+    bodies' streams) taken from the pool: ``pool`` (a
+    ``torch.cuda.graph_pool_handle()`` that graphs which never run at the
+    same time share), else a private one. When the block ends the graphs
+    captured into a pool hold the only references to it, so the pool is
+    freed with the last of them. Yields a :class:`Capture`."""
     dev = torch.cuda.current_device()
-    pool = torch.cuda.graph_pool_handle()
+    if pool is None:
+        pool = torch.cuda.graph_pool_handle()
     out = Capture()
     with torch.cuda.graph(graph, pool=pool):
         # torch routes the capture stream's allocations to the pool; route

@@ -747,6 +747,8 @@ def make_step(cfg: Config, undistort: bool):
 
 
 def _clone(tree):
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     return type(tree)(*map(_clone, tree)) if hasattr(tree, "_fields") \
@@ -754,8 +756,59 @@ def _clone(tree):
 
 
 # the eager passes through every branch before a capture (each runs the
-# frame's preprocessing, its detection launch included, once)
+# stage once: a frame's preprocessing, its detection launch included)
 CAPTURE_PASSES = 2
+
+
+class StageGraph:
+    """A stage function captured into a CUDA graph over fixed storage.
+
+    ``fn(st, *inputs)`` reads and writes the in-place :class:`StepState`
+    ``st`` and returns its outputs (tensors, or tuples and NamedTuples of
+    them). The capture: :data:`CAPTURE_PASSES` eager passes through both
+    branches of every :func:`device_if` on a copy of the state (the map
+    itself where ``shared_map``: the stage only reads it), the last under
+    ``set_sync_debug_mode("error")``; then ``fn`` captured over input
+    buffers of its own (clones of ``inputs``), its allocations from the
+    graph memory pool ``pool`` where one is given (graphs that never run at
+    the same time may share one), else from a new pool. A capture that
+    fails raises; nothing falls back to eager.
+
+    The sync-debug mode of the checked pass and the capture's error mode are
+    the process's: no other thread may use the card meanwhile.
+
+    Calling the graph copies ``inputs`` into its buffers and replays it; it
+    returns the graph's own output tensors, which the next replay
+    overwrites. ``name`` says which stage it is.
+    """
+
+    def __init__(self, name: str, fn, st: "StepState", inputs: tuple,
+                 shared_map: bool = False, pool=None):
+        t0 = time.perf_counter()
+        self.name = name
+        for i in range(CAPTURE_PASSES):
+            scratch = StepState(st.m if shared_map else _clone(st.m),
+                                _clone(st.carry), inplace=True,
+                                frozen_map=st.frozen_map)
+            with warming(), (_sync_errors() if i == CAPTURE_PASSES - 1
+                             else contextlib.nullcontext()):
+                fn(scratch, *inputs)
+            del scratch
+        torch.cuda.synchronize()
+        self.inputs = _clone(tuple(inputs))
+        self.graph = torch.cuda.CUDAGraph()
+        with graph_if.capture(self.graph, pool) as cap:
+            self.outputs = fn(st, *self.inputs)
+        self.pool_bytes = cap.pool_bytes    # what the capture added to it
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0   # warm-up and capture
+        self.replays = 0
+
+    def __call__(self, *inputs):
+        _copy_into(self.inputs, inputs)
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs
 
 
 class StepRunner:
@@ -764,11 +817,8 @@ class StepRunner:
     ``m`` and ``carry`` become the storage (they are written in place, the
     map never where ``frozen_map``). Every frame that may not track runs
     eagerly. With ``graphs`` (CUDA only), the first tracking frame is
-    captured into a CUDA graph, after :data:`CAPTURE_PASSES` eager passes
-    through both branches of every :func:`device_if` on a copy of the state,
-    the last under ``set_sync_debug_mode("error")``; that frame and every
-    later one is an upload into the graph's input buffers and one replay. A
-    capture that fails raises; nothing falls back to eager.
+    captured into a :class:`StageGraph`; that frame and every later one is
+    an upload into the graph's input buffers and one replay.
 
     :meth:`step` returns the frame's packed info (:func:`pack_info`, a
     tensor of its own) and its corners.
@@ -785,11 +835,25 @@ class StepRunner:
         self.graphs = graphs
         self.tracking = tracking or cfg.sdvl.localize_only
         self._frame = make_frame(cfg, undistort)
-        self.graph = None
-        self.capture_s = None          # warm-up + capture, host seconds
-        self.pool_bytes = None         # device memory of the graph's pool
-        self.replays = 0
-        self.img_in = self.noise_in = None
+        self.graph: Optional[StageGraph] = None
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays
+
+    @property
+    def pool_bytes(self):
+        """Device memory of the graph's pool (None before the capture)."""
+        return None if self.graph is None else self.graph.pool_bytes
+
+    @property
+    def capture_s(self):
+        """Host seconds of the warm-up and the capture."""
+        return None if self.graph is None else self.graph.capture_s
+
+    def _tracking_frame(self, st, img, gumbel):
+        info, corners, _ = self._frame(st, img, self.grid, gumbel, None, True)
+        return pack_info(info), corners
 
     def step(self, img: torch.Tensor, gumbel: Optional[torch.Tensor],
              boot: Optional[BootNoise] = None):
@@ -800,45 +864,11 @@ class StepRunner:
         if gumbel is None:
             raise ValueError("a tracking frame needs its pose-RANSAC noise")
         if self.graph is None:
-            self._capture(img, gumbel)
-        self.img_in.copy_(img)
-        self.noise_in.copy_(gumbel)
-        self.graph.replay()
-        self.replays += 1
-        return self._info_out.clone(), type(self._corners_out)(
-            *(t.clone() for t in self._corners_out))
-
-    def _capture(self, img, gumbel) -> None:
-        """Warm up, check and capture the tracking frame's graph. The
-        sync-debug mode of the checked pass is the process's: a
-        synchronisation that another thread makes meanwhile raises too."""
-        t0 = time.perf_counter()
-        st = self.st
-        # every branch, eagerly, on a copy of the state: a first pass makes
-        # the lazily built tables and loads the kernels and library handles
-        # (each body on its capture stream), the last fails on any
-        # synchronisation
-        shared = st.frozen_map or self.cfg.sdvl.localize_only
-        for i in range(CAPTURE_PASSES):
-            scratch = StepState(st.m if shared else _clone(st.m),
-                                _clone(st.carry), inplace=True,
-                                frozen_map=st.frozen_map)
-            with warming(), (_sync_errors() if i == CAPTURE_PASSES - 1
-                             else contextlib.nullcontext()):
-                self._frame(scratch, img, self.grid, gumbel, None, True)
-            del scratch
-        torch.cuda.synchronize()
-        self.img_in, self.noise_in = img.clone(), gumbel.clone()
-        graph = torch.cuda.CUDAGraph()
-        with graph_if.capture(graph) as cap:
-            info, corners, _ = self._frame(st, self.img_in, self.grid,
-                                           self.noise_in, None, True)
-            self._info_out = pack_info(info)
-            self._corners_out = corners
-        self.graph = graph
-        self.pool_bytes = cap.pool_bytes
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
+            self.graph = StageGraph(
+                "step", self._tracking_frame, self.st, (img, gumbel),
+                shared_map=(self.st.frozen_map
+                            or self.cfg.sdvl.localize_only))
+        return _clone(self.graph(img, gumbel))
 
 
 @contextlib.contextmanager

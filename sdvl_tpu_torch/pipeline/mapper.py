@@ -346,12 +346,17 @@ def check_redundant_keyframes(m: MapState) -> MapState:
                       n_pruned=m.n_pruned + do.to(torch.int32))
 
 
-def need_keyframe(n_matches: torch.Tensor, kf_matches: torch.Tensor,
-                  frames_since_kf: torch.Tensor,
-                  min_keyframe_its: int = 30) -> torch.Tensor:
-    """Keyframe policy, as a () bool tensor: enough frames elapsed AND 10 %
-    of the matches since the last keyframe lost, OR 30 % lost outright."""
-    lost = 1.0 - n_matches / kf_matches.float().clamp_min(1.0)
+def need_keyframe(n_matches, kf_matches, frames_since_kf,
+                  min_keyframe_its: int = 30):
+    """Keyframe policy: enough frames elapsed AND 10 % of the matches since
+    the last keyframe lost, OR 30 % lost outright. On tensors (the step's)
+    a () bool tensor; on host numbers (the host driver's) a bool, computed
+    in float64 as the reference's host driver computes it."""
+    if isinstance(kf_matches, torch.Tensor):
+        kf_matches = kf_matches.float().clamp_min(1.0)
+    else:
+        kf_matches = max(float(kf_matches), 1.0)
+    lost = 1.0 - n_matches / kf_matches
     return (((frames_since_kf >= min_keyframe_its) & (lost > 0.1))
             | (lost > 0.3))
 

@@ -35,6 +35,9 @@ _BLUE = (255, 160, 40)     # BGR: keyframe frusta
 _GREEN = (60, 200, 60)     # trail
 _ORANGE = (40, 160, 255)   # uncertainty segments
 _WHITE = (235, 235, 235)
+# the map fields render_scene_view reads
+_SCENE_FIELDS = ("pt_pos", "pt_valid", "kf_pose", "kf_valid", "cand_valid",
+                 "cand_rho", "cand_sigma2", "cand_bearing", "cand_kf")
 
 
 def _quat_to_R(q: np.ndarray) -> np.ndarray:
@@ -246,8 +249,13 @@ class LiveUI:
         if info.get("match_px") is not None:
             match = (host(info["match_px"]), host(info["match_ok"]),
                      host(info["match_attempted"]))
+        # the map is written in place: copy what the scene view draws (on
+        # the CPU host() is a view of it)
+        m = slam.m
+        m = m._replace(**{f: host(getattr(m, f)).copy()
+                          for f in _SCENE_FIELDS})
         snap = (np.asarray(img), match, info.get("quality", "GOOD"),
-                slam.m, list(slam.trajectory), info.get("pose"))
+                m, list(slam.trajectory), info.get("pose"))
         with self._lock:
             self._latest = snap
 

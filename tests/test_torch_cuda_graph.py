@@ -18,11 +18,26 @@ sweep of every keyframe) and in serving mode:
 * ``feed(block=False)`` returns before the frame is done;
 * a graph's private memory pool is freed with the graph: serving streams
   built and dropped leave the card's reserved memory where it was.
+
+The host driver ``SDVL``, whose stages each replay a CUDA graph of their
+own on the card (on the same sequence, with ten keyframe slots: its local
+BA takes a window of ten):
+
+* its graph path equals ``graphs=False`` bit for bit: every frame's state,
+  counts, keyframe flag and pose, the trajectory and the final map;
+* a tracking frame that captures no graph synchronises once (the batched
+  read), under ``set_sync_debug_mode("warn")``;
+* the async mapper on the graph path tracks as the sequential driver does
+  (the criteria of ``tests/test_torch_runtime.py``, on the port's own
+  320x240 ``PlaneScene``), its work replayed from its graphs;
+* dropping a driver gives its graphs' pool back.
 """
 
 import dataclasses
 import gc
+import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -149,6 +164,130 @@ def test_dropped_streams_free_their_graphs(cuda_device):
     torch.cuda.empty_cache()
     start = torch.cuda.memory_reserved()
     pools = [serve() for _ in range(3)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() == start, (
+        start, torch.cuda.memory_reserved(), pools)
+
+
+# ------------------------------------------------------------ host driver
+def _host_run(graphs, frames=None, count_syncs=False):
+    """``SDVL`` over the sequence; per frame its info and, with
+    ``count_syncs``, the synchronisations and whether a graph was
+    captured."""
+    from sdvl_tpu_torch.pipeline.sdvl import SDVL
+
+    cfg, seq = graph_step_scene(max_keyframes=10)
+    slam = SDVL(cfg, device="cuda", graphs=graphs)
+    infos, syncs, captured = [], [], []
+    for f in seq if frames is None else seq[:frames]:
+        n_graphs = len(slam._graphs)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                infos.append(slam.handle_frame(f))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        captured.append(len(slam._graphs) > n_graphs)
+    torch.cuda.synchronize()
+    return slam, infos, syncs, captured
+
+
+def _host_rows(slam, infos):
+    head = [[i["n_matches"], i["n_attempts"], i["keyframe"]] + list(i["pose"])
+            for i in infos]
+    return ([i["state"] for i in infos], np.asarray(head),
+            np.stack([p for _, p in slam.trajectory]))
+
+
+@pytest.mark.cuda
+def test_host_graph_path_equals_eager_card_path(cuda_device):
+    eager, ie, _, _ = _host_run(graphs=False)
+    graph, ig, _, _ = _host_run(graphs=True)
+    states, head, traj = _host_rows(graph, ig)
+    want = _host_rows(eager, ie)
+    assert states == want[0]
+    assert "LOST" in states and sum(i["keyframe"] for i in ig) >= 2
+    np.testing.assert_array_equal(head, want[1])
+    np.testing.assert_array_equal(traj, want[2])
+    for a, b in zip(_leaves(eager.m), _leaves(graph.m)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert {"preprocess", "track", "map_update", "keyframe"} <= set(
+        graph._graphs), sorted(graph._graphs)
+    assert any(k.startswith("relocalize_") for k in graph._graphs)
+
+
+@pytest.mark.cuda
+def test_host_tracking_frames_synchronise_once(cuda_device):
+    _, infos, syncs, captured = _host_run(graphs=True, count_syncs=True)
+    tracked = [n for i, n, c in zip(infos, syncs, captured)
+               if i["state"] in ("RUNNING", "LOST") and not c]
+    assert len(tracked) > 20
+    assert tracked == [1] * len(tracked), syncs
+
+
+@pytest.mark.cuda
+def test_async_mapper_graph_path_tracks_like_sequential(cuda_device):
+    from sdvl_tpu_torch.io import evaluate
+    from sdvl_tpu_torch.io.synthetic import PlaneScene
+    from sdvl_tpu_torch.pipeline import config as tcfg
+    from sdvl_tpu_torch.pipeline.runtime import AsyncMapper
+    from sdvl_tpu_torch.pipeline.sdvl import SDVL, TrackingState
+
+    # tests/torch_port_helpers.py::small_scene, rendered by the port
+    scene = PlaneScene(fx=210.0, fy=210.0, cx=159.5, cy=119.5, width=320,
+                       height=240, plane_z=4.0)
+    cfg = tcfg.Config(
+        camera=tcfg.CameraConfig(width=320, height=240, fx=210.0, fy=210.0,
+                                 u0=159.5, v0=119.5, dist=(0, 0, 0, 0, 0)),
+        sdvl=tcfg.SdvlConfig(cell_size=32, min_avg_shift=5.0,
+                             max_keyframes=10, min_keyframe_its=5,
+                             min_init_corners=30, max_points=512,
+                             max_candidates=256, min_matches=15,
+                             map_scale=4.0))
+    poses = scene.trajectory(26)
+    slam = SDVL(cfg, seed=0, device="cuda")
+    mapper = AsyncMapper(slam)
+    try:
+        infos = [slam.handle_frame(scene.render(p)) for p in poses]
+        mapper.barrier()
+        replays = {k: g.replays for k, g in mapper._graphs.items()}
+    finally:
+        mapper.stop()
+    assert replays.get("frame", 0) > 0 and replays.get("keyframe", 0) > 0, (
+        replays)
+    assert slam.state == TrackingState.RUNNING
+    running = [i for i, inf in enumerate(infos) if inf["state"] == "RUNNING"]
+    assert len(running) >= 18
+    n_matches = np.asarray([infos[i]["n_matches"] for i in running])
+    assert (n_matches >= 15).mean() > 0.8, n_matches
+    assert int(slam.m.pt_valid.sum()) >= 30
+    assert int(slam.m.kf_valid.sum()) >= 2
+    est = np.stack([infos[i]["pose"] for i in running])
+    gt = np.stack([poses[i] for i in running])
+    ate = evaluate.ate_rmse(evaluate.positions_from_poses(est),
+                            evaluate.positions_from_poses(gt),
+                            with_scale=True)
+    extent = float(np.linalg.norm(
+        np.ptp(evaluate.positions_from_poses(gt), axis=0)))
+    assert ate < 0.05 * max(extent, 1e-6), (ate, extent)
+
+
+@pytest.mark.cuda
+def test_dropped_host_driver_frees_its_graphs(cuda_device):
+    def run():
+        slam = _host_run(graphs=True, frames=16)[0]
+        assert slam.pool_bytes > 0
+        return slam.pool_bytes
+
+    run()        # the first makes what every driver shares
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_reserved()
+    pools = [run() for _ in range(2)]
     gc.collect()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() == start, (
