@@ -13,10 +13,11 @@ ending the run with a non-zero exit code:
 
 1. device  -- requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` gives them, and the torch/CUDA versions.
-2. build   -- compiles ``sdvl_tpu_torch/csrc/detect.cu`` and
-   ``sdvl_tpu_torch/csrc/graph_if.cu`` (the IF nodes of the CUDA graphs)
-   with ``nvcc`` for ``sm_90a``, one compiler per source, started together,
-   and loads them.
+2. build   -- compiles ``sdvl_tpu_torch/csrc/detect.cu``,
+   ``sdvl_tpu_torch/csrc/graph_if.cu`` (the IF and WHILE nodes of the CUDA
+   graphs) and ``sdvl_tpu_torch/csrc/small_eig.cu`` (the bootstrap's small
+   eigensolver) with ``nvcc`` for ``sm_90a``, one compiler per source,
+   started together, and loads them.
 3. kernel  -- holds the detection kernel (score maps and per-cell winners of
    all levels in one launch) against its plain torch version on the card,
    under both border rules (``plain``: the reference's plain route, the
@@ -29,24 +30,34 @@ ending the run with a non-zero exit code:
    (many launches replayed from a CUDA graph), one eager call of the launch
    and of the wrapper with its cell decode, the plain version, and one
    eager ``detect_pyramid`` call on the first query frame, through the
-   kernel against through its plain version.
+   kernel against through its plain version. Then the small eigensolver
+   against ``torch.linalg.eigh``/``svd`` on the card at the bootstrap's
+   shapes (a RANSAC batch of 128 9x9 ``A^T A``, one weighted 9x9, a 3x3
+   covariance, a 3x3 SVD) and near-degenerate matrices: values within 1e-5
+   of the largest, vectors' |cos| >= 1 - 1e-4 where their value stands
+   apart, each launch counted by the kernel; its device time, eager call and
+   the library call's (which synchronises). And a WHILE node of 1000
+   iterations with an IF node in its body: its result, the condition
+   kernel's launches and its device time per iteration.
 4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
    (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
    keyframe / 4096 point / 512 candidate slots, the Pallas border rule as
    the record was made) from an empty map over the 85 ``PlaneScene`` frames
    of ``tests/data/torch_slam_record.npz``, rendered here with
    ``sdvl_tpu_torch.io.synthetic`` and checked against its SHA-256, fed the
-   JAX run's random draws from that file, on the graph path (FIRST and
-   SECOND frames eager, every later frame one replay of the stream's CUDA
-   graph). Two runs: cold (the first 40 frames) and warm (timed per frame,
+   JAX run's random draws from that file, on the graph path (the stream's
+   whole step captured at frame 0, FIRST, SECOND and tracking as IF nodes;
+   every frame one replay). Two runs: cold (the first 40 frames) and warm
+   (timed per frame,
    synchronised per frame, synchronisations counted per frame, kernel
    launches and graph replays counted). Each is held against the recorded
    JAX run: bootstrap frame, states and keyframe flags equal (a tracked
    keyframe after the bootstrap among them), ``n_matches`` within 2 on at
    most 15 % of RUNNING frames, camera centres within 1 % of the trajectory
    extent, Sim(3)-aligned ATE under 3 % of the extent, keyframe count
-   within 1; one replay on every frame after the bootstrap and no
-   synchronisation on any after the capture frame. Then the port's own map
+   within 1; one replay on every frame and no synchronisation on any after
+   the capture frame (0); the SECOND frames' ms, the capture's seconds and
+   pool, the small eigensolver's launches. Then the port's own map
    is saved with ``save_stream_snapshot`` and served by
    ``SdvlStream.localizer`` on ``frames[8:32]``: RUNNING within 5 frames and
    on the last 5, ATE under 5 %.
@@ -58,13 +69,21 @@ ending the run with a non-zero exit code:
    one replay's kernels and device time (``torch.profiler``), and the
    device memory of the graph's pool; dropping the stream must give at
    least that pool back to the card.
+   chunk   -- the same 85 frames through ``feed_chunk`` in chunks of 16 (the
+   tail a chunk of 5) from frame 0: one replay per chunk (a WHILE node over
+   the step; one graph per chunk length), no synchronisation in a chunk
+   that captures nothing, every frame bit-identical to phase slam's
+   per-frame graph run; ms per frame, and the chunks after the first back
+   to back against the per-frame path's unsynchronised rate.
    host    -- the host driver ``SDVL`` on the same 85 frames and draws, on
    the graph path (each stage a replay of its own CUDA graph) and on the
    eager card path (``graphs=False``): both held to the record; states,
    match counts, keyframe flags, poses and trajectory bit-identical between
-   the two; one synchronisation on each tracking frame that captures no
-   graph; two or more stage replays on each tracking frame and none on the
-   others; kernel launches = frames + 2 in the preprocess graph's capture;
+   the two; one synchronisation on each frame that captures no graph,
+   FIRST and SECOND included; two or more stage replays on each tracking
+   frame, 4 on a SECOND frame (detection, bootstrap, seed map, initial
+   match), 1 on a FIRST frame; kernel launches = frames + 2 in each of the
+   detection and preprocess graphs' captures;
    prints synchronisations, replays and ms per frame by state, frames/s of
    both paths, each stage graph's pool and capture time; dropping the
    driver must give its pool back.
@@ -100,7 +119,10 @@ ending the run with a non-zero exit code:
    same at 100 slots: states and keyframe flags equal run 1's, centres
    within 1e-4 of the extent; then ``mapper.global_ba`` on its final map
    at 100 slots (Cholesky) and padded to 1000 (PCG): poses within 5e-4,
-   points within 5e-3; (3) the host driver (its stages CUDA graph
+   points within 5e-3, each one replay of a CUDA graph (WHILE nodes for
+   the LM and CG loops) bit-identical to ``graphs=False`` (poses, points,
+   masks, CG counts) with no synchronisation, timed against it; (3) the
+   host driver (its stages CUDA graph
    replays) with ``--trace --snapshot``: trajectory within 1e-4 of run
    2's, ``n_matches`` within 1 on at most 15 % of RUNNING frames, the trace
    holds ``preprocess`` and ``track``, one synchronisation on each tracking
@@ -135,9 +157,11 @@ ending the run with a non-zero exit code:
    (stream-frames for ``multi_1``, ``multi_4``, ``multi_8`` and
    ``multi_slam``; ``cli_stream``, ``cli_host``, ``cli_host_1000``,
    ``cli_async``, ``cli_async_1000``, ``cli_viz``
-   for the cli phase; ``host``, ``host_eager`` for phase host). ``ms`` is
-   the pallas border rule's device time,
-   ``plain_border_ms`` the plain rule's.
+   for the cli phase; ``host``, ``host_eager`` for phase host; ``chunk``).
+   ``ms`` is the pallas border rule's device time,
+   ``plain_border_ms`` the plain rule's. A second entry, ``small_eig``,
+   gives the small eigensolver's launches by path (counted by the kernel)
+   and its times at the RANSAC batch's shape, every shape in ``by_shape``.
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 ``sdvl_tpu``. The fixtures under ``tests/data/`` are made by
@@ -447,6 +471,204 @@ def run_kernel_phase():
     return checks, time_detect_pyramid(cfg, pyr)
 
 
+def eig_cases(seed: int = 0) -> dict:
+    """name -> float32 matrices at the bootstrap's shapes (the RANSAC batch
+    of 128 9x9 ``A^T A`` of 4-point DLT systems, one weighted 9x9, one 3x3
+    covariance of a plane's points) and near-degenerate ones (a 9x9 with
+    eigenvalues 1, 1, 1 + 1e-7, three 3s; the identity; a rank-deficient
+    covariance)."""
+    rs = np.random.default_rng(seed)
+    uv = rs.uniform(-0.6, 0.6, (400, 2))
+    uvb = uv + rs.normal(0, 0.02, (400, 2))
+    x, y, xp, yp = uv[:, 0], uv[:, 1], uvb[:, 0], uvb[:, 1]
+    one, zero = np.ones_like(x), np.zeros_like(x)
+    A = np.concatenate([
+        np.stack([x, y, one, zero, zero, zero, -xp * x, -xp * y, -xp], -1),
+        np.stack([zero, zero, zero, x, y, one, -yp * x, -yp * y, -yp], -1)])
+    w = np.zeros((128, 400))
+    for h in range(128):
+        w[h, rs.choice(400, 4, replace=False)] = 1.0
+    ransac = np.einsum("ni,nj,hn->hij", A, A, np.concatenate([w, w], 1))
+    refit = np.einsum("ni,nj,n->ij", A, A, np.repeat(
+        rs.uniform(0, 1, 400) > 0.3, 2).astype(float))
+    pts = rs.normal(0, 1, (4096, 3)) * [2.0, 1.5, 0.01]
+    q = np.linalg.qr(rs.normal(0, 1, (9, 9)))[0]
+    flat = rs.normal(0, 1, (100, 3)) * [1.0, 1.0, 0.0]
+    return {k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
+            for k, v in dict(
+                ransac_9x9=ransac, refit_9x9=refit,
+                cov_3x3=pts.T @ pts / len(pts),
+                near_degenerate_9x9=q @ np.diag(
+                    [1, 1, 1 + 1e-7, 2, 3, 3, 3, 5, 8]) @ q.T,
+                identity_3x3=np.eye(3),
+                rank_deficient_3x3=flat.T @ flat / 100).items()}
+
+
+def vector_cos(got, want, vals, gap: float = 1e-3) -> float:
+    """Least |cos| between the columns of ``got`` and ``want`` whose value
+    in ``vals`` is apart from the others by ``gap`` of the largest magnitude
+    (1.0 where none is)."""
+    n = vals.shape[-1]
+    vals = vals.reshape(-1, n)
+    got = got.reshape(-1, got.shape[-2], n)
+    want = want.reshape(-1, want.shape[-2], n)
+    d = (vals[:, :, None] - vals[:, None, :]).abs()
+    d = d + torch.eye(n, device=d.device) * float("inf")
+    scale = vals.abs().amax(1, keepdim=True).clamp_min(1e-30)
+    apart = d.amin(2) >= gap * scale
+    cos = (got * want).sum(1).abs()
+    return float(cos[apart].min()) if bool(apart.any()) else 1.0
+
+
+def check_small_eig() -> dict:
+    """The small eigensolver (``ops/cuda/small_eig.py``) against its plain
+    version, ``torch.linalg.eigh``/``svd`` on the card, at the bootstrap's
+    shapes and on near-degenerate matrices; raises on disagreement. Times
+    each bootstrap shape: the kernel's device time (graph replay), one eager
+    call of the wrapper and of the library call (which synchronises)."""
+    from sdvl_tpu_torch.ops.cuda import small_eig
+
+    out = {}
+    for name, A in eig_cases().items():
+        n0 = small_eig.launches()
+        w, V = small_eig.eigh(A)
+        torch.cuda.synchronize()
+        assert small_eig.launches() == n0 + 1, f"{name}: launch not counted"
+        wp, Vp = small_eig.eigh_plain(A)
+        scale = float(wp.abs().max()) or 1.0
+        err = float((w - wp).abs().max())
+        resid = float((A @ V - V * w[..., None, :]).abs().max())
+        cos = vector_cos(V, Vp, wp)
+        assert bool((w[..., 1:] >= w[..., :-1]).all()), f"{name}: order"
+        assert err <= 1e-5 * scale and resid <= 1e-5 * scale, (
+            f"{name}: eigenvalues {err}, residual {resid}, scale {scale}")
+        assert cos >= 1 - 1e-4, f"{name}: eigenvector |cos| {cos}"
+        out[f"eigh_{name}"] = dict(shape=list(A.shape), max_abs_err=err,
+                                   rel_err=err / scale, residual=resid,
+                                   min_abs_cos=cos)
+    rs = np.random.default_rng(1)
+    for name, H in (("homography", np.eye(3) + rs.normal(0, 0.2, (3, 3))),
+                    ("rank_2", np.diag([2.0, 1.0, 0.0]) @ np.linalg.qr(
+                        rs.normal(0, 1, (3, 3)))[0])):
+        A = torch.from_numpy(H.astype(np.float32)).cuda()
+        n0 = small_eig.launches()
+        U, S, Vh = small_eig.svd3(A)
+        torch.cuda.synchronize()
+        assert small_eig.launches() == n0 + 1, f"{name}: launch not counted"
+        Up, Sp, Vhp = small_eig.svd3_plain(A)
+        scale = float(Sp.max())
+        err = float((S - Sp).abs().max())
+        recon = float((U @ torch.diag(S) @ Vh - A).abs().max())
+        cos = min(vector_cos(U, Up, Sp), vector_cos(Vh.mT, Vhp.mT, Sp))
+        assert err <= 1e-5 * scale and recon <= 1e-5 * scale, (
+            f"svd {name}: values {err}, reconstruction {recon}")
+        assert cos >= 1 - 1e-4, f"svd {name}: vector |cos| {cos}"
+        out[f"svd_{name}"] = dict(shape=list(A.shape), max_abs_err=err,
+                                  rel_err=err / scale, residual=recon,
+                                  min_abs_cos=cos)
+    say("kernel", "small_eig against torch.linalg on the card: "
+                  + "; ".join(f"{k} {v['shape']}: values within "
+                              f"{v['rel_err']:.2e} of the largest, residual "
+                              f"{v['residual']:.2e}, least |cos| "
+                              f"{v['min_abs_cos']:.8f}"
+                              for k, v in out.items()))
+    # times at the bootstrap's shapes
+    cases = eig_cases()
+    H = torch.from_numpy((np.eye(3) + rs.normal(0, 0.2, (3, 3))).astype(
+        np.float32)).cuda()
+    timed = {"eigh_ransac_9x9": (cases["ransac_9x9"], small_eig.eigh,
+                                 torch.linalg.eigh),
+             "eigh_refit_9x9": (cases["refit_9x9"], small_eig.eigh,
+                                torch.linalg.eigh),
+             "eigh_cov_3x3": (cases["cov_3x3"], small_eig.eigh,
+                              torch.linalg.eigh),
+             "svd_3x3": (H, small_eig.svd3, torch.linalg.svd)}
+    for name, (A, kernel, library) in timed.items():
+        n = A.shape[-1]
+        batch = A.numel() // (n * n)
+        out_floats = batch * (n + n * n) if name.startswith("eigh") \
+            else batch * (3 + 18)
+        bytes_ms = 4 * (A.numel() + out_floats) / PEAK_BYTES_PER_S * 1e3
+        # the least work of a symmetric eigendecomposition (or an SVD) with
+        # its vectors: about 9 n^3 float operations per matrix
+        ops_ms = 9 * n ** 3 * batch / PEAK_F32_OPS_PER_S * 1e3
+        t = dict(ms=graph_ms(lambda: kernel(A)),
+                 call_ms=time_ms(lambda: kernel(A)),
+                 library_ms=time_ms(lambda: library(A), inner=2),
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        t["plain_ms"] = t["library_ms"]      # the plain version is the call
+        out[name] = {**out.get(name, {}), **t, "shape": list(A.shape)}
+        say("kernel", f"small_eig {name} {list(A.shape)}: device time "
+                      f"(graph replay) {t['ms']:.5f} ms, eager call "
+                      f"{t['call_ms']:.4f} ms; torch.linalg (cuSOLVER, "
+                      f"synchronises) {t['library_ms']:.4f} ms per eager "
+                      f"call; bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    return out
+
+
+def check_conditional_nodes() -> dict:
+    """The conditional nodes (``ops/cuda/graph_if.py``): a WHILE node that
+    counts to 1000 with an IF node nested in its body, replayed, its result
+    and the condition kernel's launches checked; its time per iteration
+    (device time of the replay over 1000), and beside it the eager host
+    read the nodes take the place of (``bool()`` of a () tensor)."""
+    from sdvl_tpu_torch.ops.cuda import graph_if
+    from sdvl_tpu_torch.pipeline.device_fsm import device_if, device_while
+
+    dev = torch.device("cuda")
+    n_it = 1000
+    i0 = torch.zeros((), dtype=torch.int32, device=dev)
+    odd0 = torch.zeros((), dtype=torch.int32, device=dev)
+    out = []
+
+    def body(c):
+        i, odd = c
+        odd = device_if(i % 2 == 1, lambda: odd + 1, lambda: odd.clone())
+        return i + 1, odd
+
+    def run():
+        out[:] = device_while(lambda c: c[0] < n_it, body, (i0, odd0),
+                              max_iters=n_it)
+
+    run()           # eagerly first: loads every kernel the body holds
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with graph_if.capture(g):
+        run()
+    torch.cuda.synchronize()
+    graph_if.reset_launches()
+    g.replay()
+    torch.cuda.synchronize()
+    i, odd = (int(t) for t in out)
+    conds = graph_if.launches()
+    # one condition before the WHILE node, one per iteration, and the IF
+    # node's (two: the branch and the other branch) in each iteration
+    assert (i, odd) == (n_it, n_it // 2), (i, odd)
+    assert conds == 1 + n_it + 2 * n_it, conds
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n_it)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    read_ms = time_ms(lambda: bool(flag), inner=10)
+    res = dict(iteration_ms=statistics.median(times),
+               conditions_per_replay=conds, host_read_ms=read_ms)
+    say("kernel", f"conditional nodes: a WHILE node of {n_it} iterations "
+                  f"with an IF node in its body, replayed: result "
+                  f"({i}, {odd}) right, {conds} condition-kernel launches "
+                  f"(counted by the kernel); {res['iteration_ms']:.5f} ms of "
+                  f"device time per iteration (three small kernels, two "
+                  f"conditions); an eager host read of a () tensor "
+                  f"{read_ms:.4f} ms")
+    return res
+
+
 def time_detect_pyramid(cfg, pyr) -> dict:
     """One eager ``detect_pyramid`` call as the step makes it (no lock), the
     kernel against the same call with the kernel's plain version in the
@@ -615,8 +837,12 @@ def check_slam_run(r, rec, n=None) -> dict:
 CAPTURES = [0]      # captures of graphs that hold the kernel, since
                     # reset_counts()
 # the stage graphs that launch the detection kernel: the stream's step and
-# the host driver's locked preprocess
-KERNEL_GRAPHS = ("step", "preprocess")
+# chunks, the host driver's detection and locked preprocess
+KERNEL_GRAPHS = ("step", "preprocess", "detect")
+
+
+def holds_detection(name: str) -> bool:
+    return name in KERNEL_GRAPHS or name.startswith("chunk_")
 
 
 def count_captures() -> None:
@@ -629,7 +855,7 @@ def count_captures() -> None:
         return
 
     def counted(self, name, *a, **k):
-        CAPTURES[0] += name in KERNEL_GRAPHS
+        CAPTURES[0] += holds_detection(name)
         return init(self, name, *a, **k)
 
     counted.counted = True
@@ -637,14 +863,27 @@ def count_captures() -> None:
 
 
 def reset_counts() -> None:
-    """Just before a path is driven: the detection kernel's launch counters
-    (on the device, added to by the kernel itself) and the capture count
-    to 0."""
-    from sdvl_tpu_torch.ops.cuda import detect
+    """Just before a path is driven: the kernels' launch counters (on the
+    device, added to by the kernels themselves: detection, the small
+    eigensolver, the conditional nodes' condition kernel) and the capture
+    count to 0."""
+    from sdvl_tpu_torch.ops.cuda import detect, graph_if, small_eig
 
     count_captures()
     detect.reset_launches()
+    small_eig.reset_launches()
+    graph_if.reset_launches()
     CAPTURES[0] = 0
+
+
+def side_counts() -> dict:
+    """Just after a path was driven: the small eigensolver's launches and
+    the condition kernel's (one per IF node, WHILE node and WHILE
+    iteration that ran), as the kernels counted them."""
+    from sdvl_tpu_torch.ops.cuda import graph_if, small_eig
+
+    return dict(small_eig=small_eig.launches(),
+                conditions=graph_if.launches())
 
 
 def read_counts() -> tuple:
@@ -709,6 +948,7 @@ def run_slam(cfg, frames, rec, time_frames: bool, count_syncs: bool = False,
                 + first_divergence(st.result(), rec))
         raise
     counts = read_counts()
+    st.side_counts = side_counts()
     return st.result(), st, seconds, syncs, counts, replays
 
 
@@ -772,12 +1012,16 @@ def run_slam_phase(card: str) -> dict:
         f"({n}) and one per eager pass of the capture expected")
     cap = capture_frame(replays)
     boot = chk["bootstrap_frame"]
-    assert cap == boot + 1 and all(replays[cap:]) and sum(replays) == n - cap, (
-        f"graph replays per frame {replays}: one on every frame after the "
-        f"bootstrap expected")
+    assert cap == 0 and replays == [1] * n, (
+        f"graph replays per frame {replays}: the graph captured at frame 0 "
+        f"and one replay on every frame expected")
     syncs = [len(x) for x in sites]
     assert not any(syncs[cap + 1:]), (
-        f"tracking frames synchronised: {syncs}; {sites[cap + 1:]}")
+        f"frames after the capture synchronised: {syncs}; {sites[cap + 1:]}")
+    eig = st.side_counts["small_eig"]
+    assert eig > 0, "the bootstrap did not launch the small eigensolver"
+    second_ms = [1e3 * secs[i] for i in range(cap + 1, n)
+                 if r.states[i - 1] == 1]
     steady = [x for i, x in enumerate(secs) if i != cap]
     ms = per_state(r, [1e3 * x for x in secs], skip=cap)
     sy = per_state(r, syncs, skip=cap)
@@ -790,11 +1034,15 @@ def run_slam_phase(card: str) -> dict:
                 f"{int(st.m.pt_valid.sum())} points; kernel launches "
                 f"(counted by the kernel) {launches} = 1 x {n} frames + "
                 f"{launches - n} in the capture's eager passes")
-    say("slam", f"graph replays per frame {replays}: one on every frame "
-                f"after the bootstrap (frame {cap} captured the graph: "
+    say("slam", f"graph replays per frame {replays}: one on every frame, "
+                f"FIRST and SECOND included (frame {cap} captured the graph: "
                 f"{1e3 * st.runner.capture_s:.1f} ms of warm-up and capture, "
                 f"{1e3 * secs[cap]:.1f} ms for the frame; the graph's pool "
-                f"holds {st.runner.pool_bytes / 2**20:.1f} MiB)")
+                f"holds {st.runner.pool_bytes / 2**20:.1f} MiB); SECOND "
+                f"frames after the capture "
+                + ", ".join(f"{x:.2f}" for x in second_ms)
+                + f" ms; small eigensolver launches {eig}, condition-kernel "
+                  f"launches {st.side_counts['conditions']}")
     say("slam", f"ms per frame by state (warm, synchronised per frame, "
                 f"capture frame apart): "
                 + ", ".join(f"{k} {v['mean']:.2f} ({v['frames']} frames)"
@@ -841,6 +1089,7 @@ def run_slam_phase(card: str) -> dict:
                 f"{loc_launches}")
     return dict(launches=launches, captures=caps, loc_launches=loc_launches,
                 loc_captures=loc_caps, pool_bytes=st.runner.pool_bytes,
+                side_counts=st.side_counts, second_ms=second_ms,
                 loc_frames=len(query), check=chk,
                 ms_by_state=ms, syncs_by_state=sy, syncs=syncs,
                 replays=replays, capture_frame=cap,
@@ -959,6 +1208,7 @@ def run_graph_phase(card: str, slam: dict) -> dict:
     e_steady = [x for i, x in enumerate(secs) if i != cap]
     out = dict(
         frames=n, eager_check=chk, equal_to_eager=equal,
+        side_counts=st.side_counts,
         eager_ms_by_state=ms, graph_ms_by_state=g_ms,
         eager_syncs_by_state=sy, graph_syncs_by_state=slam["syncs_by_state"],
         eager_syncs=syncs, graph_replays=slam["replays"],
@@ -1008,6 +1258,114 @@ def run_graph_phase(card: str, slam: dict) -> dict:
     return out
 
 
+CHUNK = 16      # frames per chunk of phase chunk
+
+
+def run_chunk_phase(card: str, slam: dict) -> dict:
+    """Phase chunk (see the module docstring): the record frames through
+    ``feed_chunk`` from frame 0, against phase slam's per-frame graph run;
+    then the chunks after the first dispatched back to back."""
+    from sdvl_tpu_torch.pipeline.stream import SdvlStream
+
+    rec, frames, cfg = slam["_rec"], slam["_frames"], slam["_cfg"]
+    n = len(frames)
+    chunks = [np.stack(frames[i:i + CHUNK]) for i in range(0, n, CHUNK)]
+    st = SdvlStream(cfg, seed=0, device="cuda",
+                    gumbel_provider=slam_draws(rec))
+    torch.cuda.synchronize()
+    reset_counts()
+    secs, syncs, replays, captured = [], [], [], []
+    for c in chunks:
+        n0, g0 = st.runner.replays, len(st.runner.chunk_graphs)
+        t0 = time.perf_counter()
+        syncs.append(len(sync_sites(lambda: st.feed_chunk(c))))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        replays.append(st.runner.replays - n0)
+        captured.append(len(st.runner.chunk_graphs) > g0)
+    launches, caps = read_counts()
+    side = side_counts()
+    sizes = sorted({len(c) for c in chunks})
+    assert replays == [1] * len(chunks), (
+        f"replays per chunk {replays}: one per chunk expected")
+    assert sorted(st.runner.chunk_graphs) == sizes and st.runner.graph is None
+    assert caps == len(sizes) and frame_launches(launches, caps) == n, (
+        launches, caps)
+    bad = [s for s, c in zip(syncs, captured) if s and not c]
+    assert not bad, f"chunks that captured nothing synchronised: {syncs}"
+    rows = torch.stack(st._rows)
+    equal = bool(torch.equal(rows, slam["_rows"]))
+    assert equal, (
+        "feed_chunk differs from the per-frame graph path on frames "
+        f"{torch.nonzero((rows != slam['_rows']).any(1)).flatten().tolist()}")
+    chk = check_slam_run(st.result(), rec)
+    steady = [i for i, c in enumerate(captured) if not c]
+    ms_frame = [1e3 * secs[i] / len(chunks[i]) for i in steady]
+    graphs = st.runner.chunk_graphs
+    cap_s = {t: g.capture_s for t, g in graphs.items()}
+    pools = {t: g.pool_bytes for t, g in graphs.items()}
+    # the chunks after the first, back to back, on a stream of their own
+    st2 = SdvlStream(cfg, seed=0, device="cuda",
+                     gumbel_provider=slam_draws(rec))
+    st2.feed_chunk(chunks[0])
+    full = [c for c in chunks[1:] if len(c) == CHUNK]
+    torch.cuda.synchronize()
+    slots0 = len(st2._uploads._slots) + len(st2._noise._uploads._slots)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(full)
+                                                               + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for c, mark in zip(full, marks[1:]):
+        st2.feed_chunk(c)
+        mark.record()
+    t_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    n_b2b = CHUNK * len(full)
+    # each chunk's span on the stream, back to back, and the pinned upload
+    # slots the ring had to add while chunks were in flight
+    b2b_ms = [a.elapsed_time(b) / CHUNK for a, b in zip(marks, marks[1:])]
+    new_slots = (len(st2._uploads._slots) + len(st2._noise._uploads._slots)
+                 - slots0)
+    assert torch.equal(torch.stack(st2._rows),
+                       slam["_rows"][:CHUNK * (1 + len(full))])
+    del st2
+    out = dict(frames=n, chunk=CHUNK, chunks=len(chunks), replays=replays,
+               syncs=syncs, captured=captured, launches=launches,
+               captures=caps, side_counts=side, equal_to_per_frame=equal,
+               check=chk, chunk_s=secs, ms_per_frame=ms_frame,
+               capture_s=cap_s, pool_bytes=pools,
+               back_to_back_frames_per_s=n_b2b / t_all,
+               back_to_back_host_ms_per_frame=1e3 * t_host / n_b2b,
+               back_to_back_stream_ms_per_frame=b2b_ms,
+               back_to_back_new_pinned_slots=new_slots,
+               per_frame_async_frames_per_s=None)
+    say("chunk", f"the {n} record frames in chunks of {CHUNK} (the tail "
+                 f"{len(chunks[-1])}) from frame 0: one replay per chunk "
+                 f"{replays}, synchronisations per chunk {syncs} (a chunk "
+                 f"that captures synchronises), every frame's packed info "
+                 f"bit-identical to the per-frame graph path; {chk}")
+    say("chunk", f"graphs per chunk length {sizes}: warm-up and capture s "
+                 + ", ".join(f"{t}: {v:.2f}" for t, v in cap_s.items())
+                 + "; pools MiB "
+                 + ", ".join(f"{t}: {v / 2**20:.1f}" for t, v in pools.items())
+                 + f"; kernel launches {launches} = 1 x {n} frames + "
+                   f"{launches - n} in the captures' eager passes; small "
+                   f"eigensolver {side['small_eig']}, condition kernel "
+                   f"{side['conditions']}")
+    say("chunk", "ms per frame of each chunk that captures nothing "
+                 "(synchronised per chunk): "
+                 + ", ".join(f"{x:.3f}" for x in ms_frame)
+                 + f"; {len(full)} chunks of {CHUNK} back to back: "
+                   f"{out['back_to_back_frames_per_s']:.3f} frames/s, the "
+                   f"host done after {1e3 * t_host / n_b2b:.3f} ms per "
+                   f"frame; on the stream (CUDA events between chunks) "
+                   + ", ".join(f"{x:.3f}" for x in b2b_ms)
+                   + f" ms per frame; {new_slots} pinned upload slots added "
+                     f"meanwhile; on {card}")
+    return out
+
+
 STATE_CODES = {"FIRST_FRAME": 0, "SECOND_FRAME": 1, "RUNNING": 2, "LOST": 3}
 
 
@@ -1037,7 +1395,9 @@ def run_host(cfg, frames, rec, graphs: bool):
         seconds.append(time.perf_counter() - t0)
         replays.append(graph_replays(slam) - n0)
         captured.append(sorted(set(slam._graphs) - g0))
-    return slam, infos, seconds, sites, read_counts(), replays, captured
+    counts = read_counts()
+    slam.side_counts = side_counts()
+    return slam, infos, seconds, sites, counts, replays, captured
 
 
 def host_result(slam, infos):
@@ -1088,18 +1448,27 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
     assert not frames_diff, (
         f"host driver: graph path differs from the eager card path on "
         f"frames {frames_diff}")
-    # one read per tracking frame, once its stages' graphs exist
+    # one read per frame, FIRST and SECOND included, once its stages'
+    # graphs exist
     tracking = [i for i, x in enumerate(g_infos)
                 if x["state"] in ("RUNNING", "LOST")]
+    second = [i for i, x in enumerate(g_infos)
+              if x["state"] == "SECOND_FRAME"]
     capture_frames = [i for i, c in enumerate(g_cap) if c]
     g_syncs = [len(x) for x in g_sites]
     e_syncs = [len(x) for x in e_sites]
     steady = [i for i in tracking if i not in capture_frames]
-    bad = {i: g_sites[i] for i in steady if g_syncs[i] != 1}
-    assert not bad, f"tracking frames with other than 1 synchronisation: {bad}"
-    assert all(g_rep[i] >= 2 for i in tracking) and not any(
-        g_rep[i] for i in range(n) if i not in tracking), g_rep
-    assert g_c == 1 and frame_launches(g_l, g_c) == n, (g_l, g_c)
+    bad = {i: g_sites[i] for i in range(n)
+           if i not in capture_frames and g_syncs[i] != 1}
+    assert not bad, f"frames with other than 1 synchronisation: {bad}"
+    # tracking: preprocess, track, map stage; SECOND: detection, bootstrap,
+    # seed, initial match; FIRST: detection
+    assert all(g_rep[i] >= 2 for i in tracking) and all(
+        g_rep[i] == 4 for i in second) and all(
+        g_rep[i] == 1 for i in range(n) if i not in tracking + second), g_rep
+    assert g_c == 2 and frame_launches(g_l, g_c) == n, (g_l, g_c)
+    second_steady = [i for i in second if i not in capture_frames]
+    assert second_steady, "no SECOND frame replayed without a capture"
     assert e_l == n and e_c == 0 and not any(e_rep), (e_l, e_c)
     ms_g = per_state(r, [1e3 * x for x in g_secs])
     ms_g_steady = per_state(r, [1e3 * x for x in g_secs],
@@ -1114,6 +1483,7 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
     capture_s = {k: v.capture_s for k, v in g_slam._graphs.items()}
     # the driver's pool goes back to the card with the driver
     pool = g_slam.pool_bytes
+    g_side, e_side = g_slam.side_counts, e_slam.side_counts
     del runs, e_slam
     gc.collect()
     torch.cuda.empty_cache()
@@ -1125,6 +1495,10 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
     assert freed >= pool, (freed, pool)
     out = dict(frames=n, check=chk, equal_to_eager=True,
                launches=g_l, captures=g_c, eager_launches=e_l,
+               side_counts=g_side, eager_side_counts=e_side,
+               second_ms=[1e3 * g_secs[i] for i in second_steady],
+               second_syncs=[g_syncs[i] for i in second_steady],
+               eager_second_ms=[1e3 * e_secs[i] for i in second_steady],
                capture_frames=capture_frames,
                captured={i: g_cap[i] for i in capture_frames},
                syncs=g_syncs, eager_syncs=e_syncs, replays=g_rep,
@@ -1157,9 +1531,16 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
                 f"(capture frames apart) / eager: {fmt(ms_g_steady)} / "
                 f"{fmt(ms_e)}; tracking frames/s {out['frames_per_s']:.3f} / "
                 f"{out['eager_frames_per_s']:.3f} on {card}")
+    say("host", f"SECOND frames replayed without a capture (frames "
+                f"{second_steady}): "
+                + ", ".join(f"{x:.2f}" for x in out["second_ms"])
+                + f" ms, synchronisations {out['second_syncs']}; eager "
+                + ", ".join(f"{x:.2f}" for x in out["eager_second_ms"])
+                + " ms")
     say("host", f"kernel launches (counted by the kernel) {g_l} = 1 x {n} "
-                f"frames + {g_l - n} in the preprocess graph's capture; "
-                f"eager {e_l}")
+                f"frames + {g_l - n} in the detection and preprocess "
+                f"graphs' captures; eager {e_l}; small eigensolver "
+                f"{g_side['small_eig']} (eager {e_side['small_eig']})")
     say("host", f"the driver's stage graphs share one pool: "
                 f"{pool / 2**20:.1f} MiB ("
                 + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in pools.items())
@@ -1342,8 +1723,8 @@ def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
         r1.states.tolist())
     n_sf = 2 * len(frames)
     replays = [r.replays for r in ms.runners]
-    assert device != "cuda" or replays[0] == len(frames) - 1 - chk[
-        "bootstrap_frame"], replays
+    # each stream's graph captured at its first frame: one replay a frame
+    assert device != "cuda" or replays == [len(frames)] * 2, replays
     pools = [r.pool_bytes for r in ms.runners]
     out["multi_slam"] = dict(streams=2, frames=n_sf, launches=launches,
                              captures=caps, replays=replays,
@@ -1397,22 +1778,31 @@ def write_cli_sequence(cfg_path: str, out_dir: str):
     return poses
 
 
-@contextlib.contextmanager
-def ba_solves():
-    """Collect the ``BAResult`` of every ``ba.solve`` made inside the block
-    (``mapper.global_ba`` keeps only the map)."""
-    from unittest import mock
+def timed_global_ba(m, intr, graphs: bool, device: str = "cuda") -> dict:
+    """``mapper.global_ba(m, intr, graphs=graphs)``, synchronised and timed,
+    its synchronisations counted (on the card). Returns the new map, the
+    ms, the synchronisation sites, the CG iterations of each LM step and,
+    on the graph path, the graph's warm-up and capture seconds, its pool
+    and its replays."""
+    from sdvl_tpu_torch.pipeline import mapper
 
-    from sdvl_tpu_torch.solvers import ba
-
-    solves, solve = [], ba.solve
-
-    def recorded(*args, **kwargs):
-        solves.append(solve(*args, **kwargs))
-        return solves[-1]
-
-    with mock.patch.object(ba, "solve", recorded):
-        yield solves
+    stats, res = {}, []
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = lambda: res.append(mapper.global_ba(  # noqa: E731
+        m, intr, graphs=graphs, stats=stats))
+    sites = sync_sites(run) if device == "cuda" else run() or []
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    out = dict(map=res[0], ms=ms, sync_sites=sites,
+               cg_iterations=stats["cg_iterations"].tolist())
+    if graphs:
+        out.update(capture_s=stats["capture_s"], pool_bytes=stats[
+            "pool_bytes"], replays=stats["replays"],
+            replay_ms=ms - 1e3 * stats["capture_s"])
+    return out
 
 
 def run_cli(argv, device: str = "cuda") -> dict:
@@ -1426,7 +1816,7 @@ def run_cli(argv, device: str = "cuda") -> dict:
     from unittest import mock
 
     from sdvl_tpu_torch.cli import run as cli
-    from sdvl_tpu_torch.pipeline import runtime
+    from sdvl_tpu_torch.pipeline import mapper, runtime
     from sdvl_tpu_torch.pipeline.sdvl import SDVL
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
 
@@ -1471,12 +1861,17 @@ def run_cli(argv, device: str = "cuda") -> dict:
         if on_card:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with ba_solves() as solves:
+        stats = {}
+        gba = mapper.global_ba
+        with mock.patch.object(mapper, "global_ba", lambda *a, **k: gba(
+                *a, stats=stats, **k)):
             out = apply_gba(slam, cfg, traj, traj_ids)
         if on_card:
             torch.cuda.synchronize()
         rec["gba_ms"] = 1e3 * (time.perf_counter() - t0)
-        rec["cg_iterations"] = [n for r in solves for n in r.cg_iterations]
+        rec["cg_iterations"] = stats["cg_iterations"].tolist()
+        rec["gba_graph"] = {k: stats.get(k) for k in (
+            "capture_s", "pool_bytes", "replays")}
         return out
 
     class RecordedMapper(runtime.AsyncMapper):
@@ -1958,19 +2353,45 @@ def run_cli_phase(card: str, device: str = "cuda",
         # is (100 slots, Cholesky) and padded to the shipped capacity (PCG)
         m2 = r2["map_before"]
         intr = intrinsics(load_cfg(cfg100))
-        timed = {}
+        # each as one replay (the default on the card) and on graphs=False:
+        # bit-identical, CG counts included
+        timed, gba = {}, {}
         for name, m in (("dense", m2), ("pcg", pad_keyframe_slots(m2, K))):
+            runs = {g: timed_global_ba(m, intr, g, device)
+                    for g in ((True, False) if device == "cuda"
+                              else (False,))}
+            g = runs[device == "cuda"]
+            timed[name] = (g["map"], g["ms"], g["cg_iterations"])
             if device == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with ba_solves() as solves:
-                m_new = mapper.global_ba(m, intr)
-            if device == "cuda":
-                torch.cuda.synchronize()
-            timed[name] = (m_new, 1e3 * (time.perf_counter() - t0),
-                           [n for r in solves for n in r.cg_iterations])
-        (md, ms_d, _), (mp, ms_p, cg_p) = timed["dense"], timed["pcg"]
-        assert cg_p and not timed["dense"][2]
+                e = runs[False]
+                for field in ("kf_pose", "pt_pos", "obs_mask", "pt_valid"):
+                    assert torch.equal(getattr(g["map"], field),
+                                       getattr(e["map"], field)), (
+                        f"global BA {name}: {field} of the replay differs "
+                        f"from graphs=False")
+                assert g["cg_iterations"] == e["cg_iterations"], (
+                    g["cg_iterations"], e["cg_iterations"])
+                assert g["replays"] == 1 and not g["sync_sites"], (
+                    g["replays"], g["sync_sites"])
+                gba[name] = dict(
+                    slots=int(m.kf_valid.shape[0]), graph_ms=g["ms"],
+                    replay_ms=g["replay_ms"], capture_s=g["capture_s"],
+                    pool_bytes=g["pool_bytes"], graph_syncs=0,
+                    eager_ms=e["ms"], eager_syncs=len(e["sync_sites"]),
+                    cg_iterations=g["cg_iterations"])
+                say("cli", f"global BA {name} at {gba[name]['slots']} slots "
+                           f"as one replay: bit-identical to graphs=False "
+                           f"(poses, points, masks, CG counts "
+                           f"{g['cg_iterations']}); "
+                           f"{g['ms']:.1f} ms with the warm-up and capture "
+                           f"({g['capture_s']:.2f} s; the replay "
+                           f"{g['replay_ms']:.1f} ms), no synchronisation; "
+                           f"pool {g['pool_bytes'] / 2**20:.1f} MiB; "
+                           f"graphs=False {e['ms']:.1f} ms with "
+                           f"{len(e['sync_sites'])} synchronisations, on "
+                           f"{card}")
+        (md, ms_d, cg_d), (mp, ms_p, cg_p) = timed["dense"], timed["pcg"]
+        assert cg_p and not cg_d
         kv = md.kf_valid.cpu().numpy()
         pv = md.pt_valid.cpu().numpy()
         d_pose = float(np.abs(mp.kf_pose[:100].cpu().numpy()[kv]
@@ -1993,7 +2414,8 @@ def run_cli_phase(card: str, device: str = "cuda",
                                   global_ba_pcg_ms=ms_p,
                                   pcg_cg_iterations=cg_p,
                                   pcg_vs_dense_pose=d_pose,
-                                  pcg_vs_dense_point=d_pt)
+                                  pcg_vs_dense_point=d_pt,
+                                  global_ba_replay=gba)
 
         # 3. the host driver, 100 slots, traced
         r3 = run_cli(["--config", cfg100, "--images", tmp, "--trace",
@@ -2120,20 +2542,24 @@ def main() -> int:
     from sdvl_tpu_torch.ops.cuda import detect
 
     # ----------------------------------------------------------- 2 build
-    from sdvl_tpu_torch.ops.cuda import graph_if
+    from sdvl_tpu_torch.ops.cuda import graph_if, small_eig
 
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(detect.load_library, verbose=True),
-                    pool.submit(graph_if.load_library, verbose=True)]:
+    libs = (detect, graph_if, small_eig)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for job in [pool.submit(lib.load_library, verbose=True)
+                    for lib in libs]:
             job.result()
-    say("build", f"csrc/detect.cu -> _build/libsdvl_detect.so and "
-                 f"csrc/graph_if.cu -> _build/libsdvl_graph_if.so in "
+    say("build", f"csrc/detect.cu -> _build/libsdvl_detect.so, "
+                 f"csrc/graph_if.cu -> _build/libsdvl_graph_if.so and "
+                 f"csrc/small_eig.cu -> _build/libsdvl_small_eig.so in "
                  f"{time.perf_counter() - t0:.1f} s ({' '.join(detect.NVCC_FLAGS)})")
     # ---------------------------------------------------------- 3 kernel
     t0 = time.perf_counter()
     checks, dp = run_kernel_phase()
+    eig = check_small_eig()
+    cond = check_conditional_nodes()
     say("kernel", f"phase took {time.perf_counter() - t0:.1f} s")
     cfg = preset_config()
     query = dict(np.load(QUERY_NPZ))
@@ -2147,6 +2573,17 @@ def main() -> int:
     t0 = time.perf_counter()
     graph = run_graph_phase(card, slam)
     say("graph", f"phase took {time.perf_counter() - t0:.1f} s")
+
+    # ----------------------------------------------------------- chunk
+    t0 = time.perf_counter()
+    chunk = run_chunk_phase(card, slam)
+    chunk["per_frame_async_frames_per_s"] = graph["graph_async_frames_per_s"]
+    say("chunk", f"per-frame graph path with nothing synchronised between "
+                 f"frames (phase graph): "
+                 f"{graph['graph_async_frames_per_s']:.3f} frames/s; chunks "
+                 f"of {CHUNK} back to back: "
+                 f"{chunk['back_to_back_frames_per_s']:.3f} frames/s")
+    say("chunk", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------ host
     t0 = time.perf_counter()
@@ -2251,6 +2688,7 @@ def main() -> int:
     p3, p3_plain = checks["pallas"]["pyramid"], checks["plain"]["pyramid"]
     paths = {"slam": (slam["launches"], slam["frames"], slam["captures"]),
              "slam_eager": (graph["eager_launches"], graph["frames"], 0),
+             "chunk": (chunk["launches"], chunk["frames"], chunk["captures"]),
              "host": (host["launches"], host["frames"], host["captures"]),
              "host_eager": (host["eager_launches"], host["frames"], 0),
              "slam_map_served": (slam["loc_launches"], slam["loc_frames"],
@@ -2304,6 +2742,42 @@ def main() -> int:
         "cli": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
                 for k, v in cli.items()},
         "dist": dist_out,
+        "chunk": chunk,
+        "conditional_nodes": cond,
+        "card": card,
+    }, {
+        "name": "small_eig",
+        "route": "cuda",
+        "source": "sdvl_tpu_torch/csrc/small_eig.cu",
+        # the port's own kernel: it replaces no Pallas kernel; it stands in
+        # for the reference's XLA eigh/svd of the bootstrap
+        "replaces": "none (the port's own; in place of torch.linalg.eigh/"
+                    "svd, the reference's jnp.linalg.eigh/svd at "
+                    "sdvl_tpu/solvers/homography.py:39,100 and "
+                    "sdvl_tpu/core/geometry.py:217)",
+        "launches": slam["side_counts"]["small_eig"],
+        "frames": slam["frames"],
+        "launches_by_path": {
+            "slam": slam["side_counts"]["small_eig"],
+            "slam_eager": graph["side_counts"]["small_eig"],
+            "chunk": chunk["side_counts"]["small_eig"],
+            "host": host["side_counts"]["small_eig"],
+            "host_eager": host["eager_side_counts"]["small_eig"]},
+        "max_abs_err": max(v["max_abs_err"] for k, v in eig.items()
+                           if "max_abs_err" in v),
+        "rel_err": max(v["rel_err"] for v in eig.values() if "rel_err" in v),
+        "min_abs_cos": min(v["min_abs_cos"] for v in eig.values()
+                           if "min_abs_cos" in v),
+        # the RANSAC batch, the bootstrap's largest call, in the top-level
+        # numbers; every shape in by_shape
+        "shape": eig["eigh_ransac_9x9"]["shape"],
+        "ms": eig["eigh_ransac_9x9"]["ms"],
+        "call_ms": eig["eigh_ransac_9x9"]["call_ms"],
+        "plain_ms": eig["eigh_ransac_9x9"]["plain_ms"],
+        "bound_ms": eig["eigh_ransac_9x9"]["bound_ms"],
+        "bound_by": eig["eigh_ransac_9x9"]["bound_by"],
+        "library_ms": eig["eigh_ransac_9x9"]["library_ms"],
+        "by_shape": eig,
         "card": card,
     }]}
     print(card, flush=True)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.cuda import small_eig
 from . import se3
 
 
@@ -173,8 +174,9 @@ def fit_plane_ransac(pts: torch.Tensor, valid: torch.Tensor,
     ``gumbel`` (iters, N) is standard Gumbel noise, one row per hypothesis:
     each row picks 3 distinct valid points (Gumbel top-k). Every hypothesis
     is scored at once, the first best one wins, and its consensus set is
-    refined by the smallest-eigenvalue direction of its covariance. Returns
-    ``(normal (3,) unit, d ()), inliers (N,)`` with the plane
+    refined by the smallest-eigenvalue direction of its covariance
+    (``small_eig.eigh``: on the card a kernel that reads nothing back).
+    Returns ``(normal (3,) unit, d ()), inliers (N,)`` with the plane
     ``n . p + d = 0``; the refined normal keeps the RANSAC winner's
     orientation, whatever sign the eigensolver returns.
     """
@@ -194,7 +196,7 @@ def fit_plane_ransac(pts: torch.Tensor, valid: torch.Tensor,
     centroid = torch.sum(pts * w[:, None], dim=0) / wsum
     centered = (pts - centroid) * w[:, None]
     cov = centered.T @ centered / wsum
-    _, vecs = torch.linalg.eigh(cov)
+    _, vecs = small_eig.eigh(cov)
     n_ref = vecs[:, 0]  # smallest-eigenvalue direction
     n_ref = n_ref / _norm(n_ref).clamp_min(1e-12)
     n_ref = torch.where(torch.dot(n_ref, n) < 0, -n_ref, n_ref)

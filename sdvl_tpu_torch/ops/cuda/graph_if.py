@@ -1,18 +1,28 @@
-"""IF nodes in CUDA graphs captured from eager torch code.
+"""IF and WHILE nodes in CUDA graphs captured from eager torch code.
 
-The counterpart of the reference's ``lax.cond``/``lax.switch`` inside one
-device program (``sdvl_tpu/pipeline/device_fsm.py``): while a stream
-captures a graph, :func:`if_node` adds a conditional node on a () bool
-tensor and captures the work of its ``with`` block into the node's body, so
-that on replay the body runs only where the tensor is true, with no read
-back to the host. ``csrc/graph_if.cu`` adds the node (torch of this
-version has no binding for conditional nodes); it is built with ``nvcc``
-at first use into ``sdvl_tpu_torch/_build/`` and bound through ``ctypes``,
-as the detection kernel is.
+The counterpart of the reference's ``lax.cond``/``lax.switch`` and
+``lax.while_loop``/``fori_loop``/``scan`` inside one device program
+(``sdvl_tpu/pipeline/device_fsm.py``, ``sdvl_tpu/solvers/ba.py``): while a
+stream captures a graph, :func:`if_node` adds a conditional node on a ()
+bool tensor and captures the work of its ``with`` block into the node's
+body, so that on replay the body runs only where the tensor is true, with no
+read back to the host; :func:`while_node` adds a WHILE node whose body runs
+as long as the tensor is true when the node starts and when the body ends.
+``csrc/graph_if.cu`` adds the nodes (torch of this version has no binding
+for conditional nodes); it is built with ``nvcc`` at first use into
+``sdvl_tpu_torch/_build/`` and bound through ``ctypes``, as the detection
+kernel is. Conditional nodes nested in another's body need CUDA 12.4 or
+later, in the runtime and the driver: loading the library checks both.
+
+Every node's condition kernel adds one to a launch counter on the card
+(:func:`launches`): once per IF node and per WHILE node, and once per WHILE
+iteration, each time a graph replays.
 
 :func:`capture` wraps ``torch.cuda.graph``: the bodies are captured on
 streams of their own, so every allocation of the capturing thread is routed
-into the graph's memory pool, whatever its stream.
+into the graph's memory pool, whatever its stream. The capture stream and
+the body streams are made once per device, before any capture, each with
+its cuBLAS workspace (see :func:`_new_stream`).
 
 A body admits the node types that CUDA allows in conditional bodies:
 kernels, device-to-device copies, memsets and nested conditionals. A
@@ -33,29 +43,128 @@ from . import detect
 
 SOURCE = os.path.join(detect._PKG_DIR, "csrc", "graph_if.cu")
 
+# the oldest CUDA (runtime and driver) whose graphs take conditional nodes
+# nested in a conditional node's body
+MIN_CUDA_VERSION = 12040
+
+# conditional nodes nest at most this deep
+MAX_DEPTH = 8
+
 _lib = None
 _lib_lock = threading.Lock()
 _body_streams = {}   # (device index, nesting depth) -> torch.cuda.Stream
+_capture_streams = {}   # device index -> the stream graphs capture on
 _depth = threading.local()
+# per CUDA device index, the () int64 count of condition-kernel launches
+_counters = {}
 
 
 def load_library(verbose: bool = False):
-    """Build (once per process) and load the IF-node library."""
+    """Build (once per process) and load the conditional-node library;
+    raises where the CUDA runtime or driver is older than 12.4."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(detect.build_library(
                 verbose=verbose, source=SOURCE, name="libsdvl_graph_if.so"))
-            lib.sdvl_if_begin.argtypes = [ctypes.c_void_p] * 3
-            lib.sdvl_if_end.argtypes = [ctypes.c_void_p]
-            lib.sdvl_if_begin.restype = lib.sdvl_if_end.restype = ctypes.c_int
+            vp, ull = ctypes.c_void_p, ctypes.c_ulonglong
+            lib.sdvl_if_begin.argtypes = [vp] * 4
+            lib.sdvl_if_end.argtypes = [vp]
+            lib.sdvl_while_begin.argtypes = [vp] * 4 + [ctypes.POINTER(ull)]
+            lib.sdvl_while_end.argtypes = [vp, ull, vp, vp]
+            lib.sdvl_cuda_versions.argtypes = [
+                ctypes.POINTER(ctypes.c_int)] * 2
+            lib.sdvl_error_string.argtypes = [ctypes.c_int]
+            lib.sdvl_error_string.restype = ctypes.c_char_p
+            lib.sdvl_last_step.restype = ctypes.c_int
+            lib.sdvl_stream_create.argtypes = [ctypes.POINTER(vp)]
+            lib.sdvl_stream_create.restype = ctypes.c_int
+            for fn in (lib.sdvl_if_begin, lib.sdvl_if_end,
+                       lib.sdvl_while_begin, lib.sdvl_while_end,
+                       lib.sdvl_cuda_versions):
+                fn.restype = ctypes.c_int
+            runtime, driver = ctypes.c_int(), ctypes.c_int()
+            _check(lib.sdvl_cuda_versions(ctypes.byref(runtime),
+                                          ctypes.byref(driver)),
+                   "reading the CUDA versions")
+            if min(runtime.value, driver.value) < MIN_CUDA_VERSION:
+                raise RuntimeError(
+                    f"nested conditional nodes need CUDA 12.4 or later: the "
+                    f"runtime is {runtime.value}, the driver {driver.value}")
             _lib = lib
     return _lib
 
 
+def _counter(dev: int) -> torch.Tensor:
+    """The condition-kernel launch counter of device ``dev``. A graph holds
+    its address, so :func:`capture` makes it before a capture begins."""
+    c = _counters.get(dev)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the conditional nodes' launch counter must "
+                               "be made before a capture")
+        c = _counters[dev] = torch.zeros((), dtype=torch.int64,
+                                         device=torch.device("cuda", dev))
+    return c
+
+
+def reset_launches(device=None) -> None:
+    """Set the condition kernel's launch counter of ``device`` (default:
+    the current one) to 0."""
+    dev = torch.cuda.current_device() if device is None \
+        else torch.device(device).index or 0
+    _counter(dev).zero_()
+
+
+def launches(device=None) -> int:
+    """Condition-kernel launches on ``device`` since the last
+    :func:`reset_launches` (a host read)."""
+    dev = torch.cuda.current_device() if device is None \
+        else torch.device(device).index or 0
+    return int(_counter(dev))
+
+
 def _check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
+        detail = "" if _lib is None else (
+            f" ({_lib.sdvl_error_string(err).decode()}; step "
+            f"{_lib.sdvl_last_step()} of csrc/graph_if.cu)")
+        raise RuntimeError(f"{what} failed: CUDA error {err}{detail}")
+
+
+def _new_stream(lib, dev: int) -> torch.cuda.ExternalStream:
+    """A CUDA stream of its own on device ``dev`` (torch.cuda.Stream()
+    hands out the streams of a pool of 32 in turn, so two of them could
+    be one), with its cuBLAS workspace made: torch keeps a workspace per
+    (handle, stream) for good, and one made while a graph captures would
+    hold that graph's pool after the graph is gone."""
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(dev):
+        _check(lib.sdvl_stream_create(ctypes.byref(handle)),
+               "creating a stream")
+        stream = torch.cuda.ExternalStream(
+            handle.value, device=torch.device("cuda", dev))
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            x = torch.ones((2, 2), device=torch.device("cuda", dev))
+            torch.mm(x, x)
+            torch.bmm(x[None], x[None])
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    return stream
+
+
+def _streams(dev: int) -> None:
+    """Make device ``dev``'s capture stream and its body streams (one per
+    nesting depth), once, while nothing captures."""
+    if dev in _capture_streams:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the conditional nodes' streams must be made "
+                           "before a capture")
+    lib = load_library()
+    for depth in range(MAX_DEPTH):
+        _body_streams[(dev, depth)] = _new_stream(lib, dev)
+    _capture_streams[dev] = _new_stream(lib, dev)
 
 
 @contextlib.contextmanager
@@ -65,9 +174,11 @@ def _body_stream(device: torch.device):
     dev = device.index if device.index is not None \
         else torch.cuda.current_device()
     depth = getattr(_depth, "n", 0)
-    body = _body_streams.get((dev, depth))
-    if body is None:
-        body = _body_streams[(dev, depth)] = torch.cuda.Stream(device=dev)
+    if depth >= MAX_DEPTH:
+        raise RuntimeError(f"conditional nodes nest at most {MAX_DEPTH} "
+                           f"deep")
+    _streams(dev)
+    body = _body_streams[(dev, depth)]
     parent = torch.cuda.current_stream(dev)
     _depth.n = depth + 1
     try:
@@ -86,9 +197,11 @@ def if_node(pred: torch.Tensor):
         raise ValueError(f"an IF node takes a () bool CUDA tensor, got "
                          f"{tuple(pred.shape)} {pred.dtype} {pred.device}")
     lib = load_library()
+    counter = _counter(pred.device.index).data_ptr()
     with _body_stream(pred.device) as (parent, body):
         _check(lib.sdvl_if_begin(parent.cuda_stream, body.cuda_stream,
-                                 pred.data_ptr()), "adding an IF node")
+                                 pred.data_ptr(), counter),
+               "adding an IF node")
         try:
             yield
         finally:
@@ -97,11 +210,41 @@ def if_node(pred: torch.Tensor):
 
 
 @contextlib.contextmanager
+def while_node(pred: torch.Tensor):
+    """Capture the block into a WHILE node on ``pred`` (a () bool CUDA
+    tensor) of the graph that the current stream is capturing: on replay
+    the body runs while ``pred`` is true, read when the node starts and
+    again where the block ends, so the block must leave the next
+    iteration's predicate in ``pred`` itself. The block runs on a body
+    stream that is made current for it."""
+    if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
+        raise ValueError(f"a WHILE node takes a () bool CUDA tensor, got "
+                         f"{tuple(pred.shape)} {pred.dtype} {pred.device}")
+    lib = load_library()
+    counter = _counter(pred.device.index).data_ptr()
+    handle = ctypes.c_ulonglong()
+    with _body_stream(pred.device) as (parent, body):
+        _check(lib.sdvl_while_begin(parent.cuda_stream, body.cuda_stream,
+                                    pred.data_ptr(), counter,
+                                    ctypes.byref(handle)),
+               "adding a WHILE node")
+        try:
+            yield
+        finally:
+            _check(lib.sdvl_while_end(body.cuda_stream, handle.value,
+                                      pred.data_ptr(), counter),
+                   "ending the capture of a WHILE body")
+
+
+@contextlib.contextmanager
 def warm_body(device: torch.device):
     """Run the block eagerly on the stream :func:`if_node` would capture it
     on, after the current stream's work and before what follows it: the
     pass before a capture, which loads the kernels and library handles of
-    each body on its own stream."""
+    each body on its own stream. On the CPU it just runs the block."""
+    if device.type != "cuda":
+        yield
+        return
     with _body_stream(device) as (parent, body):
         body.wait_stream(parent)
         try:
@@ -128,10 +271,12 @@ def capture(graph: torch.cuda.CUDAGraph, pool=None):
     captured into a pool hold the only references to it, so the pool is
     freed with the last of them. Yields a :class:`Capture`."""
     dev = torch.cuda.current_device()
+    _streams(dev)
+    _counter(dev)
     if pool is None:
         pool = torch.cuda.graph_pool_handle()
     out = Capture()
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool, stream=_capture_streams[dev]):
         # torch routes the capture stream's allocations to the pool; route
         # this thread's instead (the entry is removed at capture_end)
         torch._C._cuda_endAllocateToPool(dev, pool)

@@ -10,9 +10,11 @@ insertion with local BA and pruning, the depth-filter update). With
 tracks; no bootstrap and no mapping stage run.
 
 Branches. The reference compiles every decision into one device program
-(``lax.switch``/``lax.cond``). Here each decision of a tracking (RUNNING or
-LOST) frame is a :func:`device_if` on a () bool tensor:
+(``lax.switch``/``lax.cond``). Here each decision is a :func:`device_if` on
+a () bool tensor:
 
+* the state: FIRST, SECOND or tracking (RUNNING or LOST), two nested IFs;
+* SECOND seeds the map where the bootstrap succeeded;
 * LOST relocalizes, RUNNING predicts from the motion model; after
   ``reloc_escalate_after`` failed LOST frames the relocalizer tries every
   keyframe (a nested IF: the two sweeps differ in shape);
@@ -23,19 +25,23 @@ Eagerly (the CPU, or the card with graphs off) :func:`device_if` reads its
 predicate and runs one Python branch. While a CUDA graph captures, it adds
 an IF node per branch (``ops/cuda/graph_if.py``), so that a replayed frame
 decides on the device and reads nothing back. Point statistics and the
-motion model select with ``where``. FIRST and SECOND frames run eagerly and
-read back ``state`` (which branch) and, on SECOND, ``success`` of the
-bootstrap. A stream never goes back from RUNNING/LOST to FIRST/SECOND (as in
-the reference), so once a SECOND frame succeeded, or a localizer started
-LOST, every later frame is a tracking frame and the state is not read.
+motion model select with ``where``. A stream never goes back from
+RUNNING/LOST to FIRST/SECOND (as in the reference), so once it tracks (or a
+localizer started LOST) the eager step builds the tracking branch alone and
+reads no state.
+
+Loops. The reference's ``while_loop``/``fori_loop``/``scan`` are
+:func:`device_while` and :func:`device_fori`: Python loops eagerly, WHILE
+nodes under capture. Local BA's LM steps are one, and a chunk of frames
+(:meth:`StepRunner.chunk`) is a WHILE node over the whole step.
 
 State. A step reads and writes a :class:`StepState`. Functionally it rebinds
 its fields as ``_replace`` does (:func:`make_step`); in place it copies
 each leaf a branch changed into the storage it was made with, so every
 leaf keeps its address from frame to frame (the counterpart of the
 reference stream's buffer donation). :class:`StepRunner` steps one stream in
-place and, on the card, captures its first tracking frame into a CUDA graph
-that every later tracking frame replays: one launch, no host read.
+place and, on the card, captures its first frame into a CUDA graph that
+every frame replays: one launch, no host read.
 
 Random draws come in as arguments: the pose RANSAC's Gumbel noise per
 tracking frame, and the bootstrap's two (the homography and ground-plane
@@ -167,7 +173,10 @@ def warming():
 
 def _copy_into(dst, src) -> None:
     """Copy the tensors of ``src`` into those of ``dst`` (same structure of
-    tuples), leaving alone a leaf that is its own destination."""
+    tuples, a None leaf in both), leaving alone a leaf that is its own
+    destination."""
+    if dst is None and src is None:
+        return
     if isinstance(dst, torch.Tensor):
         if src is not dst:
             if src.shape != dst.shape or src.dtype != dst.dtype:
@@ -178,6 +187,10 @@ def _copy_into(dst, src) -> None:
         return
     for d, x in zip(dst, src, strict=True):
         _copy_into(d, x)
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 def device_if(pred: torch.Tensor, body, orelse=None):
@@ -192,7 +205,7 @@ def device_if(pred: torch.Tensor, body, orelse=None):
     ran (as ``torch.cond``'s graph form does). A branch that changes the
     step's state writes it through :class:`StepState`.
     """
-    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+    if _capturing(pred):
         not_pred = torch.logical_not(pred) if orelse is not None else None
         with graph_if.if_node(pred):
             out = body()
@@ -210,6 +223,69 @@ def device_if(pred: torch.Tensor, body, orelse=None):
     if _host_read(pred):
         return body()
     return None if orelse is None else orelse()
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    return tree if isinstance(tree, torch.Tensor) else _first_leaf(tree[0])
+
+
+def _while_node(cond, body, carry):
+    """The captured form of :func:`device_while`: the carry in buffers
+    allocated before the node (clones of ``carry``), a WHILE node whose
+    body runs ``body`` on them, copies its results back into them and
+    recomputes the predicate into the node's own () bool buffer."""
+    bufs = _clone(carry)
+    pred = cond(bufs).clone()
+    with graph_if.while_node(pred):
+        _copy_into(bufs, body(bufs))
+        pred.copy_(cond(bufs))
+    return bufs
+
+
+def device_while(cond, body, carry, *, max_iters: int, check_every: int = 1):
+    """``lax.while_loop(cond, body, carry)``: ``carry`` is a tensor or a
+    tuple (NamedTuples included) of them, ``cond(carry)`` a () bool tensor,
+    ``body(carry)`` the next carry, of the same structure, shapes and
+    dtypes. Returns the final carry.
+
+    Eagerly: a Python loop of at most ``max_iters`` iterations that reads
+    the predicate on the host before every ``check_every``-th one (the
+    first included) and stops where it is false; so ``body`` must leave the
+    carry unchanged where ``cond`` is false (a frozen lane), and the result
+    does not depend on ``check_every``. Within :func:`warming`: ``body``
+    runs once on the stream a WHILE node would capture it on, and nothing
+    is read back. While a CUDA graph captures: one WHILE node
+    (:func:`_while_node`), which reads nothing back either; its iterations
+    are bounded by ``cond`` alone.
+    """
+    if _capturing(_first_leaf(carry)):
+        return _while_node(cond, body, carry)
+    if getattr(_warming, "on", False):
+        with graph_if.warm_body(_first_leaf(carry).device):
+            out = body(carry)
+            cond(out)
+        return out
+    for i in range(max_iters):
+        if i % check_every == 0 and not _host_read(cond(carry)):
+            break
+        carry = body(carry)
+    return carry
+
+
+def device_fori(n: int, body, carry):
+    """``lax.fori_loop(0, n, body, carry)`` with ``body(i, carry)``, ``i``
+    a () int32 tensor on the carry's device. Eagerly a Python loop that
+    reads nothing back; within :func:`warming` ``body`` runs once; while a
+    CUDA graph captures, one WHILE node on ``i < n``."""
+    dev = _first_leaf(carry).device
+    i0 = torch.zeros((), dtype=torch.int32, device=dev)
+    if _capturing(i0) or getattr(_warming, "on", False):
+        return device_while(lambda c: c[0] < n,
+                            lambda c: (c[0] + 1, body(c[0], c[1])),
+                            (i0, carry), max_iters=n)[1]
+    for k in range(n):
+        carry = body(i0 + k, carry)
+    return carry
 
 
 class StepState:
@@ -419,19 +495,20 @@ def seed_map(m: MapState, cfg: Config, pyr1, pyr2, boot, corners2,
 
 def make_frame(cfg: Config, undistort: bool):
     """Build ``frame(st, img, grid, gumbel, boot, tracking) ->
-    (FrameInfo, Corners, tracking)``: one frame of the state machine on the
+    (row, Corners, tracking)``: one frame of the state machine on the
     :class:`StepState` ``st``.
 
     ``img`` is the raw (cropped) frame on the device, any integer/float
     dtype (uint8 recommended). ``grid`` is the undistort map (ignored when
     ``undistort`` is False). ``gumbel`` is the (n_hyp, S) Gumbel noise of
     this frame's pose RANSAC, or None where the caller has none (a frame
-    that tracks then raises). ``boot`` is the :class:`BootNoise` of the
-    stream (unused while serving). ``tracking``: the caller knows the state
-    is RUNNING or LOST, so it is not read back. Returns the frame's info and
-    detected corners, and whether the stream is tracking after the frame.
-    The info may hold the state's own tensors: pack it (:func:`pack_info`)
-    before the next frame where the state is updated in place.
+    that tracks eagerly then raises). ``boot`` is the :class:`BootNoise` of
+    the stream (unused while serving). ``tracking``: the caller knows the
+    state is RUNNING or LOST, so only the tracking branch is built; else
+    the state picks FIRST, SECOND or tracking through nested
+    :func:`device_if`s. Returns the frame's packed info (:func:`pack_info`,
+    a tensor of its own), its detected corners, and, eagerly, whether the
+    stream is tracking after the frame.
     """
     s = cfg.sdvl
     intr = intrinsics(cfg)
@@ -517,10 +594,11 @@ def make_frame(cfg: Config, undistort: bool):
         )
         return m, carry, T
 
-    def second_frame(st, pyr, corners, noise: BootNoise):
+    def second_frame(st, pyr, corners, noise: BootNoise, tracks: list):
         """Flow + homography: restart on flow collapse, wait on low
-        parallax, seed the map on success (one host read: ``success``).
-        Returns the info and whether the stream now tracks."""
+        parallax, seed the map on success (a :func:`device_if` on
+        ``success``; eagerly, ``tracks[0]`` is set where it ran). Returns
+        the packed info."""
         carry = st.carry
         dev = carry.pose.device
         boot = bootstrap.init_two_view(
@@ -531,20 +609,23 @@ def make_frame(cfg: Config, undistort: bool):
         )
         success = (boot.ok_flow & (boot.median_shift >= s.min_avg_shift)
                    & (boot.n_inliers >= s.min_init_corners))
-        tracking = bool(success)
-        if tracking:
-            m, carry, T = bootstrap_map(st.m, carry, pyr, corners, boot,
-                                        noise)
-            st.update(m=m)
-        else:
-            carry = carry._replace(state=torch.where(
-                boot.ok_flow, i32(STATE_SECOND, dev), i32(STATE_FIRST, dev)))
-            T = se3.identity(device=dev)
-        st.update(carry=carry)
-        info = _info(carry, world_tf=T, is_keyframe=success,
-                     n_matches=boot.n_inliers,
-                     median_shift=boot.median_shift)
-        return info, tracking
+
+        def seeded():
+            m, c, T = bootstrap_map(st.m, carry, pyr, corners, boot, noise)
+            st.update(m=m, carry=c)
+            tracks[0] = True
+            return T
+
+        def waiting():
+            st.update(carry=carry._replace(state=torch.where(
+                boot.ok_flow, i32(STATE_SECOND, dev),
+                i32(STATE_FIRST, dev))))
+            return se3.identity(device=dev)
+
+        T = device_if(success, seeded, waiting)
+        return pack_info(_info(st.carry, world_tf=T, is_keyframe=success,
+                               n_matches=boot.n_inliers,
+                               median_shift=boot.median_shift))
 
     # ----------------------------------------------------------- RUNNING
     def do_reloc(m, carry, pyr):
@@ -712,20 +793,33 @@ def make_frame(cfg: Config, undistort: bool):
                                           carry.last_idx, carry.last_ok)
         pyr, corners = preprocess(img, grid, lock_xy, lock_valid)
 
+        def track():
+            return pack_info(running(st, pyr, corners, gumbel))
+
         # serving starts LOST against a loaded map: all its frames track
         if s.localize_only or tracking:
-            state = STATE_RUNNING
-        else:   # the host read of a frame that may not track
-            state = min(max(int(carry.state), 0), 3)
-        if state == STATE_FIRST:
-            info = first_frame(st, pyr, corners)
-        elif state == STATE_SECOND:
-            info, tracking = second_frame(st, pyr, corners, boot)
+            row, tracking = track(), True
         else:
-            info, tracking = running(st, pyr, corners, gumbel), True
+            # the reference's lax.switch on the state: FIRST, SECOND or
+            # tracking (RUNNING / LOST), as nested device_ifs
+            tracks = [False]
+
+            def bootstrapping():
+                first = carry.state <= STATE_FIRST
+                return device_if(
+                    first, lambda: pack_info(first_frame(st, pyr, corners)),
+                    lambda: second_frame(st, pyr, corners, boot, tracks))
+
+            def tracked():
+                tracks[0] = True
+                return track()
+
+            row = device_if(carry.state >= STATE_RUNNING, tracked,
+                            bootstrapping)
+            tracking = tracks[0]
         st.update(carry=st.carry._replace(
             last_pyr=pyr, frame_id=st.carry.frame_id + 1))
-        return info, corners, tracking
+        return row, corners, tracking
 
     return frame
 
@@ -740,8 +834,8 @@ def make_step(cfg: Config, undistort: bool):
     def step(m: MapState, carry: SlamCarry, img, grid, gumbel,
              boot: BootNoise = None):
         st = StepState(m, carry, inplace=False)
-        info, corners, _ = frame(st, img, grid, gumbel, boot)
-        return st.m, st.carry, info, corners
+        row, corners, _ = frame(st, img, grid, gumbel, boot)
+        return st.m, st.carry, unpack_info(row), corners
 
     return step
 
@@ -815,10 +909,15 @@ class StepRunner:
     """One stream's step over fixed storage.
 
     ``m`` and ``carry`` become the storage (they are written in place, the
-    map never where ``frozen_map``). Every frame that may not track runs
-    eagerly. With ``graphs`` (CUDA only), the first tracking frame is
-    captured into a :class:`StageGraph`; that frame and every later one is
-    an upload into the graph's input buffers and one replay.
+    map never where ``frozen_map``). Eagerly (no ``graphs``) each frame
+    reads back its state until the stream tracks. With ``graphs`` (CUDA
+    only) the stream's first frame is captured into a :class:`StageGraph`
+    holding every branch of the state machine (FIRST, SECOND and tracking;
+    tracking only where the stream is known to track), and that frame and
+    every later one is an upload into the graph's input buffers and one
+    replay that reads nothing back. A chunk of T frames (:meth:`chunk`) is
+    one replay of a graph of its own per T, whose WHILE node runs the step
+    once per frame.
 
     :meth:`step` returns the frame's packed info (:func:`pack_info`, a
     tensor of its own) and its corners.
@@ -836,39 +935,111 @@ class StepRunner:
         self.tracking = tracking or cfg.sdvl.localize_only
         self._frame = make_frame(cfg, undistort)
         self.graph: Optional[StageGraph] = None
+        self.chunk_graphs = {}     # T -> StageGraph of a chunk of T frames
+        n_hyp = min(cfg.sdvl.ransac_hypotheses, cfg.sdvl.max_ransac_its)
+        self._no_gumbel = (n_hyp, lane_counts(cfg)[1])
+
+    def _all_graphs(self):
+        return [g for g in [self.graph, *self.chunk_graphs.values()]
+                if g is not None]
 
     @property
     def replays(self) -> int:
-        return 0 if self.graph is None else self.graph.replays
+        """Replays of the per-frame graph and of the chunk graphs."""
+        return sum(g.replays for g in self._all_graphs())
 
     @property
     def pool_bytes(self):
-        """Device memory of the graph's pool (None before the capture)."""
-        return None if self.graph is None else self.graph.pool_bytes
+        """Device memory of the graphs' pools (None before a capture)."""
+        graphs = self._all_graphs()
+        return sum(g.pool_bytes for g in graphs) if graphs else None
 
     @property
     def capture_s(self):
-        """Host seconds of the warm-up and the capture."""
-        return None if self.graph is None else self.graph.capture_s
+        """Host seconds of the graphs' warm-ups and captures (None before a
+        capture)."""
+        graphs = self._all_graphs()
+        return sum(g.capture_s for g in graphs) if graphs else None
 
-    def _tracking_frame(self, st, img, gumbel):
-        info, corners, _ = self._frame(st, img, self.grid, gumbel, None, True)
-        return pack_info(info), corners
+    def _shared_map(self) -> bool:
+        return self.st.frozen_map or self.cfg.sdvl.localize_only
+
+    def _gumbel(self, gumbel, dev):
+        """A graph's pose-RANSAC noise input: zeros where the caller has
+        none (a FIRST or SECOND frame's; a frame that tracks on the graph
+        path needs its own)."""
+        if gumbel is not None:
+            return gumbel
+        return torch.zeros(self._no_gumbel, dtype=torch.float32, device=dev)
+
+    def _graph_frame(self, st, img, gumbel, boot):
+        row, corners, _ = self._frame(st, img, self.grid, gumbel, boot,
+                                      self.tracking)
+        return row, corners
 
     def step(self, img: torch.Tensor, gumbel: Optional[torch.Tensor],
              boot: Optional[BootNoise] = None):
-        if not (self.graphs and self.tracking):
-            info, corners, self.tracking = self._frame(
+        if not self.graphs:
+            row, corners, self.tracking = self._frame(
                 self.st, img, self.grid, gumbel, boot, self.tracking)
-            return pack_info(info), corners
-        if gumbel is None:
-            raise ValueError("a tracking frame needs its pose-RANSAC noise")
+            return row, corners
+        gumbel = self._gumbel(gumbel, img.device)
         if self.graph is None:
-            self.graph = StageGraph(
-                "step", self._tracking_frame, self.st, (img, gumbel),
-                shared_map=(self.st.frozen_map
-                            or self.cfg.sdvl.localize_only))
-        return _clone(self.graph(img, gumbel))
+            self.graph = StageGraph("step", self._graph_frame, self.st,
+                                    (img, gumbel, boot),
+                                    shared_map=self._shared_map())
+        return _clone(self.graph(img, gumbel, boot))
+
+    def _chunk(self, st, imgs, gumbels, boot):
+        """``imgs.shape[0]`` frames of the state machine, frame ``i``'s info
+        in row ``i`` of the result: ``make_chunk_step``'s scan."""
+        T = imgs.shape[0]
+        dev = imgs.device
+        rows = torch.zeros((T, INFO_WIDTH), dtype=torch.float32, device=dev)
+
+        def body(i, carry):
+            rows, _corners = carry
+            at = i.long().reshape(1)
+            row, corners = self._graph_frame(
+                st, imgs.index_select(0, at)[0],
+                gumbels.index_select(0, at)[0], boot)
+            return rows.index_copy(0, at, row[None]), corners
+
+        # the loop's carry holds the newest frame's corners too
+        return device_fori(T, body, (rows, _corners_like(self.cfg, dev)))
+
+    def chunk(self, imgs: torch.Tensor, gumbels, boot=None):
+        """Step ``imgs`` (T, H, W) with ``gumbels`` (a list of T noise
+        tensors or Nones). Eagerly one frame after another; with graphs
+        one replay of the chunk graph of T frames (captured at the first
+        chunk of T frames). Returns the (T, INFO_WIDTH) packed infos and
+        the last frame's corners."""
+        if not self.graphs:
+            rows, corners = [], None
+            for img, g in zip(imgs, gumbels):
+                row, corners = self.step(img, g, boot)
+                rows.append(row)
+            return torch.stack(rows), corners
+        dev = imgs.device
+        g = torch.stack([self._gumbel(x, dev) for x in gumbels])
+        T = imgs.shape[0]
+        graph = self.chunk_graphs.get(T)
+        if graph is None:
+            graph = self.chunk_graphs[T] = StageGraph(
+                f"chunk_{T}", self._chunk, self.st, (imgs, g, boot),
+                shared_map=self._shared_map())
+        return _clone(graph(imgs, g, boot))
+
+
+def _corners_like(cfg: Config, dev):
+    """A zero Corners of the detector's capacity for ``cfg``: the initial
+    value of a chunk loop's corners."""
+    n = lane_counts(cfg)[0]
+    return fast_ops.Corners(
+        xy=torch.zeros((n, 2), dtype=torch.float32, device=dev),
+        score=torch.zeros(n, dtype=torch.float32, device=dev),
+        level=torch.zeros(n, dtype=torch.int32, device=dev),
+        valid=torch.zeros(n, dtype=torch.bool, device=dev))
 
 
 @contextlib.contextmanager

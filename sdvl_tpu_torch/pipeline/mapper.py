@@ -20,7 +20,7 @@ with them:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -253,7 +253,8 @@ def extract_global_ba(m: MapState, intr) -> ba.BAProblem:
 
 
 def global_ba(m: MapState, intr, mesh=None, stage_iters=(8, 12),
-              axis: str = "point") -> MapState:
+              axis: str = "point", graphs: Optional[bool] = None,
+              stats: Optional[dict] = None) -> MapState:
     """Full-map bundle adjustment + write-back: poses of the free slots,
     positions of the valid points, and the observations the BA gated out
     removed. The reduced camera solve is dense Cholesky up to
@@ -261,24 +262,59 @@ def global_ba(m: MapState, intr, mesh=None, stage_iters=(8, 12),
     (``torch.distributed.device_mesh.DeviceMesh``), the point blocks are
     sharded over its ``axis`` and the reduced camera system all-reduced
     (``dist.ba_sharded.solve_sharded``); every rank of the axis calls it
-    with the same map and gets the same result."""
-    problem = extract_global_ba(m, intr)
-    if mesh is None:
-        res = ba.solve(problem, huber=huber_threshold(intr),
-                       stage_iters=tuple(stage_iters))
-    else:
-        from ..dist import ba_sharded
+    with the same map and gets the same result. That path runs eagerly
+    (its collectives are not captured).
 
-        res = ba_sharded.solve_sharded(
-            problem, mesh, huber=huber_threshold(intr),
-            stage_iters=tuple(stage_iters), axis=axis)
-    free = ~problem.fixed
-    m = m._replace(
-        kf_pose=torch.where(free[:, None], res.poses, m.kf_pose),
-        pt_pos=torch.where(m.pt_valid[:, None], res.points, m.pt_pos),
-    )
-    removed = problem.obs_mask & ~res.inlier_mask                 # (P, K)
-    return m._replace(obs_mask=m.obs_mask & ~removed.T)
+    On the card without a ``mesh`` (``graphs`` None or True) the solve and
+    the write-back are one replay of a CUDA graph captured over the map
+    (``device_fsm.StageGraph``: its warm-up passes run each loop body once,
+    its LM and CG loops are WHILE nodes), and nothing is read back before
+    the result; ``graphs=False`` runs them eagerly. ``stats``, a dict,
+    receives ``cg_iterations`` (the result's per-LM-step counts, a device
+    tensor) and ``chi2``, and on the graph path the graph's ``capture_s``,
+    ``pool_bytes`` and ``replays``."""
+    if mesh is not None and graphs:
+        raise ValueError("global_ba(mesh=...) runs eagerly: collectives "
+                         "are not captured")
+    if graphs is None:
+        graphs = mesh is None and m.kf_pose.is_cuda
+    if graphs and not m.kf_pose.is_cuda:
+        raise ValueError("graphs=True needs a CUDA device")
+
+    def solve(map_):
+        problem = extract_global_ba(map_, intr)
+        if mesh is None:
+            res = ba.solve(problem, huber=huber_threshold(intr),
+                           stage_iters=tuple(stage_iters))
+        else:
+            from ..dist import ba_sharded
+
+            res = ba_sharded.solve_sharded(
+                problem, mesh, huber=huber_threshold(intr),
+                stage_iters=tuple(stage_iters), axis=axis)
+        free = ~problem.fixed
+        removed = problem.obs_mask & ~res.inlier_mask             # (P, K)
+        return (torch.where(free[:, None], res.poses, map_.kf_pose),
+                torch.where(map_.pt_valid[:, None], res.points, map_.pt_pos),
+                map_.obs_mask & ~removed.T, res.cg_iterations, res.chi2)
+
+    if graphs:
+        from .device_fsm import StageGraph, StepState
+
+        g = StageGraph("global_ba", lambda st: solve(st.m),
+                       StepState(m, None, inplace=True), (),
+                       shared_map=True)
+        out = tuple(t.clone() for t in g())
+        if stats is not None:
+            stats.update(capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                         replays=g.replays)
+        del g
+    else:
+        out = solve(m)
+    kf_pose, pt_pos, obs_mask, cg_iterations, chi2 = out
+    if stats is not None:
+        stats.update(cg_iterations=cg_iterations, chi2=chi2)
+    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, obs_mask=obs_mask)
 
 
 def prune_weak_points(m: MapState, min_obs: int = 2,

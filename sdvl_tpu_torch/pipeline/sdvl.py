@@ -19,14 +19,18 @@ fold; relocalize (the nearest ``reloc_max_keyframes``, or after
 graph, captured when first needed), take the winning keyframe as the
 reference and track, without the fold; the depth-filter update; the
 keyframe stage (insertion, local BA, pruning, then the depth-filter update).
-The host picks which graph to replay from the numbers it has read, so no
-graph holds a branch. ``graphs=False`` runs the same stages eagerly on the
-card, as the CPU always does. FIRST and SECOND frames run eagerly: they
-come a few times per map, and the bootstrap's ``eigh``/``svd`` synchronise.
+The host picks which tracking graph to replay from the numbers it has
+read. The bootstrap frames' stages are graphs too, as the reference jits
+them: FIRST's detection and corner count; the two-view bootstrap; the seed
+map with the two-view local BA and the ground-plane alignment, which runs
+where the bootstrap succeeded (a ``device_if``: an IF node, decided on the
+device); the initial match set. ``graphs=False`` runs the same stages
+eagerly on the card, as the CPU always does.
 
 Host reads per frame: FIRST frames read the corner count; SECOND frames read
-the bootstrap's ``(median_shift, n_inliers, ok_flow)`` in one copy (and on
-success the initial match count with the new pose and world transform);
+the bootstrap's ``(median_shift, n_inliers, ok_flow)`` in one copy, with the
+seed stage's decision, the initial match count, the new pose and the world
+transform (eagerly the seed stage's ``device_if`` reads its predicate too);
 RUNNING and LOST frames read ``(n_matches, n_attempts)`` together with the
 tracked and the predicted pose in one copy (:func:`_host_read`), which
 gives the quality decision and the trajectory's host copy at once. Frames
@@ -253,7 +257,13 @@ class SDVL:
             self.intr, st.m, c.last_pose, c.last_idx, c.last_ok)
         return self._preprocess(img, lock_xy, lock_valid)
 
-    def _bootstrap(self, pyr1, pyr2, corners_xy, corners_valid):
+    def _detect(self, st, img):
+        """FIRST's (and SECOND's) stage: the unlocked preprocess and the
+        corner count."""
+        pyr, corners = self._preprocess(img)
+        return pyr, corners, torch.sum(corners.valid).to(torch.int32)
+
+    def _bootstrap(self, st, pyr1, pyr2, corners_xy, corners_valid):
         s = self.cfg.sdvl
         return bootstrap.init_two_view(
             self.intr, pyr1, pyr2, corners_xy, corners_valid,
@@ -270,6 +280,43 @@ class SDVL:
                torch.ones((), dtype=torch.int32, device=dev))
         return device_fsm.seed_map(m, self.cfg, pyr1, pyr2, boot, corners2,
                                    ids)
+
+    def _seed_stage(self, st, pyr1, pyr2, boot, corners2):
+        """Where the bootstrap succeeded (a ``device_if``): seed the map,
+        the two-view local BA and the ground-plane alignment, written into
+        the map. Returns ``(success, pose, T)``: the second camera's pose
+        in the new world and the world transform (identity where it
+        failed)."""
+        s = self.cfg.sdvl
+        dev = self.device
+        success = (boot.ok_flow & (boot.median_shift >= s.min_avg_shift)
+                   & (boot.n_inliers >= s.min_init_corners))
+
+        def seeded():
+            m = self._seed_map(st.m, pyr1, pyr2, boot, corners2)
+            m = self._local_ba(m, torch.ones((), dtype=torch.int32,
+                                             device=dev), window=1)
+            pose = m.kf_pose[1]
+            T = se3.identity(device=dev)
+            if s.align_ground_plane:
+                # z=0-align the initial map
+                m, T = mapper.transform_initial_map(m,
+                                                    self._noise.boot.plane)
+                pose = se3.compose(pose, se3.inverse(T))
+            st.update(m=m)
+            return pose.clone(), T
+
+        def failed():
+            return se3.identity(device=dev), se3.identity(device=dev)
+
+        pose, T = device_fsm.device_if(success, seeded, failed)
+        return success, pose, T
+
+    def _match_stage(self, st, pyr, pose):
+        """The initial match set (the seeded points' observations in the
+        second keyframe) and its size."""
+        mr = self._match_initial(st.m, pyr, pose)
+        return mr, torch.sum(mr.ok).to(torch.int32)
 
     def _track(self, st, pyr, gumbel, sweep: Optional[int] = None):
         """Predict from the motion model (``sweep`` None) or relocalize
@@ -415,14 +462,16 @@ class SDVL:
                 pyr, corners = self._stage("preprocess",
                                            self._preprocess_locked, img)
             else:
-                pyr, corners = self._preprocess(img)
+                pyr, corners, n_corners = self._stage("detect",
+                                                      self._detect, img)
         info = {"frame_id": self.frame_id, "state": self.state.name,
                 "n_matches": 0, "n_attempts": 0, "keyframe": False}
 
         if self.state == TrackingState.FIRST_FRAME:
-            n_corners = int(corners.valid.sum())
+            n_corners = int(n_corners)      # the frame's one read
             if n_corners >= s.min_init_corners:
-                self._first_fs = (pyr, corners)
+                # copies: the stage's next replay overwrites its outputs
+                self._first_fs = device_fsm._clone((pyr, corners))
                 self.state = TrackingState.SECOND_FRAME
             info["n_corners"] = n_corners
 
@@ -439,12 +488,23 @@ class SDVL:
         return info
 
     def _second_frame(self, pyr, corners, info: dict):
+        """The bootstrap, the seed map (where it succeeded, decided on the
+        device) and the initial match set, as three stages, then the
+        frame's one read: ``(median_shift, n_inliers, ok_flow)`` with the
+        decision, the match count, the pose and the world transform."""
         s = self.cfg.sdvl
         pyr1, corners1 = self._first_fs
-        boot = self._bootstrap(pyr1, pyr, corners1.xy, corners1.valid)
-        med_shift, n_inl, ok_flow = torch.stack([
+        boot = self._stage("bootstrap", self._bootstrap, pyr1, pyr,
+                           corners1.xy, corners1.valid)
+        success, pose, T = self._stage("seed", self._seed_stage, pyr1, pyr,
+                                       boot, corners, writes_map=True)
+        mr, n_ok = self._stage("match_initial", self._match_stage, pyr,
+                               pose)
+        host = torch.cat([torch.stack([
             boot.median_shift.float(), boot.n_inliers.float(),
-            boot.ok_flow.float()]).tolist()
+            boot.ok_flow.float(), success.float(), n_ok.float()]),
+            pose, T]).cpu()
+        med_shift, n_inl, ok_flow, seeded, n_ok = host[:5].tolist()
         n_inl = int(n_inl)
         info.update(median_shift=med_shift, n_inliers=n_inl)
         if not ok_flow:
@@ -452,32 +512,18 @@ class SDVL:
             self.state = TrackingState.FIRST_FRAME
             self._first_fs = None
             return
-        if med_shift < s.min_avg_shift or n_inl < s.min_init_corners:
+        if not seeded:
             return      # wait for more parallax (stay in SECOND_FRAME)
-        m = self._seed_map(self.m, pyr1, pyr, boot, corners)
-        m = self._local_ba(m, torch.ones((), dtype=torch.int32,
-                                         device=self.device), window=1)
-        pose = m.kf_pose[1]
-        T = se3.identity(device=self.device)
+        self._set_pose(pose, host[5:12].numpy())
         if s.align_ground_plane:
-            # z=0-align the initial map
-            m, T = mapper.transform_initial_map(m, self._noise.boot.plane)
-            pose = se3.compose(pose, se3.inverse(T))
-        self._st.update(m=m)
-        # initial match set = the seeded points' observations in KF1
-        mr = self._match_initial(self.m, pyr, pose)
-        host = torch.cat([torch.sum(mr.ok).float().reshape(1), pose,
-                          T]).cpu()
-        self._set_pose(pose, host[1:8].numpy())
-        if s.align_ground_plane:
-            T_inv = se3.inverse(host[8:15])
+            T_inv = se3.inverse(host[12:19])
             self.trajectory = [
                 (fid, se3.compose(torch.from_numpy(p), T_inv).numpy())
                 for fid, p in self.trajectory
             ]
         self.last_match_idx = mr.pt_idx
         self.last_match_ok = mr.ok
-        self.kf_matches = max(int(host[0]), 1)
+        self.kf_matches = max(int(n_ok), 1)
         self.state = TrackingState.RUNNING
         self.frames_since_kf = 0
         info["keyframe"] = True

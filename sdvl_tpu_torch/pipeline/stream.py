@@ -8,17 +8,18 @@ snapshot written by either package, starting LOST. The loop
   * uploads each frame (uint8), or a whole chunk of frames in one copy,
     asynchronously, through a ring of pinned host buffers
     (:class:`HostUploads`);
-  * steps the frame (``device_fsm.StepRunner``): FIRST and SECOND frames
-    eagerly, reading back their state; on the card every tracking frame
-    (RUNNING or LOST: a localizer's from its first frame) is one replay of
-    a CUDA graph captured at the first of them, which decides its branches
-    on the device and reads nothing back (``graphs=False``: the eager card
-    path, one host read per decision);
+  * steps the frame (``device_fsm.StepRunner``): on the card every frame,
+    FIRST and SECOND included, is one replay of a CUDA graph captured at the
+    stream's first frame, which decides its branches (the state, the
+    bootstrap's success, and every decision of a tracking frame) on the
+    device and reads nothing back; a chunk of T frames is one replay of a
+    graph whose WHILE node runs the step T times (``graphs=False``: the
+    eager card path, one host read per decision);
   * keeps each frame's ``FrameInfo`` packed in a device tensor of its own,
   * transfers all of them device->host exactly once, in :meth:`result`.
 
 So on the card ``feed(block=False)`` returns before the frame is done, and
-nothing synchronises between tracking frames.
+nothing synchronises between frames.
 
 Random draws (:class:`NoiseSource`, shared with the host driver
 ``pipeline/sdvl.py``). The pose RANSAC needs Gumbel noise on every tracking
@@ -225,9 +226,9 @@ class NoiseSource:
 class SdvlStream:
     """Streaming run over the per-frame state machine.
 
-    ``graphs`` (default: on for a CUDA device): tracking frames replay a
-    CUDA graph (see the module note); ``graphs=False`` steps them eagerly.
-    On the CPU every frame runs eagerly."""
+    ``graphs`` (default: on for a CUDA device): every frame replays a CUDA
+    graph (see the module note); ``graphs=False`` steps them eagerly. On
+    the CPU every frame runs eagerly."""
 
     def __init__(self, config: Config, seed: int = 0, device="cuda",
                  gumbel_provider=None, graphs: Optional[bool] = None):
@@ -252,8 +253,9 @@ class SdvlStream:
     def _adopt(self, m, carry) -> None:
         """Make ``(m, carry)`` the stream's state, written in place from
         now on. A captured graph holds the old state's addresses, so the
-        stream starts a new runner; it reads the state back on its first
-        frame unless it is a localizer's."""
+        stream starts a new runner (on the graph path it captures again at
+        the next frame; eagerly it reads the state back until the stream
+        tracks, unless it is a localizer's)."""
         self.runner = StepRunner(self.cfg, self._undistort, m, carry,
                                  self._grid, self.graphs)
 
@@ -327,15 +329,19 @@ class SdvlStream:
     def feed_chunk(self, imgs: np.ndarray, block: bool = False
                    ) -> List[FrameInfo]:
         """Process a (T, H, W) stack of frames: ONE host->device copy, then
-        one step (on the card, one graph replay per tracking frame) per
+        on the card ONE replay of the chunk graph of T frames (a WHILE node
+        over the step: ``make_chunk_step``'s scan), eagerly one step per
         frame."""
         imgs = np.asarray(imgs)[:, : self.crop_h, : self.crop_w]
         dev_imgs = self._uploads.upload(imgs)
         gumbels = self._noise.pose(self._n_fed, len(imgs))
-        infos = [self._step(img, g) for img, g in zip(dev_imgs, gumbels)]
+        rows, self.last_corners = self.runner.chunk(dev_imgs, gumbels,
+                                                    self._boot)
+        self._n_fed += len(imgs)
+        self._rows.extend(rows.unbind(0))
         if block:
             self.block()
-        return infos
+        return [unpack_info(r) for r in rows]
 
     def block(self):
         """Wait for all dispatched work."""

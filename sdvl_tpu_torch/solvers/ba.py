@@ -22,10 +22,17 @@ finite partial factor whose step could be accepted; so the port calls
 Above ``CG_KF_THRESHOLD`` keyframe slots :func:`solve` takes the matrix-free
 block-Jacobi PCG of :func:`_schur_solve_cg` instead, as the reference does:
 whole-map BA at the shipped 1000-slot capacity never forms the (6K, 6K)
-system. The reference's CG is a ``while_loop`` that stops at an iteration
-bound or a residual tolerance; the port runs the same iterations with a
-frozen-lane flag (a lane past the tolerance no longer moves) and reads the
-flag on the host only every ``CG_CHECK_EVERY`` iterations to stop early.
+system.
+
+Loops. The reference's CG is a ``while_loop`` that stops at an iteration
+bound computed on the device or at a residual tolerance, and its two LM
+stages are ``fori_loop``s. The port's are ``device_fsm.device_while`` and
+``device_fori``: while a CUDA graph captures, WHILE nodes that read nothing
+back (the CG's nested in the LM step's); eagerly, Python loops, the CG's
+with a frozen-lane flag (a lane past the tolerance or the bound no longer
+moves) read on the host every ``CG_CHECK_EVERY`` iterations to stop early.
+Each LM step's CG iteration count stays on the device
+(``BAResult.cg_iterations``).
 
 Every solve takes the reference's reduction hook (its ``axis``): ``group``,
 a ``torch.distributed`` process group the POINT dimension of the problem is
@@ -40,7 +47,7 @@ take it alike.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -80,8 +87,9 @@ class BAResult(NamedTuple):
     points: torch.Tensor
     chi2: torch.Tensor          # final robust cost
     inlier_mask: torch.Tensor   # (P, K) observations that survived gating
-    cg_iterations: Tuple[int, ...] = ()  # CG iterations of each LM step
-                                         #   (PCG route; empty when dense)
+    cg_iterations: Optional[torch.Tensor] = None
+    # (n LM steps,) int32 on the device: the CG iterations of each LM step
+    # (PCG route; (0,) on the dense route)
 
 
 # keyframe-slot count above which solve() switches the reduced camera
@@ -167,8 +175,7 @@ def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     return dc, dp
 
 
-def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam,
-                    n_free: Optional[int] = None, group=None):
+def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     """Matrix-free PCG on the reduced camera system -- the large-map path.
 
     S is never formed: each iteration applies
@@ -177,19 +184,22 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam,
 
     as three O(P*K) contractions, preconditioned by the exact 6x6 block
     diagonal of S (block-Jacobi). The iterations stop at
-    ``min(max(64, K), max(6 * n_free, 16))`` for ``n_free`` free cameras,
-    or once the preconditioned residual ``rz`` has dropped to 1e-12 of its
-    start: the reference's ``while_loop`` exit. ``n_free`` (the count of
-    ``~fixed``) is read on the host unless the caller gives it. Past the
-    tolerance the lane is frozen (nothing it holds changes any more); the
-    flag is read every ``CG_CHECK_EVERY`` iterations to stop early.
+    ``min(max(64, K), max(6 * n_free, 16))`` for ``n_free`` free cameras (a
+    bound computed on the device; ``max(64, K)`` is the static ceiling, the
+    reference's ``cg_iters``), or once the preconditioned residual ``rz``
+    has dropped to 1e-12 of its start: the reference's ``while_loop`` exit,
+    through :func:`device_fsm.device_while` (a lane past either no longer
+    moves, so the eager loop reads the predicate every ``CG_CHECK_EVERY``
+    iterations only).
 
     ``group``: the points are sharded over it (see the module note): the
     per-iteration wire cost is one (K, 6) all-reduce, whatever P and K.
 
-    Returns ``(dc, dp, n_iter)``, ``n_iter`` the iterations the reference's
-    loop runs on the same numbers.
+    Returns ``(dc, dp, n_iter)``, ``n_iter`` a () int32 tensor: the
+    iterations the reference's loop runs on the same numbers.
     """
+    from ..pipeline.device_fsm import device_while
+
     K = U.shape[0]
     dev = U.device
     eye3 = torch.eye(3, dtype=V.dtype, device=dev)
@@ -220,21 +230,21 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam,
     def precond(r):
         return torch.einsum("kij,kj->ki", Dinv, r)
 
-    x = torch.zeros_like(rhs)
-    r = rhs
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
-    tol = 1e-12 * rz.clamp_min(1e-30)
-    if n_free is None:
-        n_free = int(torch.sum(~fixed))
-    max_it = min(max(64, K), max(6 * n_free, 16))
+    r0 = rhs
+    z0 = precond(r0)
+    rz0 = torch.sum(r0 * z0)
+    tol = 1e-12 * rz0.clamp_min(1e-30)
+    ceiling = max(64, K)
+    n_free = torch.sum(~fixed).to(torch.int32)
+    max_it = (6 * n_free).clamp_min(16).clamp_max(ceiling)
 
-    n_iter = torch.zeros((), dtype=torch.int32, device=dev)
-    for i in range(max_it):
-        if i and i % CG_CHECK_EVERY == 0 and not bool(rz > tol):
-            break
-        active = rz > tol
+    def cond(c):
+        _, _, _, rz, i = c
+        return (i < max_it) & (rz > tol)
+
+    def body(c):
+        x, r, p, rz, i = c
+        active = cond(c)
         Ap = matvec(p)
         alpha = rz / torch.sum(p * Ap).clamp_min(1e-30)
         alpha = torch.where(active, alpha, torch.zeros_like(alpha))
@@ -245,12 +255,17 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam,
         beta = rz_new / rz.clamp_min(1e-30)
         p = torch.where(active, z + beta * p, p)
         rz = torch.where(active, rz_new, rz)
-        n_iter = n_iter + active.to(torch.int32)
+        return x, r, p, rz, i + active.to(torch.int32)
+
+    x, _, _, _, n_iter = device_while(
+        cond, body, (torch.zeros_like(rhs), r0, z0, rz0,
+                     torch.zeros((), dtype=torch.int32, device=dev)),
+        max_iters=ceiling, check_every=CG_CHECK_EVERY)
     dc = x * free[:, None]
 
     t = b_p - torch.einsum("pkij,ki->pj", Wm, dc)
     dp = torch.einsum("pij,pj->pi", Vinv, t)
-    return dc, dp, int(n_iter)
+    return dc, dp, n_iter
 
 
 def _robust_chi2(r, w, huber):
@@ -271,45 +286,45 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
     removed, and stage 2 re-optimizes. Each iteration accepts the step only
     if the robust cost fell, halving the damping, else quadruples it. The
     reduced camera system is solved by dense Cholesky up to
-    ``CG_KF_THRESHOLD`` keyframe slots and by PCG above (one host read per
-    ``CG_CHECK_EVERY`` CG iterations; the result's ``cg_iterations`` holds
-    the count of each LM step); ``method`` ("chol" or "cg") overrides that
-    choice. ``group``: the problem holds this rank's point rows only, and
-    every sum over points is all-reduced over it (see the module note; the
-    result's ``points`` and ``inlier_mask`` are the local rows).
+    ``CG_KF_THRESHOLD`` keyframe slots and by PCG above (eagerly one host
+    read per ``CG_CHECK_EVERY`` CG iterations, none under a CUDA graph
+    capture; the result's ``cg_iterations`` holds the count of each LM step
+    in one device tensor); ``method`` ("chol" or "cg") overrides that
+    choice. Both LM stages are ``device_fsm.device_fori`` loops. ``group``:
+    the problem holds this rank's point rows only, and every sum over
+    points is all-reduced over it (see the module note; the result's
+    ``points`` and ``inlier_mask`` are the local rows).
     """
+    from ..pipeline.device_fsm import device_fori
+
     if gate_thresh is None:
         gate_thresh = huber
     if method not in (None, "chol", "cg"):
         raise ValueError(f"method {method!r} is not 'chol' or 'cg'")
     use_cg = (problem.poses.shape[0] > CG_KF_THRESHOLD if method is None
               else method == "cg")
-    cg_iterations = []
-    if use_cg:
-        # the CG bound's count of free cameras: one host read per solve
-        n_free = int(torch.sum(~problem.fixed))
     dev = problem.poses.device
-
-    def schur(*system):
-        if not use_cg:
-            return _schur_solve(*system, group=group)
-        dc, dp, n_iter = _schur_solve_cg(*system, n_free=n_free, group=group)
-        cg_iterations.append(n_iter)
-        return dc, dp
+    n_steps = sum(stage_iters) if use_cg else 0
 
     def chi2_of(poses, points, w_mask):
         r, _, w = _residuals(poses, points, problem.obs_uv, w_mask)
         return _psum(_robust_chi2(r, _robust_weights(r, w, huber), huber),
                      group)
 
-    def lm_run(poses, points, w_mask, iters):
-        prev_chi2 = chi2_of(poses, points, w_mask)
-        lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
-        for _ in range(iters):
+    def lm_run(poses, points, counts, w_mask, iters, first_step):
+        def step(i, c):
+            poses, points, lam, prev_chi2, counts = c
             r, _, w0 = _residuals(poses, points, problem.obs_uv, w_mask)
             w = _robust_weights(r, w0, huber)
-            U, V, Wm, b_c, b_p = _build_system(poses, points, r, w)
-            dc, dp = schur(U, V, Wm, b_c, b_p, problem.fixed, lam)
+            system = _build_system(poses, points, r, w)
+            if use_cg:
+                dc, dp, n_iter = _schur_solve_cg(*system, problem.fixed, lam,
+                                                 group=group)
+                counts = counts.index_copy(
+                    0, (i + first_step).long().reshape(1), n_iter.reshape(1))
+            else:
+                dc, dp = _schur_solve(*system, problem.fixed, lam,
+                                      group=group)
             new_poses = se3.boxplus(poses, -dc)
             new_points = points - dp
             chi2 = chi2_of(new_poses, new_points, w_mask)
@@ -318,11 +333,18 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
             points = torch.where(accept, new_points, points)
             lam = torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-9, 1e3)
             prev_chi2 = torch.where(accept, chi2, prev_chi2)
-        return poses, points, prev_chi2
+            return poses, points, lam, prev_chi2, counts
+
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
+        poses, points, _, chi2, counts = device_fori(
+            iters, step, (poses, points, lam,
+                          chi2_of(poses, points, w_mask), counts))
+        return poses, points, chi2, counts
 
     w_mask = problem.obs_mask.float()
-    poses, points, _ = lm_run(problem.poses, problem.points, w_mask,
-                              stage_iters[0])
+    counts = torch.zeros(n_steps, dtype=torch.int32, device=dev)
+    poses, points, _, counts = lm_run(problem.poses, problem.points, counts,
+                                      w_mask, stage_iters[0], 0)
 
     # outlier gating between stages
     r, p_cam, _ = _residuals(poses, points, problem.obs_uv, w_mask)
@@ -330,9 +352,10 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
     keep = (err2 < gate_thresh * gate_thresh) & (p_cam[..., 2] > 1e-4)
     w_mask2 = w_mask * keep
 
-    poses, points, chi2 = lm_run(poses, points, w_mask2, stage_iters[1])
+    poses, points, chi2, counts = lm_run(poses, points, counts, w_mask2,
+                                         stage_iters[1], stage_iters[0])
     return BAResult(
         poses=poses, points=points, chi2=chi2,
         inlier_mask=(w_mask2 > 0) & problem.obs_mask,
-        cg_iterations=tuple(cg_iterations),
+        cg_iterations=counts,
     )

@@ -6,10 +6,13 @@ unit-plane coordinates whose hypotheses are one batch (the reference
 decomposition into 8 (R, t, n) candidates and their visibility/Sampson
 scoring. RANSAC takes its Gumbel noise as an argument.
 
-Eigenvector and singular-vector signs are not unique and differ between
-LAPACK, torch and cuSOLVER; nothing below depends on them: H is normalised
-by its (3, 3) entry, and a sign flip of a singular-vector pair permutes the
-8 candidates among themselves.
+The ``eigh`` and the SVD are ``ops/cuda/small_eig.py``'s: on the card a
+kernel that reads nothing back (``torch.linalg``'s read cuSOLVER's status
+on the host), on the CPU ``torch.linalg`` itself. Eigenvector and
+singular-vector signs are not unique and differ between LAPACK, cuSOLVER
+and the kernel; nothing below depends on them: H is normalised by its
+(3, 3) entry, and a sign flip of a singular-vector pair permutes the 8
+candidates among themselves.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from .. import const
 from ..core import geometry, se3
+from ..ops.cuda import small_eig
 
 
 def dlt_homography(uv_a: torch.Tensor, uv_b: torch.Tensor,
@@ -27,7 +31,8 @@ def dlt_homography(uv_a: torch.Tensor, uv_b: torch.Tensor,
     """Weighted DLT: H such that uv_b ~ H uv_a (unit-plane homogeneous),
     from the smallest eigenvector of the weighted 9x9 ``A^T A``.
     ``weights`` is (..., N): leading dimensions are independent problems,
-    solved in one batched ``eigh``. Returns (..., 3, 3)."""
+    solved in one batched ``eigh`` (``small_eig.eigh``). Returns (..., 3,
+    3)."""
     x, y = uv_a[:, 0], uv_a[:, 1]
     xp, yp = uv_b[:, 0], uv_b[:, 1]
     one = torch.ones_like(x)
@@ -37,7 +42,7 @@ def dlt_homography(uv_a: torch.Tensor, uv_b: torch.Tensor,
     A = torch.cat([r1, r2], dim=0)                         # (2N, 9)
     w = torch.cat([weights, weights], dim=-1)              # (..., 2N)
     AtA = torch.einsum("ni,nj,...n->...ij", A, A, w)
-    _, v = torch.linalg.eigh(AtA)
+    _, v = small_eig.eigh(AtA)
     H = v[..., :, 0].reshape(v.shape[:-2] + (3, 3))
     h22 = H[..., 2:3, 2:3]
     return H / torch.where(h22.abs() < 1e-12, torch.full_like(h22, 1e-12),
@@ -111,7 +116,7 @@ def decompose_homography(H: torch.Tensor) -> Decomposition:
     the d' > 0 and d' < 0 families with the four epsilon sign combinations.
     Degenerate (near-equal singular value) cases give harmless duplicates
     rather than branches."""
-    U, S, Vt = torch.linalg.svd(H)
+    U, S, Vt = small_eig.svd3(H)
     d1, d2, d3 = S[0], S[1], S[2]
     s = _det3(U) * _det3(Vt)
     V = Vt.T

@@ -1,5 +1,4 @@
-"""The device-resident step on the card: each tracking frame one CUDA graph
-replay.
+"""The device-resident step on the card: each frame one CUDA graph replay.
 
 Needs an NVIDIA GPU and ``nvcc`` (the IF nodes are bound through
 ``csrc/graph_if.cu``); skips with a reason anywhere else. This file imports
@@ -11,10 +10,16 @@ On the small full-SLAM sequence of ``tests/test_torch_graph_step.py``
 (bootstrap, tracked keyframes, a LOST stretch reaching the relocalizer's
 sweep of every keyframe) and in serving mode:
 
-* the graph path equals the eager card path (``graphs=False``) bit for bit:
-  every frame's info and the final map and carry;
-* a tracking frame makes no synchronising call
-  (``torch.cuda.set_sync_debug_mode("error")`` around its ``feed``);
+* the graph path, captured at the stream's first frame, equals the eager
+  card path (``graphs=False``) bit for bit: every frame's info and the
+  final map and carry;
+* no frame after the capture frame, FIRST and SECOND included, makes a
+  synchronising call (``torch.cuda.set_sync_debug_mode("error")`` around
+  its ``feed``);
+* ``feed_chunk`` is one replay per chunk (a WHILE node over the step) and
+  equals the per-frame graph path bit for bit, from frame 0;
+* global BA (``mapper.global_ba``) is one replay, bit-identical to
+  ``graphs=False``, on the dense and on the PCG route, with its CG counts;
 * ``feed(block=False)`` returns before the frame is done;
 * a graph's private memory pool is freed with the graph: serving streams
   built and dropped leave the card's reserved memory where it was.
@@ -25,8 +30,8 @@ BA takes a window of ten):
 
 * its graph path equals ``graphs=False`` bit for bit: every frame's state,
   counts, keyframe flag and pose, the trajectory and the final map;
-* a tracking frame that captures no graph synchronises once (the batched
-  read), under ``set_sync_debug_mode("warn")``;
+* a frame that captures no graph, FIRST and SECOND included, synchronises
+  once (the batched read), under ``set_sync_debug_mode("warn")``;
 * the async mapper on the graph path tracks as the sequential driver does
   (the criteria of ``tests/test_torch_runtime.py``, on the port's own
   320x240 ``PlaneScene``), its work replayed from its graphs;
@@ -92,9 +97,8 @@ def test_graph_replay_equals_eager_card_path(cuda_device):
     eager = _run(cfg, frames, graphs=False)
     graph = _run(cfg, frames, graphs=True)
     rows = torch.stack(graph._rows)
-    boot = int(torch.argmax((rows[:, 18] > 0.5).long()))
-    # every frame after the bootstrap is a replay
-    assert graph.runner.replays == len(frames) - boot - 1
+    # every frame is a replay of the graph captured at frame 0
+    assert graph.runner.replays == len(frames)
     assert torch.equal(rows, torch.stack(eager._rows))
     for a, b in zip(_leaves(eager.m) + _leaves(eager.carry),
                     _leaves(graph.m) + _leaves(graph.carry)):
@@ -110,26 +114,98 @@ def test_graph_replay_equals_eager_card_path(cuda_device):
 
 @pytest.mark.cuda
 def test_tracking_frames_do_not_synchronise(cuda_device):
+    """Every frame after the capture frame (the first), FIRST and SECOND
+    included, makes no synchronising call."""
     cfg, frames = graph_step_scene()
     st = SdvlStream(cfg, device="cuda")
-    tracked = 0
-    for f in frames:
-        if not st.runner.tracking:
-            st.feed(f)                  # FIRST, SECOND: eager, read back
-            continue
-        if st.runner.graph is None:
-            st.feed(f)                  # the capture synchronises once
-            continue
+    st.feed(frames[0])                  # the capture synchronises
+    for f in frames[1:]:
         torch.cuda.set_sync_debug_mode("error")
         try:
             st.feed(f)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        tracked += 1
     rows = torch.stack(st._rows)
-    boot = int(torch.argmax((rows[:, 18] > 0.5).long()))
-    assert tracked == len(frames) - boot - 2
+    states = rows[:, 14].long().tolist()
+    assert states[0] == 1 and 1 in states[1:]      # SECOND after frame 0
     assert (rows[:, 14] == STATE_LOST).sum() >= 4
+    assert st.runner.replays == len(frames)
+
+
+@pytest.mark.cuda
+def test_feed_chunk_is_one_replay_per_chunk(cuda_device):
+    """Chunks from frame 0 (through the bootstrap and a LOST stretch): one
+    replay each, no synchronisation after the capture, every row and the
+    final state bit-identical to the per-frame graph path."""
+    cfg, frames = graph_step_scene()
+    one = _run(cfg, frames, graphs=True)
+    st = SdvlStream(cfg, device="cuda")
+    sizes = (8, 8, 8, len(frames) - 24)
+    at = 0
+    for i, t in enumerate(sizes):
+        replays = st.runner.replays
+        torch.cuda.set_sync_debug_mode("error" if i else 0)
+        try:
+            st.feed_chunk(np.stack(frames[at:at + t]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert st.runner.replays == replays + 1
+        at += t
+    torch.cuda.synchronize()
+    assert sorted(st.runner.chunk_graphs) == sorted(set(sizes))
+    assert torch.equal(torch.stack(st._rows), torch.stack(one._rows))
+    for a, b in zip(_leaves(one.m) + _leaves(one.carry),
+                    _leaves(st.m) + _leaves(st.carry)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(one.last_corners, st.last_corners):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots", [12, 208])
+def test_global_ba_replay_equals_eager(cuda_device, n_slots):
+    """``mapper.global_ba`` on the stream's map padded to ``n_slots``
+    keyframe slots (dense Cholesky at 12, PCG at 208): one replay,
+    bit-identical to ``graphs=False``, CG counts included."""
+    from sdvl_tpu_torch.pipeline import mapper
+    from sdvl_tpu_torch.pipeline.config import intrinsics
+
+    cfg, frames = graph_step_scene()
+    m = _pad_slots(_run(cfg, frames[:22], graphs=False).m, n_slots)
+    intr = intrinsics(cfg)
+    runs = {}
+    for graphs in (False, True):
+        # the graph path's checked warm-up pass raises on a synchronising
+        # call (StageGraph), and the replay reads nothing back
+        stats = {}
+        runs[graphs] = (mapper.global_ba(m, intr, graphs=graphs,
+                                         stats=stats), stats)
+    (eager, se), (graph, sg) = runs[False], runs[True]
+    assert sg["replays"] == 1
+    for a, b in zip(_leaves(eager), _leaves(graph)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(se["cg_iterations"], sg["cg_iterations"])
+    assert (sg["cg_iterations"].numel() > 0) == (n_slots > 200)
+    assert not torch.equal(graph.kf_pose, m.kf_pose)
+
+
+def _pad_slots(m, n_slots):
+    """``m`` with its keyframe slots padded with empty ones."""
+    K = m.kf_valid.shape[0]
+    pad = n_slots - K
+
+    def grow(t, dim=0):
+        shape = list(t.shape)
+        shape[dim] = pad
+        return torch.cat([t, torch.zeros(shape, dtype=t.dtype,
+                                         device=t.device)], dim)
+
+    return m._replace(
+        kf_pose=grow(m.kf_pose), kf_valid=grow(m.kf_valid),
+        kf_frame_id=grow(m.kf_frame_id),
+        kf_pyr=tuple(grow(p) for p in m.kf_pyr),
+        obs_mask=grow(m.obs_mask), obs_px=grow(m.obs_px),
+        obs_level=grow(m.obs_level))
 
 
 @pytest.mark.cuda
@@ -215,18 +291,24 @@ def test_host_graph_path_equals_eager_card_path(cuda_device):
     np.testing.assert_array_equal(traj, want[2])
     for a, b in zip(_leaves(eager.m), _leaves(graph.m)):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert {"preprocess", "track", "map_update", "keyframe"} <= set(
-        graph._graphs), sorted(graph._graphs)
+    assert {"detect", "bootstrap", "seed", "match_initial", "preprocess",
+            "track", "map_update", "keyframe"} <= set(graph._graphs), sorted(
+        graph._graphs)
     assert any(k.startswith("relocalize_") for k in graph._graphs)
 
 
 @pytest.mark.cuda
 def test_host_tracking_frames_synchronise_once(cuda_device):
+    """Every frame that captures no graph synchronises once: tracking
+    frames, and FIRST and SECOND frames (their stages' replays)."""
     _, infos, syncs, captured = _host_run(graphs=True, count_syncs=True)
     tracked = [n for i, n, c in zip(infos, syncs, captured)
                if i["state"] in ("RUNNING", "LOST") and not c]
     assert len(tracked) > 20
     assert tracked == [1] * len(tracked), syncs
+    booting = [n for i, n, c in zip(infos, syncs, captured)
+               if i["state"] in ("FIRST_FRAME", "SECOND_FRAME") and not c]
+    assert booting and booting == [1] * len(booting), syncs
 
 
 @pytest.mark.cuda
@@ -292,3 +374,38 @@ def test_dropped_host_driver_frees_its_graphs(cuda_device):
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() == start, (
         start, torch.cuda.memory_reserved(), pools)
+
+
+@pytest.mark.cuda
+def test_nested_bodies_keep_streams_of_their_own(cuda_device):
+    """Conditional bodies nested four deep, captured after 64 streams were
+    drawn from torch's pool of 32 (which hands its streams out in turn):
+    each depth's body has a stream of its own, so the capture works and the
+    replay runs every body."""
+    from sdvl_tpu_torch.ops.cuda import graph_if
+    from sdvl_tpu_torch.pipeline.device_fsm import device_while
+
+    pool = [torch.cuda.Stream() for _ in range(64)]
+    x = torch.zeros((), device=cuda_device)
+    yes = torch.ones((), dtype=torch.bool, device=cuda_device)
+
+    def level(k):
+        if k == 0:
+            x.add_(1.0)
+        elif k % 2:
+            with graph_if.if_node(yes):
+                level(k - 1)
+        else:
+            device_while(lambda c: c < 2, lambda c: (level(k - 1), c + 1)[1],
+                         torch.zeros((), dtype=torch.int32,
+                                     device=cuda_device), max_iters=2)
+
+    g = torch.cuda.CUDAGraph()
+    with graph_if.capture(g):
+        level(4)
+    g.replay()
+    torch.cuda.synchronize()
+    assert float(x) == 4.0       # two WHILE levels of two iterations each
+    streams = [s.cuda_stream for s in graph_if._body_streams.values()]
+    assert len(set(streams)) == len(streams)
+    assert not set(streams) & {s.cuda_stream for s in pool}

@@ -1,4 +1,5 @@
-"""The CUDA detection kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card: the
+detection kernel and the small eigensolver.
 
 Needs an NVIDIA GPU and ``nvcc``; skips with a reason anywhere else (a CUDA
 kernel has no CPU mode). This file imports no JAX, so it also runs on a
@@ -11,6 +12,15 @@ and is built without multiply-add contraction, so under both border rules
 (``plain``: the reference's plain route, scored to the image edge;
 ``pallas``: its Pallas kernel's 4-px border cut) the score maps and the
 cell results (position, score, validity, level) are bit-identical.
+
+The small eigensolver (``ops/cuda/small_eig.py``, float64 Jacobi) against
+``torch.linalg.eigh`` and ``svd`` on the card, at the bootstrap's shapes
+(a RANSAC batch of 128 9x9 ``A^T A``, one weighted 9x9, one 3x3
+covariance, one 3x3 SVD) and on near-degenerate matrices: eigen- and
+singular values within 1e-5 of the largest in magnitude; each vector's
+|cos| with the plain one at least 1 - 1e-4 where its value is apart from
+the others by 1e-3 of the largest; ``A V = V diag(w)`` and ``U S Vh = A``
+within 1e-5 of the largest.
 """
 
 import os
@@ -20,7 +30,7 @@ import pytest
 import torch
 
 from sdvl_tpu_torch.ops import pyramid
-from sdvl_tpu_torch.ops.cuda import detect
+from sdvl_tpu_torch.ops.cuda import detect, small_eig
 from sdvl_tpu_torch.pipeline.device_fsm import CAPTURE_PASSES
 from torch_port_helpers import T, blocky_image
 
@@ -201,8 +211,117 @@ def test_shipped_config_detects_with_the_kernel(cuda_device, driver):
     # the kernel counts its own launches: one per frame, and one in each
     # eager pass before the capture of a graph that holds it (the stream's
     # step, the host driver's locked preprocess)
-    captures = int("preprocess" in slam._graphs if driver == "host"
-                   else slam.runner.graph is not None)
+    captures = (sum(name in slam._graphs for name in ("detect",
+                                                      "preprocess"))
+                if driver == "host" else int(slam.runner.graph is not None))
     assert (detect.launches() - before
             == len(frames) + CAPTURE_PASSES * captures)
     assert len(states) == len(frames)
+
+
+# ---------------------------------------------------------- small eigensolver
+def _eig_cases(seed=0):
+    """name -> (..., n, n) float32 symmetric matrices at the bootstrap's
+    shapes, and near-degenerate ones."""
+    rs = np.random.default_rng(seed)
+    uv = rs.uniform(-0.6, 0.6, (64, 2))
+    uvb = uv + rs.normal(0, 0.02, (64, 2))
+    x, y, xp, yp = uv[:, 0], uv[:, 1], uvb[:, 0], uvb[:, 1]
+    one, zero = np.ones_like(x), np.zeros_like(x)
+    A = np.concatenate([
+        np.stack([x, y, one, zero, zero, zero, -xp * x, -xp * y, -xp], -1),
+        np.stack([zero, zero, zero, x, y, one, -yp * x, -yp * y, -yp], -1)])
+    w = np.zeros((128, 64))
+    for h in range(128):            # four points per RANSAC hypothesis
+        w[h, rs.choice(64, 4, replace=False)] = 1.0
+    w2 = np.concatenate([w, w], 1)
+    ransac = np.einsum("ni,nj,hn->hij", A, A, w2)
+    refit = np.einsum("ni,nj,n->ij", A, A, np.repeat(
+        rs.uniform(0, 1, 64) > 0.3, 2).astype(float))
+    pts = rs.normal(0, 1, (200, 3)) * [2.0, 1.5, 0.01]
+    cov = pts.T @ pts / 200
+    Q = np.linalg.qr(rs.normal(0, 1, (9, 9)))[0]
+    near = Q @ np.diag([1, 1, 1 + 1e-7, 2, 3, 3, 3, 5, 8]) @ Q.T
+    return {
+        "ransac_9x9": ransac, "refit_9x9": refit, "cov_3x3": cov,
+        "near_degenerate_9x9": near, "identity_3x3": np.eye(3),
+        "zero_4x4": np.zeros((4, 4)),
+    }
+
+
+def _assert_vectors_close(got, want, vals, tol=1e-4, gap=1e-3):
+    """|cos| of each column pair >= 1 - tol where its value is apart from
+    the others by ``gap`` of the largest magnitude."""
+    vals = vals.reshape(-1, vals.shape[-1])
+    got = got.reshape((-1,) + got.shape[-2:])
+    want = want.reshape((-1,) + want.shape[-2:])
+    n = vals.shape[-1]
+    for b in range(vals.shape[0]):
+        scale = max(float(vals[b].abs().max()), 1e-30)
+        for k in range(n):
+            others = torch.cat([vals[b, :k], vals[b, k + 1:]])
+            if n > 1 and float((others - vals[b, k]).abs().min()) \
+                    < gap * scale:
+                continue
+            cos = float(torch.dot(got[b, :, k], want[b, :, k]).abs())
+            assert cos >= 1 - tol, (b, k, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ransac_9x9", "refit_9x9", "cov_3x3",
+                                  "near_degenerate_9x9", "identity_3x3",
+                                  "zero_4x4"])
+def test_small_eigh_matches_plain_on_card(cuda_device, case):
+    A = T(_eig_cases()[case], torch.float32).to(cuda_device)
+    before = small_eig.launches()
+    w, V = small_eig.eigh(A)
+    torch.cuda.synchronize()
+    assert small_eig.launches() - before == 1
+    wp, Vp = small_eig.eigh_plain(A)
+    scale = float(wp.abs().max()) or 1.0
+    assert w.shape == wp.shape and V.shape == Vp.shape
+    assert float((w - wp).abs().max()) <= 1e-5 * scale
+    assert bool((w[..., 1:] >= w[..., :-1]).all())     # ascending
+    resid = A @ V - V * w[..., None, :]
+    assert float(resid.abs().max()) <= 1e-5 * scale
+    _assert_vectors_close(V, Vp, wp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["homography", "rank_2", "batch"])
+def test_small_svd3_matches_plain_on_card(cuda_device, case):
+    rs = np.random.default_rng(1)
+    H = np.eye(3) + rs.normal(0, 0.2, (3, 3))
+    if case == "rank_2":
+        u, s, vt = np.linalg.svd(H)
+        H = u @ np.diag([s[0], s[1], 0.0]) @ vt
+    if case == "batch":
+        H = rs.normal(0, 1, (64, 3, 3))
+    A = T(H, torch.float32).to(cuda_device)
+    before = small_eig.launches()
+    U, S, Vh = small_eig.svd3(A)
+    torch.cuda.synchronize()
+    assert small_eig.launches() - before == 1
+    Up, Sp, Vhp = small_eig.svd3_plain(A)
+    scale = float(Sp.abs().max())
+    assert float((S - Sp).abs().max()) <= 1e-5 * scale
+    assert bool((S[..., 1:] <= S[..., :-1]).all())     # descending
+    recon = U @ torch.diag_embed(S) @ Vh
+    assert float((recon - A).abs().max()) <= 1e-5 * scale
+    eye = torch.eye(3, device=cuda_device)
+    assert float((U.mT @ U - eye).abs().max()) <= 1e-5
+    assert float((Vh @ Vh.mT - eye).abs().max()) <= 1e-5
+    _assert_vectors_close(U, Up, Sp)
+    _assert_vectors_close(Vh.mT, Vhp.mT, Sp)
+
+
+@pytest.mark.cuda
+def test_small_eig_refuses_what_the_kernel_cannot_take(cuda_device):
+    for bad in (torch.zeros((10, 10), device=cuda_device),
+                torch.zeros((3, 4), device=cuda_device),
+                torch.zeros((3, 3), dtype=torch.float64,
+                            device=cuda_device)):
+        with pytest.raises(ValueError):
+            small_eig.eigh(bad)
+    with pytest.raises(ValueError):
+        small_eig.svd3(torch.zeros((4, 4), device=cuda_device))

@@ -66,7 +66,7 @@ def test_sharded_matches_jax_and_one_process(point_mesh, method):
                                 method=method)
     rs = ba_sharded.solve_sharded(pt, point_mesh, huber=HUBER, method=method)
     r1 = ba.solve(pt, huber=HUBER, method=method)
-    assert bool(rs.cg_iterations) == (method == "cg")
+    assert (rs.cg_iterations.numel() > 0) == (method == "cg")
     _close(rs, rj, rs.chi2, rj.chi2)
     _close(rs, r1, rs.chi2, r1.chi2)
     np.testing.assert_array_equal(N(rs.inlier_mask), np.asarray(rj.inlier_mask))
