@@ -33,12 +33,18 @@ ending the run with a non-zero exit code:
    kernel against through its plain version. Then the small eigensolver
    against ``torch.linalg.eigh``/``svd`` on the card at the bootstrap's
    shapes (a RANSAC batch of 128 9x9 ``A^T A``, one weighted 9x9, a 3x3
-   covariance, a 3x3 SVD) and near-degenerate matrices: values within 1e-5
-   of the largest, vectors' |cos| >= 1 - 1e-4 where their value stands
-   apart, each launch counted by the kernel; its device time, eager call and
-   the library call's (which synchronises). And a WHILE node of 1000
-   iterations with an IF node in its body: its result, the condition
-   kernel's launches and its device time per iteration.
+   covariance, a 3x3 SVD), near-degenerate matrices, 1, 2, 5 and 8 rows, a
+   batch of 1000 and exact ties: values within 1e-5 of the largest,
+   ``A V = V diag(w)`` within 1e-5 of it, ascending, ties in index order,
+   vectors' |cos| >= 1 - 1e-4 where their value stands apart, each launch
+   counted by the kernel; the ``-Xptxas -v`` lines of
+   ``libsdvl_small_eig.so`` (registers, stack frame, spills); its device
+   time, eager call and the library call's (which synchronises), and the
+   library call's device time (its kernels, from ``torch.profiler``). And
+   a WHILE node of 1000 iterations with an IF node in its body: its result,
+   the condition kernel's launches and its device time per iteration; and
+   1000 IF nodes with empty bodies in one graph: the condition kernel's
+   own time per node.
 4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
    (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
    keyframe / 4096 point / 512 candidate slots, the Pallas border rule as
@@ -159,9 +165,14 @@ ending the run with a non-zero exit code:
    ``cli_async``, ``cli_async_1000``, ``cli_viz``
    for the cli phase; ``host``, ``host_eager`` for phase host; ``chunk``).
    ``ms`` is the pallas border rule's device time,
-   ``plain_border_ms`` the plain rule's. A second entry, ``small_eig``,
-   gives the small eigensolver's launches by path (counted by the kernel)
-   and its times at the RANSAC batch's shape, every shape in ``by_shape``.
+   ``plain_border_ms`` the plain rule's. The entries ``small_eig_eigh``
+   and ``small_eig_svd3`` give each kernel's launches by path (counted by
+   the kernel; ``small_eig_launches_by_path`` both together), its times at
+   the bootstrap's largest call (the RANSAC batch; the 3x3 SVD), every
+   shape in ``by_shape``, and its ``ptxas`` figures;
+   ``set_condition_kernel`` gives the condition kernel's launches by path
+   and the time of one IF node with an empty body, beside the eager host
+   read it takes the place of.
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 ``sdvl_tpu``. The fixtures under ``tests/data/`` are made by
@@ -471,12 +482,21 @@ def run_kernel_phase():
     return checks, time_detect_pyramid(cfg, pyr)
 
 
+# the diagonal of eig_cases' "ties"; its values ascending, equal ones in
+# index order, are these indices
+TIES = [2.0, 2.0, 1.0, 3.0, 1.0, 2.0]
+TIES_ORDER = [2, 4, 0, 1, 5, 3]
+
+
 def eig_cases(seed: int = 0) -> dict:
     """name -> float32 matrices at the bootstrap's shapes (the RANSAC batch
     of 128 9x9 ``A^T A`` of 4-point DLT systems, one weighted 9x9, one 3x3
-    covariance of a plane's points) and near-degenerate ones (a 9x9 with
+    covariance of a plane's points), near-degenerate ones (a 9x9 with
     eigenvalues 1, 1, 1 + 1e-7, three 3s; the identity; a rank-deficient
-    covariance)."""
+    covariance), 16 random symmetric matrices each of 1, 2, 5 and 8 rows
+    (odd and even sizes of the kernel's pairing schedule), 1000 scaled
+    RANSAC matrices (more than the kernel's blocks) and a diagonal with
+    exact ties (values 2, 2, 1, 3, 1, 2)."""
     rs = np.random.default_rng(seed)
     uv = rs.uniform(-0.6, 0.6, (400, 2))
     uvb = uv + rs.normal(0, 0.02, (400, 2))
@@ -494,14 +514,21 @@ def eig_cases(seed: int = 0) -> dict:
     pts = rs.normal(0, 1, (4096, 3)) * [2.0, 1.5, 0.01]
     q = np.linalg.qr(rs.normal(0, 1, (9, 9)))[0]
     flat = rs.normal(0, 1, (100, 3)) * [1.0, 1.0, 0.0]
+    cases = dict(ransac_9x9=ransac, refit_9x9=refit,
+                 cov_3x3=pts.T @ pts / len(pts),
+                 near_degenerate_9x9=q @ np.diag(
+                     [1, 1, 1 + 1e-7, 2, 3, 3, 3, 5, 8]) @ q.T,
+                 identity_3x3=np.eye(3),
+                 rank_deficient_3x3=flat.T @ flat / 100)
+    for n in (1, 2, 5, 8):
+        m = rs.normal(0, 1, (16, n, n))
+        cases[f"n{n}"] = m + np.swapaxes(m, 1, 2)
+    cases["batch_1000"] = ransac[rs.integers(0, 128, 1000)] \
+        * rs.uniform(0.5, 2.0, (1000, 1, 1))
+    cases["ties"] = np.diag(TIES)
     return {k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
-            for k, v in dict(
-                ransac_9x9=ransac, refit_9x9=refit,
-                cov_3x3=pts.T @ pts / len(pts),
-                near_degenerate_9x9=q @ np.diag(
-                    [1, 1, 1 + 1e-7, 2, 3, 3, 3, 5, 8]) @ q.T,
-                identity_3x3=np.eye(3),
-                rank_deficient_3x3=flat.T @ flat / 100).items()}
+            for k, v in cases.items()}
+
 
 
 def vector_cos(got, want, vals, gap: float = 1e-3) -> float:
@@ -520,20 +547,87 @@ def vector_cos(got, want, vals, gap: float = 1e-3) -> float:
     return float(cos[apart].min()) if bool(apart.any()) else 1.0
 
 
+def ptxas_report(lib: str) -> dict:
+    """Kernel -> its registers, stack frame and spill bytes, from the
+    ``-Xptxas -v`` lines of the build of ``lib`` (``_build/<lib>``, built
+    verbose in phase build); the lines are printed."""
+    from sdvl_tpu_torch.ops.cuda import detect
+
+    lines = [x.strip() for x in detect.BUILD_LOGS.get(lib, "").splitlines()
+             if "ptxas" in x or "stack frame" in x]
+    assert lines, f"no -Xptxas -v output for {lib}"
+    for x in lines:
+        say("kernel", f"{lib} ptxas: {x}")
+    out, name = {}, None
+    for x in lines:
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", x)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", x)
+        if m and name:
+            out.setdefault(name, {}).update(
+                stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", x)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return {next((k for k in ("eigh_kernel", "svd3_kernel") if k in f), f): v
+            for f, v in out.items()}
+
+
+def library_device_ms(fn, reps: int = 20) -> tuple:
+    """Device time of one eager ``fn()`` (a library call): the kernels it
+    launches, summed, from ``torch.profiler`` over ``reps`` calls, over
+    ``reps``; where the profiler shows no device time, CUDA events around
+    each call (then the gaps between its kernels count too). Returns (ms,
+    how it was measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if busy_us > 0:
+        return busy_us / 1e3 / reps, "profiler"
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), "events"
+
+
 def check_small_eig() -> dict:
     """The small eigensolver (``ops/cuda/small_eig.py``) against its plain
     version, ``torch.linalg.eigh``/``svd`` on the card, at the bootstrap's
-    shapes and on near-degenerate matrices; raises on disagreement. Times
-    each bootstrap shape: the kernel's device time (graph replay), one eager
-    call of the wrapper and of the library call (which synchronises)."""
+    shapes, on near-degenerate matrices, on 1, 2, 5 and 8 rows, on a batch
+    of 1000 and on exact ties (in index order); raises on disagreement.
+    Prints the kernels' ``ptxas`` figures. Times each bootstrap shape: the
+    kernel's device time (graph replay), one eager call of the wrapper, and
+    the library call's eager time (which synchronises) and device time."""
     from sdvl_tpu_torch.ops.cuda import small_eig
 
-    out = {}
+    out = {"ptxas": ptxas_report("libsdvl_small_eig.so")}
     for name, A in eig_cases().items():
-        n0 = small_eig.launches()
+        n0 = small_eig.launches(kernel="eigh")
         w, V = small_eig.eigh(A)
         torch.cuda.synchronize()
-        assert small_eig.launches() == n0 + 1, f"{name}: launch not counted"
+        assert small_eig.launches(kernel="eigh") == n0 + 1, (
+            f"{name}: launch not counted")
         wp, Vp = small_eig.eigh_plain(A)
         scale = float(wp.abs().max()) or 1.0
         err = float((w - wp).abs().max())
@@ -543,6 +637,10 @@ def check_small_eig() -> dict:
         assert err <= 1e-5 * scale and resid <= 1e-5 * scale, (
             f"{name}: eigenvalues {err}, residual {resid}, scale {scale}")
         assert cos >= 1 - 1e-4, f"{name}: eigenvector |cos| {cos}"
+        if name == "ties":
+            assert torch.equal(w, A.diagonal()[TIES_ORDER]) and torch.equal(
+                V, torch.eye(len(TIES), device=A.device)[:, TIES_ORDER]), (
+                "ties: equal eigenvalues not in index order")
         out[f"eigh_{name}"] = dict(shape=list(A.shape), max_abs_err=err,
                                    rel_err=err / scale, residual=resid,
                                    min_abs_cos=cos)
@@ -551,10 +649,11 @@ def check_small_eig() -> dict:
                     ("rank_2", np.diag([2.0, 1.0, 0.0]) @ np.linalg.qr(
                         rs.normal(0, 1, (3, 3)))[0])):
         A = torch.from_numpy(H.astype(np.float32)).cuda()
-        n0 = small_eig.launches()
+        n0 = small_eig.launches(kernel="svd3")
         U, S, Vh = small_eig.svd3(A)
         torch.cuda.synchronize()
-        assert small_eig.launches() == n0 + 1, f"{name}: launch not counted"
+        assert small_eig.launches(kernel="svd3") == n0 + 1, (
+            f"{name}: launch not counted")
         Up, Sp, Vhp = small_eig.svd3_plain(A)
         scale = float(Sp.max())
         err = float((S - Sp).abs().max())
@@ -571,7 +670,7 @@ def check_small_eig() -> dict:
                               f"{v['rel_err']:.2e} of the largest, residual "
                               f"{v['residual']:.2e}, least |cos| "
                               f"{v['min_abs_cos']:.8f}"
-                              for k, v in out.items()))
+                              for k, v in out.items() if k != "ptxas"))
     # times at the bootstrap's shapes
     cases = eig_cases()
     H = torch.from_numpy((np.eye(3) + rs.normal(0, 0.2, (3, 3))).astype(
@@ -592,18 +691,25 @@ def check_small_eig() -> dict:
         # the least work of a symmetric eigendecomposition (or an SVD) with
         # its vectors: about 9 n^3 float operations per matrix
         ops_ms = 9 * n ** 3 * batch / PEAK_F32_OPS_PER_S * 1e3
+        lib_dev_ms, lib_dev_how = library_device_ms(lambda: library(A))
         t = dict(ms=graph_ms(lambda: kernel(A)),
                  call_ms=time_ms(lambda: kernel(A)),
                  library_ms=time_ms(lambda: library(A), inner=2),
+                 library_device_ms=lib_dev_ms,
+                 library_device_by=lib_dev_how,
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         t["plain_ms"] = t["library_ms"]      # the plain version is the call
+        t["faster_than_library"] = t["ms"] < min(t["library_ms"], lib_dev_ms)
         out[name] = {**out.get(name, {}), **t, "shape": list(A.shape)}
         say("kernel", f"small_eig {name} {list(A.shape)}: device time "
                       f"(graph replay) {t['ms']:.5f} ms, eager call "
                       f"{t['call_ms']:.4f} ms; torch.linalg (cuSOLVER, "
                       f"synchronises) {t['library_ms']:.4f} ms per eager "
-                      f"call; bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+                      f"call, its device time {lib_dev_ms:.5f} ms "
+                      f"({lib_dev_how}); bound {t['bound_ms']:.3g} ms "
+                      f"({t['bound_by']}); the kernel faster than both: "
+                      f"{t['faster_than_library']}")
     return out
 
 
@@ -611,8 +717,10 @@ def check_conditional_nodes() -> dict:
     """The conditional nodes (``ops/cuda/graph_if.py``): a WHILE node that
     counts to 1000 with an IF node nested in its body, replayed, its result
     and the condition kernel's launches checked; its time per iteration
-    (device time of the replay over 1000), and beside it the eager host
-    read the nodes take the place of (``bool()`` of a () tensor)."""
+    (device time of the replay over 1000); the condition kernel's own
+    time, that of one IF node with an empty body (1000 in one graph, the
+    replay over 1000), and its bound; and beside them the eager host read
+    the nodes take the place of (``bool()`` of a () tensor)."""
     from sdvl_tpu_torch.ops.cuda import graph_if
     from sdvl_tpu_torch.pipeline.device_fsm import device_if, device_while
 
@@ -657,15 +765,44 @@ def check_conditional_nodes() -> dict:
         times.append(a.elapsed_time(b) / n_it)
     flag = torch.ones((), dtype=torch.bool, device=dev)
     read_ms = time_ms(lambda: bool(flag), inner=10)
+    # the condition kernel's own time: n_it IF nodes with empty bodies in
+    # one graph, the replay over n_it
+    g_if = torch.cuda.CUDAGraph()
+    with graph_if.capture(g_if):
+        for _ in range(n_it):
+            with graph_if.if_node(flag):
+                pass
+    torch.cuda.synchronize()
+    graph_if.reset_launches()
+    g_if.replay()
+    torch.cuda.synchronize()
+    assert graph_if.launches() == n_it, graph_if.launches()
+    if_times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g_if.replay()
+        b.record()
+        torch.cuda.synchronize()
+        if_times.append(a.elapsed_time(b) / n_it)
+    # what one condition must move: the () bool read, the uint64 counter
+    # read and written; its two operations are far below that
+    bound_ms = (1 + 8 + 8) / PEAK_BYTES_PER_S * 1e3
     res = dict(iteration_ms=statistics.median(times),
-               conditions_per_replay=conds, host_read_ms=read_ms)
+               conditions_per_replay=conds, host_read_ms=read_ms,
+               if_node_ms=statistics.median(if_times), bound_ms=bound_ms,
+               bound_by="bytes")
     say("kernel", f"conditional nodes: a WHILE node of {n_it} iterations "
                   f"with an IF node in its body, replayed: result "
                   f"({i}, {odd}) right, {conds} condition-kernel launches "
                   f"(counted by the kernel); {res['iteration_ms']:.5f} ms of "
                   f"device time per iteration (three small kernels, two "
-                  f"conditions); an eager host read of a () tensor "
-                  f"{read_ms:.4f} ms")
+                  f"conditions); one IF node with an empty body (the "
+                  f"condition kernel and the node, {n_it} in one graph, "
+                  f"counted by the kernel) {res['if_node_ms']:.5f} ms, bound "
+                  f"{bound_ms:.3g} ms (bytes); an eager host read of a () "
+                  f"tensor {read_ms:.4f} ms")
     return res
 
 
@@ -877,12 +1014,13 @@ def reset_counts() -> None:
 
 
 def side_counts() -> dict:
-    """Just after a path was driven: the small eigensolver's launches and
-    the condition kernel's (one per IF node, WHILE node and WHILE
-    iteration that ran), as the kernels counted them."""
+    """Just after a path was driven: the small eigensolver's launches (both
+    kernels, and each), and the condition kernel's (one per IF node, WHILE
+    node and WHILE iteration that ran), as the kernels counted them."""
     from sdvl_tpu_torch.ops.cuda import graph_if, small_eig
 
     return dict(small_eig=small_eig.launches(),
+                **{k: small_eig.launches(kernel=k) for k in small_eig.KERNELS},
                 conditions=graph_if.launches())
 
 
@@ -1019,7 +1157,10 @@ def run_slam_phase(card: str) -> dict:
     assert not any(syncs[cap + 1:]), (
         f"frames after the capture synchronised: {syncs}; {sites[cap + 1:]}")
     eig = st.side_counts["small_eig"]
-    assert eig > 0, "the bootstrap did not launch the small eigensolver"
+    for k, what in (("eigh", "the small eigensolver's eigh"),
+                    ("svd3", "the small eigensolver's SVD"),
+                    ("conditions", "the conditional nodes' condition")):
+        assert st.side_counts[k] > 0, f"the path did not launch {what} kernel"
     second_ms = [1e3 * secs[i] for i in range(cap + 1, n)
                  if r.states[i - 1] == 1]
     steady = [x for i, x in enumerate(secs) if i != cap]
@@ -2524,6 +2665,58 @@ def run_cli_phase(card: str, device: str = "cuda",
     return out
 
 
+def small_eig_entries(eig, slam, graph, chunk, host, card) -> list:
+    """The ``kernels`` line's entries of the small eigensolver's two
+    kernels: launches by path (counted by each kernel), errors against the
+    plain version over every checked case, times at the bootstrap's largest
+    call of each (``eigh``: the RANSAC batch; every shape in
+    ``by_shape``)."""
+    paths = {"slam": slam["side_counts"], "slam_eager": graph["side_counts"],
+             "chunk": chunk["side_counts"], "host": host["side_counts"],
+             "host_eager": host["eager_side_counts"]}
+    out = []
+    for kernel, prefix, timed, replaces in (
+            ("eigh", "eigh_", "eigh_ransac_9x9",
+             "torch.linalg.eigh; the reference's jnp.linalg.eigh at "
+             "sdvl_tpu/solvers/homography.py:39 and "
+             "sdvl_tpu/core/geometry.py:217"),
+            ("svd3", "svd_", "svd_3x3",
+             "torch.linalg.svd; the reference's jnp.linalg.svd at "
+             "sdvl_tpu/solvers/homography.py:100")):
+        checked = [v for k, v in eig.items()
+                   if k.startswith(prefix) and "max_abs_err" in v]
+        t = eig[timed]
+        out.append({
+            "name": f"small_eig_{kernel}",
+            "route": "cuda",
+            "source": "sdvl_tpu_torch/csrc/small_eig.cu",
+            # the port's own kernel: it replaces no Pallas kernel
+            "replaces": f"none (the port's own; in place of {replaces})",
+            "launches": slam["side_counts"][kernel],
+            "frames": slam["frames"],
+            "launches_by_path": {k: v[kernel] for k, v in paths.items()},
+            # both kernels together, as PR 9 counted them
+            "small_eig_launches_by_path": {k: v["small_eig"]
+                                           for k, v in paths.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in checked),
+            "rel_err": max(v["rel_err"] for v in checked),
+            "min_abs_cos": min(v["min_abs_cos"] for v in checked),
+            "shape": t["shape"],
+            "ms": t["ms"],
+            "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "ptxas": eig["ptxas"].get(f"{kernel}_kernel"),
+            "by_shape": {k: v for k, v in eig.items()
+                         if k.startswith(prefix)},
+            "card": card,
+        })
+    return out
+
+
 def main() -> int:
     # ---------------------------------------------------------- 1 device
     if not torch.cuda.is_available():
@@ -2745,39 +2938,33 @@ def main() -> int:
         "chunk": chunk,
         "conditional_nodes": cond,
         "card": card,
-    }, {
-        "name": "small_eig",
+    }, *small_eig_entries(eig, slam, graph, chunk, host, card), {
+        "name": "set_condition_kernel",
         "route": "cuda",
-        "source": "sdvl_tpu_torch/csrc/small_eig.cu",
-        # the port's own kernel: it replaces no Pallas kernel; it stands in
-        # for the reference's XLA eigh/svd of the bootstrap
-        "replaces": "none (the port's own; in place of torch.linalg.eigh/"
-                    "svd, the reference's jnp.linalg.eigh/svd at "
-                    "sdvl_tpu/solvers/homography.py:39,100 and "
-                    "sdvl_tpu/core/geometry.py:217)",
-        "launches": slam["side_counts"]["small_eig"],
+        "source": "sdvl_tpu_torch/csrc/graph_if.cu",
+        # the port's own: the condition of each IF and WHILE node, where the
+        # reference's device programs branch and loop inside XLA
+        "replaces": "none (the port's own; the condition of the CUDA "
+                    "graphs' IF and WHILE nodes, in place of the "
+                    "reference's lax.cond/switch/while_loop at "
+                    "sdvl_tpu/pipeline/device_fsm.py and "
+                    "sdvl_tpu/solvers/ba.py)",
+        "launches": slam["side_counts"]["conditions"],
         "frames": slam["frames"],
         "launches_by_path": {
-            "slam": slam["side_counts"]["small_eig"],
-            "slam_eager": graph["side_counts"]["small_eig"],
-            "chunk": chunk["side_counts"]["small_eig"],
-            "host": host["side_counts"]["small_eig"],
-            "host_eager": host["eager_side_counts"]["small_eig"]},
-        "max_abs_err": max(v["max_abs_err"] for k, v in eig.items()
-                           if "max_abs_err" in v),
-        "rel_err": max(v["rel_err"] for v in eig.values() if "rel_err" in v),
-        "min_abs_cos": min(v["min_abs_cos"] for v in eig.values()
-                           if "min_abs_cos" in v),
-        # the RANSAC batch, the bootstrap's largest call, in the top-level
-        # numbers; every shape in by_shape
-        "shape": eig["eigh_ransac_9x9"]["shape"],
-        "ms": eig["eigh_ransac_9x9"]["ms"],
-        "call_ms": eig["eigh_ransac_9x9"]["call_ms"],
-        "plain_ms": eig["eigh_ransac_9x9"]["plain_ms"],
-        "bound_ms": eig["eigh_ransac_9x9"]["bound_ms"],
-        "bound_by": eig["eigh_ransac_9x9"]["bound_by"],
-        "library_ms": eig["eigh_ransac_9x9"]["library_ms"],
-        "by_shape": eig,
+            "slam": slam["side_counts"]["conditions"],
+            "chunk": chunk["side_counts"]["conditions"],
+            "host": host["side_counts"]["conditions"]},
+        # the condition it sets was checked exact (phase kernel)
+        "max_abs_err": 0.0,
+        # one IF node with an empty body; the plain version is the eager
+        # path's host read of the predicate
+        "ms": cond["if_node_ms"],
+        "plain_ms": cond["host_read_ms"],
+        "bound_ms": cond["bound_ms"],
+        "bound_by": cond["bound_by"],
+        "library_ms": None,
+        "while_iteration_ms": cond["iteration_ms"],
         "card": card,
     }]}
     print(card, flush=True)

@@ -72,6 +72,10 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
+# library name -> the compiler's output of its last verbose build (with
+# ``-Xptxas -v``: each kernel's registers, stack frame and spills)
+BUILD_LOGS = {}
+
 _lib = None
 _lib_lock = threading.Lock()
 # per CUDA device index, the () int64 count of the kernel's launches, added
@@ -112,7 +116,8 @@ def build_library(verbose: bool = False, source: str = SOURCE,
             f"{proc.stdout}\n{proc.stderr}"
         )
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        BUILD_LOGS[name] = proc.stdout + proc.stderr
+        print(BUILD_LOGS[name], flush=True)
     return out
 
 

@@ -16,11 +16,15 @@ cell results (position, score, validity, level) are bit-identical.
 The small eigensolver (``ops/cuda/small_eig.py``, float64 Jacobi) against
 ``torch.linalg.eigh`` and ``svd`` on the card, at the bootstrap's shapes
 (a RANSAC batch of 128 9x9 ``A^T A``, one weighted 9x9, one 3x3
-covariance, one 3x3 SVD) and on near-degenerate matrices: eigen- and
+covariance, one 3x3 SVD), on near-degenerate matrices, on 1, 2, 5 and 8
+rows, on a batch of 1000 (more than the kernel's blocks) and on a diagonal
+with exact ties (which must come out in index order): eigen- and
 singular values within 1e-5 of the largest in magnitude; each vector's
 |cos| with the plain one at least 1 - 1e-4 where its value is apart from
 the others by 1e-3 of the largest; ``A V = V diag(w)`` and ``U S Vh = A``
-within 1e-5 of the largest.
+within 1e-5 of the largest. The ``eigh`` kernel's output is also held,
+bit for bit, against the float64 numpy model of its parallel sweep
+(``torch_port_helpers.jacobi_eigh_model``), cast to float32.
 """
 
 import os
@@ -32,7 +36,7 @@ import torch
 from sdvl_tpu_torch.ops import pyramid
 from sdvl_tpu_torch.ops.cuda import detect, small_eig
 from sdvl_tpu_torch.pipeline.device_fsm import CAPTURE_PASSES
-from torch_port_helpers import T, blocky_image
+from torch_port_helpers import T, blocky_image, jacobi_eigh_model
 
 FAST_T, ST_T = 10.0, 50.0
 
@@ -242,11 +246,19 @@ def _eig_cases(seed=0):
     cov = pts.T @ pts / 200
     Q = np.linalg.qr(rs.normal(0, 1, (9, 9)))[0]
     near = Q @ np.diag([1, 1, 1 + 1e-7, 2, 3, 3, 3, 5, 8]) @ Q.T
-    return {
+    cases = {
         "ransac_9x9": ransac, "refit_9x9": refit, "cov_3x3": cov,
         "near_degenerate_9x9": near, "identity_3x3": np.eye(3),
         "zero_4x4": np.zeros((4, 4)),
     }
+    for n in (1, 2, 5, 8):          # odd and even n: with and without padding
+        m = rs.normal(0, 1, (16, n, n))
+        cases[f"n{n}"] = m + np.swapaxes(m, 1, 2)
+    # more matrices than the kernel has blocks (the grid strides over them)
+    cases["batch_1000"] = ransac[rs.integers(0, 128, 1000)] \
+        * rs.uniform(0.5, 2.0, (1000, 1, 1))
+    cases["ties"] = np.diag([2.0, 2.0, 1.0, 3.0, 1.0, 2.0])
+    return cases
 
 
 def _assert_vectors_close(got, want, vals, tol=1e-4, gap=1e-3):
@@ -270,13 +282,29 @@ def _assert_vectors_close(got, want, vals, tol=1e-4, gap=1e-3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ransac_9x9", "refit_9x9", "cov_3x3",
                                   "near_degenerate_9x9", "identity_3x3",
-                                  "zero_4x4"])
+                                  "zero_4x4", "n1", "n2", "n5", "n8",
+                                  "batch_1000", "ties"])
 def test_small_eigh_matches_plain_on_card(cuda_device, case):
     A = T(_eig_cases()[case], torch.float32).to(cuda_device)
-    before = small_eig.launches()
+    before = small_eig.launches(kernel="eigh")
     w, V = small_eig.eigh(A)
     torch.cuda.synchronize()
-    assert small_eig.launches() - before == 1
+    assert small_eig.launches(kernel="eigh") - before == 1
+    # the kernel is the parallel sweep of the float64 model, operation for
+    # operation (IEEE division and sqrt, no multiply-add contraction)
+    n = A.shape[-1]
+    wm, Vm, sweeps = jacobi_eigh_model(A.cpu().numpy(),
+                                       small_eig.jacobi_rounds(n))
+    assert (sweeps >= 1).all()
+    assert np.array_equal(w.cpu().numpy().reshape(-1, n),
+                          wm.astype(np.float32))
+    assert np.array_equal(V.cpu().numpy().reshape(-1, n, n),
+                          Vm.astype(np.float32))
+    if case == "ties":              # equal values in index order
+        order = [2, 4, 0, 1, 5, 3]
+        eye = torch.eye(6, device=cuda_device)
+        assert torch.equal(w, A.diagonal()[order])
+        assert torch.equal(V, eye[:, order])
     wp, Vp = small_eig.eigh_plain(A)
     scale = float(wp.abs().max()) or 1.0
     assert w.shape == wp.shape and V.shape == Vp.shape
@@ -298,10 +326,10 @@ def test_small_svd3_matches_plain_on_card(cuda_device, case):
     if case == "batch":
         H = rs.normal(0, 1, (64, 3, 3))
     A = T(H, torch.float32).to(cuda_device)
-    before = small_eig.launches()
+    before = small_eig.launches(kernel="svd3")
     U, S, Vh = small_eig.svd3(A)
     torch.cuda.synchronize()
-    assert small_eig.launches() - before == 1
+    assert small_eig.launches(kernel="svd3") - before == 1
     Up, Sp, Vhp = small_eig.svd3_plain(A)
     scale = float(Sp.abs().max())
     assert float((S - Sp).abs().max()) <= 1e-5 * scale

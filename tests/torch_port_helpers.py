@@ -266,3 +266,59 @@ def jax_config(cfg_t):
     return jcfg.Config(
         camera=jcfg.CameraConfig(**dataclasses.asdict(cfg_t.camera)),
         sdvl=jcfg.SdvlConfig(**dataclasses.asdict(cfg_t.sdvl)))
+
+
+def jacobi_eigh_model(A, rounds, max_sweeps: int = 30):
+    """float64 numpy model of ``csrc/small_eig.cu``'s ``eigh_kernel`` on
+    (..., n, n) ``A`` (its lower triangle, mirrored) with the pairing
+    schedule ``rounds`` (``small_eig.jacobi_rounds(n)``): in each round
+    every pair's rotation from the round's A, the same skip test, then the
+    row pass ``A <- J^T A`` of all rotated pairs, then the column pass
+    ``A <- A J``, ``V <- V J`` with ``a_pq = a_qp = 0``; a matrix stops
+    after a sweep in which no pair rotated, at most ``max_sweeps``. Every
+    operation is one IEEE float64 operation, as the kernel's (built without
+    multiply-add contraction). Returns (w, V, sweeps): w (batch, n)
+    ascending with ties in index order, V (batch, n, n) its columns, and
+    per matrix the sweeps run (-1 where ``max_sweeps`` did not suffice)."""
+    A = np.asarray(A)
+    n = A.shape[-1]
+    flat = A.reshape(-1, n, n).astype(np.float64)
+    a = np.tril(flat) + np.swapaxes(np.tril(flat, -1), 1, 2)
+    v = np.broadcast_to(np.eye(n), a.shape).copy()
+    sweeps = np.full(len(a), -1)
+    for sweep in range(max_sweeps):
+        rotated = np.zeros(len(a), bool)
+        for pairs in np.asarray(rounds):
+            rots = []
+            for p, q in pairs:
+                if q >= n:                  # the padding index
+                    continue
+                apq, app, aqq = a[:, p, q], a[:, p, p], a[:, q, q]
+                rot = ~((apq == 0.0)
+                        | (np.abs(apq) <= 1e-15 * (np.abs(app) + np.abs(aqq))))
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    theta = (aqq - app) / (2.0 * apq)
+                    t = np.where(theta >= 0.0, 1.0, -1.0) / (
+                        np.abs(theta) + np.sqrt(theta * theta + 1.0))
+                    c = 1.0 / np.sqrt(t * t + 1.0)
+                    s = t * c
+                rots.append((p, q, rot[:, None], c[:, None], s[:, None]))
+                rotated |= rot
+            for p, q, rot, c, s in rots:    # row pass
+                ap, aq = a[:, p, :].copy(), a[:, q, :].copy()
+                a[:, p, :] = np.where(rot, c * ap - s * aq, ap)
+                a[:, q, :] = np.where(rot, s * ap + c * aq, aq)
+            for p, q, rot, c, s in rots:    # column pass
+                for m in (a, v):
+                    xp, xq = m[:, :, p].copy(), m[:, :, q].copy()
+                    m[:, :, p] = np.where(rot, c * xp - s * xq, xp)
+                    m[:, :, q] = np.where(rot, s * xp + c * xq, xq)
+                r = rot[:, 0]
+                a[r, p, q] = a[r, q, p] = 0.0
+        sweeps[(sweeps < 0) & ~rotated] = sweep + 1
+        if not rotated.any():
+            break
+    w = np.diagonal(a, axis1=1, axis2=2)
+    order = np.argsort(w, axis=1, kind="stable")
+    return (np.take_along_axis(w, order, 1),
+            np.take_along_axis(v, order[:, None, :], 2), sweeps)
