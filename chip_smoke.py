@@ -40,11 +40,15 @@ ending the run with a non-zero exit code:
    counted by the kernel; the ``-Xptxas -v`` lines of
    ``libsdvl_small_eig.so`` (registers, stack frame, spills); its device
    time, eager call and the library call's (which synchronises), and the
-   library call's device time (its kernels, from ``torch.profiler``). And
-   a WHILE node of 1000 iterations with an IF node in its body: its result,
-   the condition kernel's launches and its device time per iteration; and
-   1000 IF nodes with empty bodies in one graph: the condition kernel's
-   own time per node.
+   library call's device time (its kernels, from ``torch.profiler``),
+   beside the launch floor: an empty ``<<<1,1>>>`` kernel node (1000 in
+   one graph). And the conditional nodes, each replayed from one graph
+   with its result and the condition kernel's launches checked, and timed
+   beside the same floor: a WHILE node of 1000 iterations with an if/else
+   ``device_if`` in its body (one condition launch per pair); 1000 IF nodes
+   with empty bodies (the condition kernel's own time per node); 1000
+   if/else pairs with empty bodies; a ``device_fori`` of 1000 iterations
+   with an empty body (1001 condition launches and no other kernel).
 4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
    (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
    keyframe / 4096 point / 512 candidate slots, the Pallas border rule as
@@ -171,8 +175,12 @@ ending the run with a non-zero exit code:
    the bootstrap's largest call (the RANSAC batch; the 3x3 SVD), every
    shape in ``by_shape``, and its ``ptxas`` figures;
    ``set_condition_kernel`` gives the condition kernel's launches by path
-   and the time of one IF node with an empty body, beside the eager host
-   read it takes the place of.
+   and the if/else pairs among them (each pair one launch that sets both
+   of its nodes, counted by the kernel: at least one a frame),
+   ``per_branch_launches_by_path`` their sum (what a condition per branch
+   would launch), the time of one IF node with an empty body beside the
+   eager host read it takes the place of, and the times of an if/else
+   pair, a counted iteration, a WHILE iteration and the launch floor.
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 ``sdvl_tpu``. The fixtures under ``tests/data/`` are made by
@@ -486,6 +494,9 @@ def run_kernel_phase():
 # index order, are these indices
 TIES = [2.0, 2.0, 1.0, 3.0, 1.0, 2.0]
 TIES_ORDER = [2, 4, 0, 1, 5, 3]
+# svd3 on diag(SVD_TIES): values descending, equal ones in index order
+SVD_TIES = [1.0, 1.0, 2.0]
+SVD_TIES_ORDER = [2, 0, 1]
 
 
 def eig_cases(seed: int = 0) -> dict:
@@ -573,8 +584,9 @@ def ptxas_report(lib: str) -> dict:
         m = re.search(r"Used (\d+) registers", x)
         if m and name:
             out.setdefault(name, {})["registers"] = int(m.group(1))
-    return {next((k for k in ("eigh_kernel", "svd3_kernel") if k in f), f): v
-            for f, v in out.items()}
+    names = ("eigh_kernel", "svd3_kernel", "set_condition_kernel",
+             "launch_floor_kernel")
+    return {next((k for k in names if k in f), f): v for f, v in out.items()}
 
 
 def library_device_ms(fn, reps: int = 20) -> tuple:
@@ -611,14 +623,25 @@ def library_device_ms(fn, reps: int = 20) -> tuple:
     return statistics.median(times), "events"
 
 
-def check_small_eig() -> dict:
+def launch_floor_ms(n: int = 1000) -> float:
+    """Device time of one empty one-thread kernel node
+    (``graph_if.launch_floor``): ``n`` in one CUDA graph, the replay over
+    ``n``. The least any kernel node of a replay costs on this card."""
+    from sdvl_tpu_torch.ops.cuda import graph_if
+
+    return graph_ms(graph_if.launch_floor, launches=n)
+
+
+def check_small_eig(floor_ms: float) -> dict:
     """The small eigensolver (``ops/cuda/small_eig.py``) against its plain
     version, ``torch.linalg.eigh``/``svd`` on the card, at the bootstrap's
     shapes, on near-degenerate matrices, on 1, 2, 5 and 8 rows, on a batch
-    of 1000 and on exact ties (in index order); raises on disagreement.
-    Prints the kernels' ``ptxas`` figures. Times each bootstrap shape: the
-    kernel's device time (graph replay), one eager call of the wrapper, and
-    the library call's eager time (which synchronises) and device time."""
+    of 1000 and on exact ties (in index order, for ``eigh`` and for
+    ``svd3``); raises on disagreement. Prints the kernels' ``ptxas``
+    figures. Times each bootstrap shape: the kernel's device time (graph
+    replay), beside ``floor_ms`` (an empty kernel node's), one eager call
+    of the wrapper, and the library call's eager time (which synchronises)
+    and device time."""
     from sdvl_tpu_torch.ops.cuda import small_eig
 
     out = {"ptxas": ptxas_report("libsdvl_small_eig.so")}
@@ -647,7 +670,9 @@ def check_small_eig() -> dict:
     rs = np.random.default_rng(1)
     for name, H in (("homography", np.eye(3) + rs.normal(0, 0.2, (3, 3))),
                     ("rank_2", np.diag([2.0, 1.0, 0.0]) @ np.linalg.qr(
-                        rs.normal(0, 1, (3, 3)))[0])):
+                        rs.normal(0, 1, (3, 3)))[0]),
+                    ("ties", np.diag(SVD_TIES)),
+                    ("batch_1000", rs.normal(0, 1, (1000, 3, 3)))):
         A = torch.from_numpy(H.astype(np.float32)).cuda()
         n0 = small_eig.launches(kernel="svd3")
         U, S, Vh = small_eig.svd3(A)
@@ -657,11 +682,18 @@ def check_small_eig() -> dict:
         Up, Sp, Vhp = small_eig.svd3_plain(A)
         scale = float(Sp.max())
         err = float((S - Sp).abs().max())
-        recon = float((U @ torch.diag(S) @ Vh - A).abs().max())
+        recon = float((U @ torch.diag_embed(S) @ Vh - A).abs().max())
         cos = min(vector_cos(U, Up, Sp), vector_cos(Vh.mT, Vhp.mT, Sp))
         assert err <= 1e-5 * scale and recon <= 1e-5 * scale, (
             f"svd {name}: values {err}, reconstruction {recon}")
         assert cos >= 1 - 1e-4, f"svd {name}: vector |cos| {cos}"
+        assert bool((S[..., 1:] <= S[..., :-1]).all()), f"svd {name}: order"
+        if name == "ties":
+            eye = torch.eye(3, device=A.device)
+            assert torch.equal(S, A.diagonal()[SVD_TIES_ORDER]) and \
+                torch.equal(Vh, eye[SVD_TIES_ORDER]) and \
+                torch.equal(U, eye[:, SVD_TIES_ORDER]), (
+                    "svd ties: equal values not in index order")
         out[f"svd_{name}"] = dict(shape=list(A.shape), max_abs_err=err,
                                   rel_err=err / scale, residual=recon,
                                   min_abs_cos=cos)
@@ -693,6 +725,7 @@ def check_small_eig() -> dict:
         ops_ms = 9 * n ** 3 * batch / PEAK_F32_OPS_PER_S * 1e3
         lib_dev_ms, lib_dev_how = library_device_ms(lambda: library(A))
         t = dict(ms=graph_ms(lambda: kernel(A)),
+                 launch_floor_ms=floor_ms,
                  call_ms=time_ms(lambda: kernel(A)),
                  library_ms=time_ms(lambda: library(A), inner=2),
                  library_device_ms=lib_dev_ms,
@@ -703,26 +736,49 @@ def check_small_eig() -> dict:
         t["faster_than_library"] = t["ms"] < min(t["library_ms"], lib_dev_ms)
         out[name] = {**out.get(name, {}), **t, "shape": list(A.shape)}
         say("kernel", f"small_eig {name} {list(A.shape)}: device time "
-                      f"(graph replay) {t['ms']:.5f} ms, eager call "
+                      f"(graph replay) {t['ms']:.5f} ms (an empty kernel "
+                      f"node {floor_ms:.5f} ms), eager call "
                       f"{t['call_ms']:.4f} ms; torch.linalg (cuSOLVER, "
                       f"synchronises) {t['library_ms']:.4f} ms per eager "
                       f"call, its device time {lib_dev_ms:.5f} ms "
                       f"({lib_dev_how}); bound {t['bound_ms']:.3g} ms "
                       f"({t['bound_by']}); the kernel faster than both: "
                       f"{t['faster_than_library']}")
+    say("kernel", f"svd3_kernel ptxas: {out['ptxas'].get('svd3_kernel')}; "
+                  f"eigh_kernel ptxas: {out['ptxas'].get('eigh_kernel')}")
     return out
 
 
-def check_conditional_nodes() -> dict:
-    """The conditional nodes (``ops/cuda/graph_if.py``): a WHILE node that
-    counts to 1000 with an IF node nested in its body, replayed, its result
-    and the condition kernel's launches checked; its time per iteration
-    (device time of the replay over 1000); the condition kernel's own
-    time, that of one IF node with an empty body (1000 in one graph, the
-    replay over 1000), and its bound; and beside them the eager host read
-    the nodes take the place of (``bool()`` of a () tensor)."""
+def replay_ms_per(g, count: int, reps: int = 5) -> float:
+    """Device time of one replay of ``g`` over ``count`` (CUDA events,
+    median of ``reps``)."""
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / count)
+    return statistics.median(times)
+
+
+def check_conditional_nodes(floor_ms: float) -> dict:
+    """The conditional nodes (``ops/cuda/graph_if.py``), each replayed from
+    one CUDA graph with its result and the condition kernel's launches
+    checked, and timed (device time of the replay over its count), beside
+    ``floor_ms``, an empty kernel node's time: a WHILE node that counts to
+    1000 with an if/else ``device_if`` nested in its body (its time per
+    iteration); 1000 IF nodes with empty bodies (the condition kernel's own
+    time, and its bound); 1000 if/else pairs with empty bodies; a
+    ``device_fori`` of 1000 iterations with an empty body (what a counted
+    iteration costs with no kernel of the loop's own); and beside them the
+    eager host read the nodes take the place of (``bool()`` of a ()
+    tensor)."""
     from sdvl_tpu_torch.ops.cuda import graph_if
-    from sdvl_tpu_torch.pipeline.device_fsm import device_if, device_while
+    from sdvl_tpu_torch.pipeline.device_fsm import (device_fori, device_if,
+                                                    device_while)
 
     dev = torch.device("cuda")
     n_it = 1000
@@ -739,70 +795,106 @@ def check_conditional_nodes() -> dict:
         out[:] = device_while(lambda c: c[0] < n_it, body, (i0, odd0),
                               max_iters=n_it)
 
+    def captured(fn):
+        g = torch.cuda.CUDAGraph()
+        with graph_if.capture(g):
+            fn()
+        torch.cuda.synchronize()
+        graph_if.reset_launches()
+        g.replay()
+        torch.cuda.synchronize()
+        return g, graph_if.launches(), graph_if.pairs()
+
     run()           # eagerly first: loads every kernel the body holds
     torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with graph_if.capture(g):
-        run()
-    torch.cuda.synchronize()
-    graph_if.reset_launches()
-    g.replay()
-    torch.cuda.synchronize()
+    g, conds, loop_pairs = captured(run)
     i, odd = (int(t) for t in out)
-    conds = graph_if.launches()
-    # one condition before the WHILE node, one per iteration, and the IF
-    # node's (two: the branch and the other branch) in each iteration
+    # one condition before the WHILE node, one per iteration, and the
+    # if/else pair's one in each iteration
     assert (i, odd) == (n_it, n_it // 2), (i, odd)
-    assert conds == 1 + n_it + 2 * n_it, conds
-    times = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / n_it)
+    assert (conds, loop_pairs) == (1 + n_it + n_it, n_it), (conds, loop_pairs)
+    iteration_ms = replay_ms_per(g, n_it)
     flag = torch.ones((), dtype=torch.bool, device=dev)
     read_ms = time_ms(lambda: bool(flag), inner=10)
-    # the condition kernel's own time: n_it IF nodes with empty bodies in
-    # one graph, the replay over n_it
-    g_if = torch.cuda.CUDAGraph()
-    with graph_if.capture(g_if):
+
+    def ifs():
         for _ in range(n_it):
             with graph_if.if_node(flag):
                 pass
-    torch.cuda.synchronize()
-    graph_if.reset_launches()
-    g_if.replay()
-    torch.cuda.synchronize()
-    assert graph_if.launches() == n_it, graph_if.launches()
-    if_times = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g_if.replay()
-        b.record()
-        torch.cuda.synchronize()
-        if_times.append(a.elapsed_time(b) / n_it)
+
+    def pairs():
+        for _ in range(n_it):
+            device_if(flag, lambda: None, lambda: None)
+
+    def two_ifs():
+        # the same branch built as a node per branch: an IF node on the
+        # predicate and one on its logical_not
+        for _ in range(n_it):
+            other = torch.logical_not(flag)
+            with graph_if.if_node(flag):
+                pass
+            with graph_if.if_node(other):
+                pass
+
+    loop_out = []
+
+    def fori():
+        loop_out[:] = [device_fori(n_it, lambda k, c: c, i0)]
+
+    def counted_while():
+        # the same count as a device_while on c < n with an add per
+        # iteration (and the carry's copy back)
+        loop_out[:] = device_while(lambda c: c[0] < n_it,
+                                   lambda c: (c[0] + 1, c[1]), (i0, odd0),
+                                   max_iters=n_it)
+
+    g_if, n_if, p_if = captured(ifs)
+    g_pair, n_pair, p_pair = captured(pairs)
+    g_two, n_two, p_two = captured(two_ifs)
+    g_fori, n_fori, p_fori = captured(fori)
+    g_while, n_while, p_while = captured(counted_while)
+    assert int(loop_out[0]) == n_it, int(loop_out[0])
+    assert (n_if, n_pair, n_two, n_fori, n_while) == (
+        n_it, n_it, 2 * n_it, n_it + 1, n_it + 1), (
+        n_if, n_pair, n_two, n_fori, n_while)
+    assert (p_if, p_pair, p_two, p_fori, p_while) == (0, n_it, 0, 0, 0), (
+        p_if, p_pair, p_two, p_fori, p_while)
     # what one condition must move: the () bool read, the uint64 counter
     # read and written; its two operations are far below that
     bound_ms = (1 + 8 + 8) / PEAK_BYTES_PER_S * 1e3
-    res = dict(iteration_ms=statistics.median(times),
-               conditions_per_replay=conds, host_read_ms=read_ms,
-               if_node_ms=statistics.median(if_times), bound_ms=bound_ms,
-               bound_by="bytes")
-    say("kernel", f"conditional nodes: a WHILE node of {n_it} iterations "
-                  f"with an IF node in its body, replayed: result "
-                  f"({i}, {odd}) right, {conds} condition-kernel launches "
-                  f"(counted by the kernel); {res['iteration_ms']:.5f} ms of "
-                  f"device time per iteration (three small kernels, two "
-                  f"conditions); one IF node with an empty body (the "
-                  f"condition kernel and the node, {n_it} in one graph, "
-                  f"counted by the kernel) {res['if_node_ms']:.5f} ms, bound "
-                  f"{bound_ms:.3g} ms (bytes); an eager host read of a () "
-                  f"tensor {read_ms:.4f} ms")
+    res = dict(iteration_ms=iteration_ms, conditions_per_replay=conds,
+               pairs_per_replay=loop_pairs,
+               host_read_ms=read_ms, if_node_ms=replay_ms_per(g_if, n_it),
+               if_else_pair_ms=replay_ms_per(g_pair, n_it),
+               two_if_nodes_ms=replay_ms_per(g_two, n_it),
+               fori_iteration_ms=replay_ms_per(g_fori, n_it),
+               counted_while_iteration_ms=replay_ms_per(g_while, n_it),
+               launch_floor_ms=floor_ms, bound_ms=bound_ms,
+               bound_by="bytes",
+               ptxas=ptxas_report("libsdvl_graph_if.so"))
+    say("kernel", f"conditional nodes, device time per node (graph replay, "
+                  f"{n_it} in one graph, launches counted by the condition "
+                  f"kernel), beside an empty kernel node {floor_ms:.5f} ms: "
+                  f"one IF node with an empty body {res['if_node_ms']:.5f} "
+                  f"ms (bound {bound_ms:.3g} ms, bytes); an if/else pair "
+                  f"with empty bodies {res['if_else_pair_ms']:.5f} ms (one "
+                  f"condition launch each: {n_pair} launches, {p_pair} "
+                  f"pairs counted; as an IF node per "
+                  f"branch and a logical_not {res['two_if_nodes_ms']:.5f} "
+                  f"ms); a device_fori iteration with an empty body "
+                  f"{res['fori_iteration_ms']:.5f} ms ({n_fori} condition "
+                  f"launches for {n_it} iterations; as a device_while on "
+                  f"c < n with an add "
+                  f"{res['counted_while_iteration_ms']:.5f} ms); a WHILE "
+                  f"node of {n_it} "
+                  f"iterations with an if/else device_if in its body: result "
+                  f"({i}, {odd}) right, {conds} condition launches "
+                  f"({loop_pairs} of them pairs), "
+                  f"{iteration_ms:.5f} ms per iteration (its small "
+                  f"kernels and copies, two conditions: the pair's and the "
+                  f"loop's); an eager host read of a () "
+                  f"tensor {read_ms:.4f} ms; set_condition_kernel ptxas "
+                  f"{res['ptxas'].get('set_condition_kernel')}")
     return res
 
 
@@ -1015,13 +1107,14 @@ def reset_counts() -> None:
 
 def side_counts() -> dict:
     """Just after a path was driven: the small eigensolver's launches (both
-    kernels, and each), and the condition kernel's (one per IF node, WHILE
-    node and WHILE iteration that ran), as the kernels counted them."""
+    kernels, and each), the condition kernel's (one per IF node, if/else
+    pair, WHILE node and WHILE iteration that ran) and the if/else pairs
+    among them, as the kernels counted them."""
     from sdvl_tpu_torch.ops.cuda import graph_if, small_eig
 
     return dict(small_eig=small_eig.launches(),
                 **{k: small_eig.launches(kernel=k) for k in small_eig.KERNELS},
-                conditions=graph_if.launches())
+                conditions=graph_if.launches(), pairs=graph_if.pairs())
 
 
 def read_counts() -> tuple:
@@ -1183,7 +1276,8 @@ def run_slam_phase(card: str) -> dict:
                 f"frames after the capture "
                 + ", ".join(f"{x:.2f}" for x in second_ms)
                 + f" ms; small eigensolver launches {eig}, condition-kernel "
-                  f"launches {st.side_counts['conditions']}")
+                  f"launches {st.side_counts['conditions']} (if/else pairs "
+                  f"{st.side_counts['pairs']})")
     say("slam", f"ms per frame by state (warm, synchronised per frame, "
                 f"capture frame apart): "
                 + ", ".join(f"{k} {v['mean']:.2f} ({v['frames']} frames)"
@@ -1493,7 +1587,7 @@ def run_chunk_phase(card: str, slam: dict) -> dict:
                  + f"; kernel launches {launches} = 1 x {n} frames + "
                    f"{launches - n} in the captures' eager passes; small "
                    f"eigensolver {side['small_eig']}, condition kernel "
-                   f"{side['conditions']}")
+                   f"{side['conditions']} (if/else pairs {side['pairs']})")
     say("chunk", "ms per frame of each chunk that captures nothing "
                  "(synchronised per chunk): "
                  + ", ".join(f"{x:.3f}" for x in ms_frame)
@@ -2703,6 +2797,7 @@ def small_eig_entries(eig, slam, graph, chunk, host, card) -> list:
             "min_abs_cos": min(v["min_abs_cos"] for v in checked),
             "shape": t["shape"],
             "ms": t["ms"],
+            "launch_floor_ms": t["launch_floor_ms"],
             "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -2751,8 +2846,11 @@ def main() -> int:
     # ---------------------------------------------------------- 3 kernel
     t0 = time.perf_counter()
     checks, dp = run_kernel_phase()
-    eig = check_small_eig()
-    cond = check_conditional_nodes()
+    floor = launch_floor_ms()
+    say("kernel", f"an empty <<<1,1>>> kernel node (1000 in one graph): "
+                  f"{floor:.5f} ms of device time each")
+    eig = check_small_eig(floor)
+    cond = check_conditional_nodes(floor)
     say("kernel", f"phase took {time.perf_counter() - t0:.1f} s")
     cfg = preset_config()
     query = dict(np.load(QUERY_NPZ))
@@ -2878,6 +2976,24 @@ def main() -> int:
     say("dist", f"phase took {time.perf_counter() - t0:.1f} s")
 
     # --------------------------------------------------------- 9 kernels
+    on_paths = (("slam", slam), ("chunk", chunk), ("host", host))
+    conditions = {k: v["side_counts"]["conditions"] for k, v in on_paths}
+    pairs = {k: v["side_counts"]["pairs"] for k, v in on_paths}
+    # a condition per branch: a pair's second node had a launch of its own
+    per_branch = {k: conditions[k] + pairs[k] for k in conditions}
+    for k in conditions:
+        # every frame of the stream dispatches on its state with a pair,
+        # every run of the host driver at least once (the seed stage's)
+        least_pairs = 1 if k == "host" else slam["frames"]
+        assert least_pairs <= pairs[k] <= conditions[k], (
+            f"{k}: {pairs[k]} if/else pairs in {conditions[k]} "
+            f"condition-kernel launches, at least {least_pairs} expected")
+    say("kernels", "condition-kernel launches by path (counted by the "
+                   "kernel) "
+                   + ", ".join(f"{k} {conditions[k]}, of them {pairs[k]} "
+                               f"if/else pairs, each one launch where a "
+                               f"condition per branch would be two "
+                               f"({per_branch[k]})" for k in conditions))
     p3, p3_plain = checks["pallas"]["pyramid"], checks["plain"]["pyramid"]
     paths = {"slam": (slam["launches"], slam["frames"], slam["captures"]),
              "slam_eager": (graph["eager_launches"], graph["frames"], 0),
@@ -2951,10 +3067,10 @@ def main() -> int:
                     "sdvl_tpu/solvers/ba.py)",
         "launches": slam["side_counts"]["conditions"],
         "frames": slam["frames"],
-        "launches_by_path": {
-            "slam": slam["side_counts"]["conditions"],
-            "chunk": chunk["side_counts"]["conditions"],
-            "host": host["side_counts"]["conditions"]},
+        "launches_by_path": conditions,
+        "pairs_by_path": pairs,
+        # with a condition per branch: the launches and a second per pair
+        "per_branch_launches_by_path": per_branch,
         # the condition it sets was checked exact (phase kernel)
         "max_abs_err": 0.0,
         # one IF node with an empty body; the plain version is the eager
@@ -2964,7 +3080,13 @@ def main() -> int:
         "bound_ms": cond["bound_ms"],
         "bound_by": cond["bound_by"],
         "library_ms": None,
+        "launch_floor_ms": cond["launch_floor_ms"],
+        "if_else_pair_ms": cond["if_else_pair_ms"],
+        "two_if_nodes_ms": cond["two_if_nodes_ms"],
+        "fori_iteration_ms": cond["fori_iteration_ms"],
+        "counted_while_iteration_ms": cond["counted_while_iteration_ms"],
         "while_iteration_ms": cond["iteration_ms"],
+        "ptxas": cond["ptxas"].get("set_condition_kernel"),
         "card": card,
     }]}
     print(card, flush=True)

@@ -1,5 +1,5 @@
 // Batched small symmetric eigensolver (one warp per matrix) and 3x3 SVD
-// (one thread per matrix).
+// (one thread per matrix, in registers).
 //
 // The two-view bootstrap solves three small dense problems: the smallest
 // eigenvector of the 9x9 A^T A of each homography hypothesis (a batch of
@@ -22,12 +22,15 @@
 //     unless |a_pq| <= 1e-15 (|a_pp| + |a_qq|); sweeps (m - 1 rounds each)
 //     stop after one in which no pair rotated, at most MAX_SWEEPS.
 //   sdvl_svd3(A, U, S, Vh, batch, counter, stream)
-//     A (batch, 3, 3) float32; U (batch, 3, 3), S (batch, 3) descending,
-//     Vh (batch, 3, 3) with A = U diag(S) Vh, as torch.linalg.svd gives
-//     them. One-sided (Hestenes) Jacobi in float64: column pairs of A V are
-//     rotated until orthogonal; S are their norms, U their directions; a
-//     column whose norm vanishes takes the unit vector that completes U to a
-//     right-handed orthonormal basis.
+//     A (batch, 3, 3) float32; U (batch, 3, 3), S (batch, 3) descending
+//     (ties in index order, as eigh orders them), Vh (batch, 3, 3) with
+//     A = U diag(S) Vh, as torch.linalg.svd gives them. One-sided
+//     (Hestenes) Jacobi in float64: each sweep rotates the column pairs
+//     (0,1), (0,2), (1,2) of B = A V in turn, a pair unless
+//     (b_p . b_q)^2 <= 1e-30 |b_p|^2 |b_q|^2, and the sweeps stop after one
+//     in which no pair rotated, at most MAX_SWEEPS; S are B's column norms,
+//     U their directions; a column whose norm vanishes takes the unit
+//     vector that completes U to a right-handed orthonormal basis.
 //
 // What bounds eigh_kernel on an H100, and its design. A 9x9 matrix is 324
 // bytes in and 360 out; its time is the latency of a dependent chain of
@@ -238,105 +241,158 @@ eigh_kernel(const float* __restrict__ A, float* __restrict__ w,
     }
 }
 
-__device__ static void cross3(const double* x, const double* y, double* out) {
-    out[0] = x[1] * y[2] - x[2] * y[1];
-    out[1] = x[2] * y[0] - x[0] * y[2];
-    out[2] = x[0] * y[1] - x[1] * y[0];
+// svd3_kernel. A 3x3 is 36 bytes in and 84 out, and its SVD a chain of
+// dependent float64 rotations, so one matrix takes a kernel node's latency
+// whatever the kernel does (the bootstrap calls it on one matrix). What the
+// design avoids is extra latency: every array of the sweep is a set of
+// scalars named at compile time (the pairs (0,1), (0,2), (1,2) unrolled, the
+// order a three-comparison network), so nothing lives in local memory; a
+// block stages its matrices in shared memory with coalesced loads and
+// stores, so a batch costs its bytes once.
+
+struct Col {                // a column of B = A V or of V
+    double x, y, z;
+};
+
+__device__ __forceinline__ double dot3(const Col& a, const Col& b) {
+    return a.x * b.x + a.y * b.y + a.z * b.z;
 }
 
-__device__ static double norm3(const double* x) {
-    return sqrt(x[0] * x[0] + x[1] * x[1] + x[2] * x[2]);
+__device__ __forceinline__ Col scaled(const Col& a, double d) {
+    return Col{a.x / d, a.y / d, a.z / d};
 }
 
-__global__ void svd3_kernel(const float* __restrict__ A, float* __restrict__ U,
-                            float* __restrict__ S, float* __restrict__ Vh,
-                            int batch, unsigned long long* counter) {
+__device__ __forceinline__ Col cross3(const Col& a, const Col& b) {
+    return Col{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+               a.x * b.y - a.y * b.x};
+}
+
+// (p, q) <- (c p - s q, s p + c q)
+__device__ __forceinline__ void rotate_pair(Col& p, Col& q, double c,
+                                            double s) {
+    const Col a = p, b = q;
+    p = Col{c * a.x - s * b.x, c * a.y - s * b.y, c * a.z - s * b.z};
+    q = Col{s * a.x + c * b.x, s * a.y + c * b.y, s * a.z + c * b.z};
+}
+
+// One-sided Jacobi: the rotation that makes columns p and q of B orthogonal,
+// applied to B and V; false where they are already.
+__device__ __forceinline__ bool orthogonalise(Col& bp, Col& bq, Col& vp,
+                                              Col& vq) {
+    const double alpha = dot3(bp, bp), beta = dot3(bq, bq);
+    const double gamma = dot3(bp, bq);
+    // |gamma| <= 1e-15 sqrt(alpha beta), squared: no sqrt on the chain
+    // (float32 inputs keep every square far inside float64's range)
+    if (gamma == 0.0 || gamma * gamma <= 1e-30 * (alpha * beta))
+        return false;
+    // t = sign(zeta) / (|zeta| + sqrt(1 + zeta^2)), zeta = d / (2 gamma),
+    // with both sides times 2 |gamma|: one division on the chain, not two
+    const double d = beta - alpha;
+    const double t = (d >= 0.0 ? 2.0 * gamma : -2.0 * gamma)
+        / (fabs(d) + sqrt(d * d + 4.0 * (gamma * gamma)));
+    const double c = 1.0 / sqrt(1.0 + t * t);
+    const double s = c * t;
+    rotate_pair(bp, bq, c, s);
+    rotate_pair(vp, vq, c, s);
+    return true;
+}
+
+struct Singular {           // a singular value, its column of B and of V
+    double s;
+    Col b, v;
+};
+
+// hi before lo unless lo's value is larger: with the network (0,1), (1,2),
+// (0,1) the values come out descending, ties in index order, always a
+// permutation (a NaN swaps nothing)
+__device__ __forceinline__ void order_pair(Singular& hi, Singular& lo) {
+    if (lo.s > hi.s) {
+        const Singular t = hi;
+        hi = lo;
+        lo = t;
+    }
+}
+
+// One thread per matrix, THREADS matrices per block, staged through shared
+// memory: a thread's 9 inputs and 21 outputs lie at a stride of 9 (or 3)
+// floats, odd, so a warp's accesses fall on distinct banks.
+__global__ void __launch_bounds__(THREADS)
+svd3_kernel(const float* __restrict__ A, float* __restrict__ U,
+            float* __restrict__ S, float* __restrict__ Vh, int batch,
+            unsigned long long* counter) {
+    __shared__ float a_in[THREADS * 9], u_out[THREADS * 9],
+        vh_out[THREADS * 9], s_out[THREADS * 3];
     count_launch(counter);
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= batch) return;
-    const float* a_in = A + static_cast<size_t>(b) * 9;
-    // columns of B = A V, and of V
-    double bc[3][3], vc[3][3];
-    for (int j = 0; j < 3; ++j)
-        for (int i = 0; i < 3; ++i) {
-            bc[j][i] = static_cast<double>(a_in[i * 3 + j]);
-            vc[j][i] = i == j ? 1.0 : 0.0;
+    const size_t first = static_cast<size_t>(blockIdx.x) * THREADS;
+    const int count = min(THREADS, batch - static_cast<int>(first));
+    const int t = threadIdx.x;
+    for (int e = t; e < count * 9; e += THREADS) a_in[e] = A[first * 9 + e];
+    __syncthreads();
+    if (t < count) {
+        const float* a = a_in + t * 9;
+        // columns of B = A V (V = I to start), and of V
+        Col b0{a[0], a[3], a[6]}, b1{a[1], a[4], a[7]}, b2{a[2], a[5], a[8]};
+        Col v0{1.0, 0.0, 0.0}, v1{0.0, 1.0, 0.0}, v2{0.0, 0.0, 1.0};
+        for (int sweep = 0; sweep < MAX_SWEEPS; ++sweep) {
+            const bool r01 = orthogonalise(b0, b1, v0, v1);
+            const bool r02 = orthogonalise(b0, b2, v0, v2);
+            const bool r12 = orthogonalise(b1, b2, v1, v2);
+            if (!(r01 || r02 || r12)) break;
         }
-    const int pairs[3][2] = {{0, 1}, {0, 2}, {1, 2}};
-    for (int sweep = 0; sweep < MAX_SWEEPS; ++sweep) {
-        bool rotated = false;
-        for (int k = 0; k < 3; ++k) {
-            const int p = pairs[k][0], q = pairs[k][1];
-            double alpha = 0.0, beta = 0.0, gamma = 0.0;
-            for (int i = 0; i < 3; ++i) {
-                alpha += bc[p][i] * bc[p][i];
-                beta += bc[q][i] * bc[q][i];
-                gamma += bc[p][i] * bc[q][i];
-            }
-            if (gamma == 0.0 || fabs(gamma) <= 1e-15 * sqrt(alpha * beta))
-                continue;
-            rotated = true;
-            const double zeta = (beta - alpha) / (2.0 * gamma);
-            const double t = (zeta >= 0.0 ? 1.0 : -1.0)
-                / (fabs(zeta) + sqrt(1.0 + zeta * zeta));
-            const double c = 1.0 / sqrt(1.0 + t * t);
-            const double s = c * t;
-            for (int i = 0; i < 3; ++i) {
-                const double bp = bc[p][i], bq = bc[q][i];
-                bc[p][i] = c * bp - s * bq;
-                bc[q][i] = s * bp + c * bq;
-                const double vp = vc[p][i], vq = vc[q][i];
-                vc[p][i] = c * vp - s * vq;
-                vc[q][i] = s * vp + c * vq;
-            }
+        Singular x0{sqrt(dot3(b0, b0)), b0, v0};
+        Singular x1{sqrt(dot3(b1, b1)), b1, v1};
+        Singular x2{sqrt(dot3(b2, b2)), b2, v2};
+        order_pair(x0, x1);
+        order_pair(x1, x2);
+        order_pair(x0, x1);
+        // U's columns: B's, normalised; where a value vanishes, the unit
+        // vector that completes a right-handed orthonormal basis
+        const double tiny = 1e-30 + 1e-13 * x0.s;
+        const Col u0 = x0.s > tiny ? scaled(x0.b, x0.s)
+                                   : Col{1.0, 0.0, 0.0};     // A = 0
+        Col u1;
+        if (x1.s > tiny) {
+            u1 = scaled(x1.b, x1.s);
+        } else {            // rank 1: normal to u0 and to its least axis
+            const double ax = fabs(u0.x), ay = fabs(u0.y), az = fabs(u0.z);
+            const int least = az < (ay < ax ? ay : ax) ? 2 : (ay < ax ? 1 : 0);
+            const Col e{least == 0 ? 1.0 : 0.0, least == 1 ? 1.0 : 0.0,
+                        least == 2 ? 1.0 : 0.0};
+            const Col w = cross3(u0, e);
+            u1 = scaled(w, sqrt(dot3(w, w)));
         }
-        if (!rotated) break;
+        const Col u2 = x2.s > tiny ? scaled(x2.b, x2.s)
+                                   : cross3(u0, u1);          // rank 2
+        float* u = u_out + t * 9;
+        float* vh = vh_out + t * 9;
+        u[0] = static_cast<float>(u0.x);
+        u[1] = static_cast<float>(u1.x);
+        u[2] = static_cast<float>(u2.x);
+        u[3] = static_cast<float>(u0.y);
+        u[4] = static_cast<float>(u1.y);
+        u[5] = static_cast<float>(u2.y);
+        u[6] = static_cast<float>(u0.z);
+        u[7] = static_cast<float>(u1.z);
+        u[8] = static_cast<float>(u2.z);
+        s_out[t * 3] = static_cast<float>(x0.s);
+        s_out[t * 3 + 1] = static_cast<float>(x1.s);
+        s_out[t * 3 + 2] = static_cast<float>(x2.s);
+        vh[0] = static_cast<float>(x0.v.x);
+        vh[1] = static_cast<float>(x0.v.y);
+        vh[2] = static_cast<float>(x0.v.z);
+        vh[3] = static_cast<float>(x1.v.x);
+        vh[4] = static_cast<float>(x1.v.y);
+        vh[5] = static_cast<float>(x1.v.z);
+        vh[6] = static_cast<float>(x2.v.x);
+        vh[7] = static_cast<float>(x2.v.y);
+        vh[8] = static_cast<float>(x2.v.z);
     }
-    double sv[3];
-    int order[3] = {0, 1, 2};
-    for (int j = 0; j < 3; ++j) sv[j] = norm3(bc[j]);
-    // descending, stable
-    for (int i = 0; i < 3; ++i) {
-        int best = i;
-        for (int j = i + 1; j < 3; ++j)
-            if (sv[order[j]] > sv[order[best]]) best = j;
-        const int tmp = order[i];
-        order[i] = order[best];
-        order[best] = tmp;
+    __syncthreads();
+    for (int e = t; e < count * 9; e += THREADS) {
+        U[first * 9 + e] = u_out[e];
+        Vh[first * 9 + e] = vh_out[e];
     }
-    double u[3][3];
-    const double tiny = 1e-30 + 1e-13 * sv[order[0]];
-    for (int k = 0; k < 3; ++k) {
-        const int j = order[k];
-        if (sv[j] > tiny) {
-            for (int i = 0; i < 3; ++i) u[k][i] = bc[j][i] / sv[j];
-        } else if (k == 0) {            // A = 0: any basis
-            u[0][0] = 1.0;
-            u[0][1] = u[0][2] = 0.0;
-        } else if (k == 1) {            // rank 1: a unit vector normal to u0
-            double e[3] = {0.0, 0.0, 0.0};
-            int least = 0;
-            for (int i = 1; i < 3; ++i)
-                if (fabs(u[0][i]) < fabs(u[0][least])) least = i;
-            e[least] = 1.0;
-            cross3(u[0], e, u[1]);
-            const double nn = norm3(u[1]);
-            for (int i = 0; i < 3; ++i) u[1][i] /= nn;
-        } else {                        // rank 2: complete the basis
-            cross3(u[0], u[1], u[2]);
-        }
-    }
-    float* u_out = U + static_cast<size_t>(b) * 9;
-    float* s_out = S + static_cast<size_t>(b) * 3;
-    float* vh_out = Vh + static_cast<size_t>(b) * 9;
-    for (int k = 0; k < 3; ++k) {
-        const int j = order[k];
-        s_out[k] = static_cast<float>(sv[j]);
-        for (int i = 0; i < 3; ++i) {
-            u_out[i * 3 + k] = static_cast<float>(u[k][i]);
-            vh_out[k * 3 + i] = static_cast<float>(vc[j][i]);
-        }
-    }
+    for (int e = t; e < count * 3; e += THREADS) S[first * 3 + e] = s_out[e];
 }
 
 static int blocks_for(int batch) { return (batch + THREADS - 1) / THREADS; }

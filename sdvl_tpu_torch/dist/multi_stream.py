@@ -44,8 +44,9 @@ import torch
 
 from .. import require_device
 from ..pipeline.config import Config
-from ..pipeline.device_fsm import (STATE_LOST, StepRunner, cropped_shape,
-                                   init_carry, init_state)
+from ..pipeline.device_fsm import (STATE_LOST, FrameInfo, StepRunner,
+                                   cropped_shape, init_carry, init_state,
+                                   unpack_info)
 from ..pipeline.stream import (HostUploads, NoiseSource, SlamResult,
                                unpack_infos)
 from . import mesh as mesh_mod
@@ -130,8 +131,8 @@ class MultiStream:
         ]
         self._uploads = HostUploads(dev)
         self._n_fed = 0
-        # per local stream, the packed FrameInfo of every frame fed
-        self._rows: List[list] = [[] for _ in self.local]
+        # the packed FrameInfos of every feed, (T, local streams, 21) each
+        self._rows: List[torch.Tensor] = []
 
     @property
     def m(self):
@@ -155,30 +156,37 @@ class MultiStream:
                                 : self.crop_h, : self.crop_w]
         return self._uploads.upload(imgs)
 
-    def _run(self, frames: torch.Tensor) -> None:
+    def _run(self, frames: torch.Tensor) -> FrameInfo:
         """Step every local stream over ``frames`` (T, local, H, W), frame
-        by frame."""
+        by frame; the frames' infos with leaves (T, local, ...)."""
         T = frames.shape[0]
         noise = [src.pose(self._n_fed, T) for src in self._noise]
-        for t in range(T):
-            for j, r in enumerate(self._runners):
-                row, _ = r.step(frames[t, j], noise[j][t],
-                                self._noise[j].boot)
-                self._rows[j].append(row)
+        rows = torch.stack([r.step(frames[t, j], noise[j][t],
+                                   self._noise[j].boot)[0]
+                            for t in range(T)
+                            for j, r in enumerate(self._runners)])
+        rows = rows.view(T, len(self._runners), -1)
+        self._rows.append(rows)
         self._n_fed += T
+        return unpack_info(rows)
 
-    def feed(self, imgs: np.ndarray, block: bool = False) -> None:
-        """One frame per stream: ``imgs`` is (N, H, W)."""
-        self._run(self._upload(imgs)[None])
+    def feed(self, imgs: np.ndarray, block: bool = False) -> FrameInfo:
+        """One frame per stream: ``imgs`` is (N, H, W). Returns the local
+        streams' FrameInfo of device tensors with leading axis N (over a
+        mesh, this rank's streams), as the reference's step does."""
+        info = self._run(self._upload(imgs)[None])
         if block:
             self.block()
+        return FrameInfo(*(x[0] for x in info))
 
-    def feed_chunk(self, imgs: np.ndarray, block: bool = False) -> None:
+    def feed_chunk(self, imgs: np.ndarray, block: bool = False) -> FrameInfo:
         """T frames per stream in one host->device copy: ``imgs`` is
-        (T, N, H, W)."""
-        self._run(self._upload(imgs))
+        (T, N, H, W). Returns the local streams' FrameInfo of device
+        tensors with leading axes (T, N), as the reference's scan does."""
+        info = self._run(self._upload(imgs))
         if block:
             self.block()
+        return info
 
     def block(self):
         """Wait for all dispatched work."""
@@ -192,7 +200,7 @@ class MultiStream:
         every rank calls it."""
         if not self._n_fed:
             raise ValueError("no frames fed")
-        packed = torch.stack([torch.stack(rows) for rows in self._rows])
+        packed = torch.cat(self._rows).transpose(0, 1)   # (local, T, 21)
         packed = mesh_mod.gather_rows(packed, self._group).cpu().numpy()
         results = [SlamResult(unpack_infos(p)) for p in packed]
         return results if stream is None else results[stream]

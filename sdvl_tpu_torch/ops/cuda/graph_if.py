@@ -6,17 +6,24 @@ The counterpart of the reference's ``lax.cond``/``lax.switch`` and
 stream captures a graph, :func:`if_node` adds a conditional node on a ()
 bool tensor and captures the work of its ``with`` block into the node's
 body, so that on replay the body runs only where the tensor is true, with no
-read back to the host; :func:`while_node` adds a WHILE node whose body runs
-as long as the tensor is true when the node starts and when the body ends.
+read back to the host; :func:`if_else` captures two bodies into an if/else
+pair, two IF nodes that one condition kernel sets, the second where the
+tensor is false; :func:`while_node` adds a WHILE node whose body runs as
+long as a () bool tensor is true when the node starts and when the body
+ends; :func:`fori_node` adds a counted WHILE node whose index and compare
+live in the condition kernel.
 ``csrc/graph_if.cu`` adds the nodes (torch of this version has no binding
 for conditional nodes); it is built with ``nvcc`` at first use into
 ``sdvl_tpu_torch/_build/`` and bound through ``ctypes``, as the detection
 kernel is. Conditional nodes nested in another's body need CUDA 12.4 or
 later, in the runtime and the driver: loading the library checks both.
 
-Every node's condition kernel adds one to a launch counter on the card
-(:func:`launches`): once per IF node and per WHILE node, and once per WHILE
-iteration, each time a graph replays.
+Every condition kernel adds one to a launch counter on the card
+(:func:`launches`): once per IF node or if/else pair and per WHILE node,
+and once per WHILE iteration, each time a graph replays; a pair's adds one
+to a second counter too (:func:`pairs`).
+:func:`launch_floor` launches an empty kernel, the least a kernel node
+costs, for timing beside it.
 
 :func:`capture` wraps ``torch.cuda.graph``: the bodies are captured on
 streams of their own, so every allocation of the capturing thread is routed
@@ -55,7 +62,8 @@ _lib_lock = threading.Lock()
 _body_streams = {}   # (device index, nesting depth) -> torch.cuda.Stream
 _capture_streams = {}   # device index -> the stream graphs capture on
 _depth = threading.local()
-# per CUDA device index, the () int64 count of condition-kernel launches
+# per CUDA device index, the (2,) int64 counts of condition-kernel launches
+# and of the if/else pairs among them
 _counters = {}
 
 
@@ -67,11 +75,17 @@ def load_library(verbose: bool = False):
         if _lib is None:
             lib = ctypes.CDLL(detect.build_library(
                 verbose=verbose, source=SOURCE, name="libsdvl_graph_if.so"))
-            vp, ull = ctypes.c_void_p, ctypes.c_ulonglong
-            lib.sdvl_if_begin.argtypes = [vp] * 4
+            vp, ull, ci = ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int
+            p_ull = ctypes.POINTER(ull)
+            lib.sdvl_if_begin.argtypes = [vp] * 4 + [p_ull,
+                                                     ctypes.POINTER(vp)]
+            lib.sdvl_else_begin.argtypes = [vp, vp, ull, vp]
             lib.sdvl_if_end.argtypes = [vp]
-            lib.sdvl_while_begin.argtypes = [vp] * 4 + [ctypes.POINTER(ull)]
+            lib.sdvl_while_begin.argtypes = [vp] * 4 + [p_ull]
             lib.sdvl_while_end.argtypes = [vp, ull, vp, vp]
+            lib.sdvl_fori_begin.argtypes = [vp, vp, vp, ci, vp, p_ull]
+            lib.sdvl_fori_end.argtypes = [vp, ull, vp, ci, vp]
+            lib.sdvl_launch_floor.argtypes = [vp]
             lib.sdvl_cuda_versions.argtypes = [
                 ctypes.POINTER(ctypes.c_int)] * 2
             lib.sdvl_error_string.argtypes = [ctypes.c_int]
@@ -79,8 +93,10 @@ def load_library(verbose: bool = False):
             lib.sdvl_last_step.restype = ctypes.c_int
             lib.sdvl_stream_create.argtypes = [ctypes.POINTER(vp)]
             lib.sdvl_stream_create.restype = ctypes.c_int
-            for fn in (lib.sdvl_if_begin, lib.sdvl_if_end,
-                       lib.sdvl_while_begin, lib.sdvl_while_end,
+            for fn in (lib.sdvl_if_begin, lib.sdvl_else_begin,
+                       lib.sdvl_if_end, lib.sdvl_while_begin,
+                       lib.sdvl_while_end, lib.sdvl_fori_begin,
+                       lib.sdvl_fori_end, lib.sdvl_launch_floor,
                        lib.sdvl_cuda_versions):
                 fn.restype = ctypes.c_int
             runtime, driver = ctypes.c_int(), ctypes.c_int()
@@ -96,32 +112,41 @@ def load_library(verbose: bool = False):
 
 
 def _counter(dev: int) -> torch.Tensor:
-    """The condition-kernel launch counter of device ``dev``. A graph holds
-    its address, so :func:`capture` makes it before a capture begins."""
+    """The condition kernel's counters of device ``dev``: launches, then
+    if/else pairs. A graph holds their address, so :func:`capture` makes
+    them before a capture begins."""
     c = _counters.get(dev)
     if c is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the conditional nodes' launch counter must "
                                "be made before a capture")
-        c = _counters[dev] = torch.zeros((), dtype=torch.int64,
+        c = _counters[dev] = torch.zeros(2, dtype=torch.int64,
                                          device=torch.device("cuda", dev))
     return c
 
 
-def reset_launches(device=None) -> None:
-    """Set the condition kernel's launch counter of ``device`` (default:
-    the current one) to 0."""
-    dev = torch.cuda.current_device() if device is None \
+def _index(device) -> int:
+    return torch.cuda.current_device() if device is None \
         else torch.device(device).index or 0
-    _counter(dev).zero_()
+
+
+def reset_launches(device=None) -> None:
+    """Set the condition kernel's counters of ``device`` (default: the
+    current one), its launches and its if/else pairs, to 0."""
+    _counter(_index(device)).zero_()
 
 
 def launches(device=None) -> int:
     """Condition-kernel launches on ``device`` since the last
     :func:`reset_launches` (a host read)."""
-    dev = torch.cuda.current_device() if device is None \
-        else torch.device(device).index or 0
-    return int(_counter(dev))
+    return int(_counter(_index(device))[0])
+
+
+def pairs(device=None) -> int:
+    """The if/else pairs among :func:`launches` (each one launch, setting
+    both of its nodes) since the last :func:`reset_launches` (a host
+    read)."""
+    return int(_counter(_index(device))[1])
 
 
 def _check(err: int, what: str) -> None:
@@ -188,19 +213,23 @@ def _body_stream(device: torch.device):
         _depth.n = depth
 
 
+def _check_pred(pred: torch.Tensor, what: str) -> None:
+    if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
+        raise ValueError(f"{what} takes a () bool CUDA tensor, got "
+                         f"{tuple(pred.shape)} {pred.dtype} {pred.device}")
+
+
 @contextlib.contextmanager
 def if_node(pred: torch.Tensor):
     """Capture the block into an IF node on ``pred`` (a () bool CUDA
     tensor) of the graph that the current stream is capturing. The block
     runs on a body stream that is made current for it."""
-    if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
-        raise ValueError(f"an IF node takes a () bool CUDA tensor, got "
-                         f"{tuple(pred.shape)} {pred.dtype} {pred.device}")
+    _check_pred(pred, "an IF node")
     lib = load_library()
     counter = _counter(pred.device.index).data_ptr()
     with _body_stream(pred.device) as (parent, body):
         _check(lib.sdvl_if_begin(parent.cuda_stream, body.cuda_stream,
-                                 pred.data_ptr(), counter),
+                                 pred.data_ptr(), counter, None, None),
                "adding an IF node")
         try:
             yield
@@ -209,31 +238,118 @@ def if_node(pred: torch.Tensor):
                    "ending the capture of an IF body")
 
 
+def if_else(pred: torch.Tensor, body, orelse):
+    """Capture ``body()`` into an IF node on ``pred`` (a () bool CUDA
+    tensor) of the graph that the current stream is capturing, and
+    ``orelse(out)``, ``out`` being what ``body`` returned, into a second IF
+    node that the same condition kernel sets to ``not pred``: on replay one
+    of the two runs, for one condition-kernel launch. Both hang off that
+    kernel, and the parent stream's next work depends on both. Each runs
+    on a body stream made current for it. Returns ``out``."""
+    _check_pred(pred, "an if/else pair")
+    lib = load_library()
+    counter = _counter(pred.device.index).data_ptr()
+    else_handle, kernel_node = ctypes.c_ulonglong(), ctypes.c_void_p()
+    with _body_stream(pred.device) as (parent, stream):
+        _check(lib.sdvl_if_begin(parent.cuda_stream, stream.cuda_stream,
+                                 pred.data_ptr(), counter,
+                                 ctypes.byref(else_handle),
+                                 ctypes.byref(kernel_node)),
+               "adding the IF node of an if/else pair")
+        try:
+            out = body()
+        finally:
+            _check(lib.sdvl_if_end(stream.cuda_stream),
+                   "ending the capture of an IF body")
+    with _body_stream(pred.device) as (parent, stream):
+        _check(lib.sdvl_else_begin(parent.cuda_stream, stream.cuda_stream,
+                                   else_handle.value, kernel_node.value),
+               "adding the else node of an if/else pair")
+        try:
+            orelse(out)
+        finally:
+            _check(lib.sdvl_if_end(stream.cuda_stream),
+                   "ending the capture of an else body")
+    return out
+
+
+class Loop:
+    """What :func:`while_node` yields. ``pred`` is the () bool tensor the
+    condition kernel at the end of the body reads: the node's own
+    predicate unless the block sets another before it ends."""
+
+    def __init__(self, pred: torch.Tensor):
+        self.pred = pred
+
+
 @contextlib.contextmanager
 def while_node(pred: torch.Tensor):
     """Capture the block into a WHILE node on ``pred`` (a () bool CUDA
     tensor) of the graph that the current stream is capturing: on replay
-    the body runs while ``pred`` is true, read when the node starts and
-    again where the block ends, so the block must leave the next
-    iteration's predicate in ``pred`` itself. The block runs on a body
-    stream that is made current for it."""
-    if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
-        raise ValueError(f"a WHILE node takes a () bool CUDA tensor, got "
-                         f"{tuple(pred.shape)} {pred.dtype} {pred.device}")
+    the body runs while the predicate is true, read when the node starts
+    from ``pred`` and where the block ends from the yielded
+    :class:`Loop`'s ``pred``, where it lies (the block computes it; its
+    address is fixed within the graph, and the Loop holds it until the
+    end kernel is recorded). The block runs on a body stream that is made
+    current for it."""
+    _check_pred(pred, "a WHILE node")
     lib = load_library()
     counter = _counter(pred.device.index).data_ptr()
     handle = ctypes.c_ulonglong()
+    loop = Loop(pred)
     with _body_stream(pred.device) as (parent, body):
         _check(lib.sdvl_while_begin(parent.cuda_stream, body.cuda_stream,
                                     pred.data_ptr(), counter,
                                     ctypes.byref(handle)),
                "adding a WHILE node")
         try:
+            yield loop
+        finally:
+            end = loop.pred
+            ok = end.dtype == torch.bool and end.numel() == 1 and end.is_cuda
+            # the capture ends whatever the block set, so the stream is
+            # usable; a wrong predicate raises after it
+            _check(lib.sdvl_while_end(body.cuda_stream, handle.value,
+                                      (end if ok else pred).data_ptr(),
+                                      counter),
+                   "ending the capture of a WHILE body")
+            _check_pred(end, "the end of a WHILE body")
+
+
+@contextlib.contextmanager
+def fori_node(index: torch.Tensor, n: int):
+    """Capture the block into a counted WHILE node of the graph that the
+    current stream is capturing: on replay the block runs ``n`` times, with
+    ``index`` (a () int32 CUDA tensor made before the node) 0, 1, ...,
+    n - 1. The condition kernel before the node writes 0 and the one at
+    the end of the body adds 1 and compares with ``n``: the loop has no
+    other kernel of its own. The block runs on a body stream that is made
+    current for it."""
+    if index.dtype != torch.int32 or index.numel() != 1 or not index.is_cuda:
+        raise ValueError(f"a counted loop's index is a () int32 CUDA "
+                         f"tensor, got {tuple(index.shape)} {index.dtype} "
+                         f"{index.device}")
+    lib = load_library()
+    counter = _counter(index.device.index).data_ptr()
+    handle = ctypes.c_ulonglong()
+    with _body_stream(index.device) as (parent, body):
+        _check(lib.sdvl_fori_begin(parent.cuda_stream, body.cuda_stream,
+                                   index.data_ptr(), int(n), counter,
+                                   ctypes.byref(handle)),
+               "adding a counted WHILE node")
+        try:
             yield
         finally:
-            _check(lib.sdvl_while_end(body.cuda_stream, handle.value,
-                                      pred.data_ptr(), counter),
-                   "ending the capture of a WHILE body")
+            _check(lib.sdvl_fori_end(body.cuda_stream, handle.value,
+                                     index.data_ptr(), int(n), counter),
+                   "ending the capture of a counted WHILE body")
+
+
+def launch_floor() -> None:
+    """One launch of an empty one-thread kernel on the current stream: what
+    a kernel node costs at the least, timed beside the condition kernel."""
+    _check(load_library().sdvl_launch_floor(
+        torch.cuda.current_stream().cuda_stream), "the empty kernel's launch")
 
 
 @contextlib.contextmanager

@@ -23,7 +23,8 @@ a () bool tensor:
 
 Eagerly (the CPU, or the card with graphs off) :func:`device_if` reads its
 predicate and runs one Python branch. While a CUDA graph captures, it adds
-an IF node per branch (``ops/cuda/graph_if.py``), so that a replayed frame
+an IF node per branch (``ops/cuda/graph_if.py``; a branch with an else is
+an if/else pair set by one condition kernel), so that a replayed frame
 decides on the device and reads nothing back. Point statistics and the
 motion model select with ``where``. A stream never goes back from
 RUNNING/LOST to FIRST/SECOND (as in the reference), so once it tracks (or a
@@ -32,8 +33,9 @@ reads no state.
 
 Loops. The reference's ``while_loop``/``fori_loop``/``scan`` are
 :func:`device_while` and :func:`device_fori`: Python loops eagerly, WHILE
-nodes under capture. Local BA's LM steps are one, and a chunk of frames
-(:meth:`StepRunner.chunk`) is a WHILE node over the whole step.
+nodes under capture (a counted one for :func:`device_fori`, whose index
+lives in its condition kernel). Local BA's LM steps are one, and a chunk of
+frames (:meth:`StepRunner.chunk`) is a WHILE node over the whole step.
 
 State. A step reads and writes a :class:`StepState`. Functionally it rebinds
 its fields as ``_replace`` does (:func:`make_step`); in place it copies
@@ -138,13 +140,18 @@ def pack_info(info: FrameInfo) -> torch.Tensor:
 
 
 def unpack_info(row: torch.Tensor) -> FrameInfo:
-    """Inverse of :func:`pack_info` on the device."""
+    """Inverse of :func:`pack_info` on the tensor's device, for packed rows
+    with any leading axes (``(..., 21)`` -> leaves ``(..., 7)`` and
+    ``(...)``), in the reference's dtypes: float32 poses, int32 counts and
+    states, a bool ``is_keyframe``. Reads nothing back."""
     return FrameInfo(
-        pose=row[0:7], world_tf=row[7:14],
-        state=row[14].to(torch.int32), quality=row[15].to(torch.int32),
-        n_matches=row[16].to(torch.int32),
-        n_attempts=row[17].to(torch.int32), is_keyframe=row[18] > 0.5,
-        n_corners=row[19].to(torch.int32), median_shift=row[20],
+        pose=row[..., 0:7], world_tf=row[..., 7:14],
+        state=row[..., 14].to(torch.int32),
+        quality=row[..., 15].to(torch.int32),
+        n_matches=row[..., 16].to(torch.int32),
+        n_attempts=row[..., 17].to(torch.int32),
+        is_keyframe=row[..., 18] > 0.5,
+        n_corners=row[..., 19].to(torch.int32), median_shift=row[..., 20],
     )
 
 
@@ -199,20 +206,20 @@ def device_if(pred: torch.Tensor, body, orelse=None):
     tensor, a tuple of them, or None).
 
     Eagerly: one host read of ``pred``, then one Python branch. While a CUDA
-    graph captures: an IF node on ``pred`` around ``body``, and one on
-    ``~pred`` around ``orelse``, which copies its outputs into ``body``'s
-    there, so that the code after reads the same tensors whichever branch
-    ran (as ``torch.cond``'s graph form does). A branch that changes the
-    step's state writes it through :class:`StepState`.
+    graph captures: an IF node on ``pred`` around ``body``, and with an
+    ``orelse`` a second IF node around it that the same condition kernel
+    sets to ``not pred`` (an if/else pair: one launch), which copies its
+    outputs into ``body``'s there, so that the code after reads the same
+    tensors whichever branch ran (as ``torch.cond``'s graph form does). A
+    branch that changes the step's state writes it through
+    :class:`StepState`.
     """
     if _capturing(pred):
-        not_pred = torch.logical_not(pred) if orelse is not None else None
-        with graph_if.if_node(pred):
-            out = body()
-        if orelse is not None:
-            with graph_if.if_node(not_pred):
-                _copy_into(out, orelse())
-        return out
+        if orelse is None:
+            with graph_if.if_node(pred):
+                return body()
+        return graph_if.if_else(pred, body,
+                                lambda out: _copy_into(out, orelse()))
     if getattr(_warming, "on", False):
         with graph_if.warm_body(pred.device):
             out = body()
@@ -232,13 +239,14 @@ def _first_leaf(tree) -> torch.Tensor:
 def _while_node(cond, body, carry):
     """The captured form of :func:`device_while`: the carry in buffers
     allocated before the node (clones of ``carry``), a WHILE node whose
-    body runs ``body`` on them, copies its results back into them and
-    recomputes the predicate into the node's own () bool buffer."""
+    body runs ``body`` on them and copies its results back into them. The
+    condition kernels read ``cond``'s output where it lies: before the
+    node ``cond`` of the buffers, at the end of the body ``cond`` of the
+    new carry."""
     bufs = _clone(carry)
-    pred = cond(bufs).clone()
-    with graph_if.while_node(pred):
+    with graph_if.while_node(cond(bufs)) as loop:
         _copy_into(bufs, body(bufs))
-        pred.copy_(cond(bufs))
+        loop.pred = cond(bufs)
     return bufs
 
 
@@ -275,14 +283,22 @@ def device_while(cond, body, carry, *, max_iters: int, check_every: int = 1):
 def device_fori(n: int, body, carry):
     """``lax.fori_loop(0, n, body, carry)`` with ``body(i, carry)``, ``i``
     a () int32 tensor on the carry's device. Eagerly a Python loop that
-    reads nothing back; within :func:`warming` ``body`` runs once; while a
-    CUDA graph captures, one WHILE node on ``i < n``."""
-    dev = _first_leaf(carry).device
-    i0 = torch.zeros((), dtype=torch.int32, device=dev)
-    if _capturing(i0) or getattr(_warming, "on", False):
-        return device_while(lambda c: c[0] < n,
-                            lambda c: (c[0] + 1, body(c[0], c[1])),
-                            (i0, carry), max_iters=n)[1]
+    reads nothing back; within :func:`warming` ``body`` runs once (``i``
+    0); while a CUDA graph captures, one counted WHILE node
+    (``graph_if.fori_node``): the carry in buffers made before the node, as
+    :func:`_while_node`'s, and ``i`` the node's index buffer, which its
+    condition kernels set and count (no kernel of the loop's own)."""
+    first = _first_leaf(carry)
+    if _capturing(first):
+        bufs = _clone(carry)
+        i = torch.empty((), dtype=torch.int32, device=first.device)
+        with graph_if.fori_node(i, n):
+            _copy_into(bufs, body(i, bufs))
+        return bufs
+    i0 = torch.zeros((), dtype=torch.int32, device=first.device)
+    if getattr(_warming, "on", False):
+        with graph_if.warm_body(first.device):
+            return body(i0, carry)
     for k in range(n):
         carry = body(i0 + k, carry)
     return carry

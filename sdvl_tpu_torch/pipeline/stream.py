@@ -327,11 +327,12 @@ class SdvlStream:
         return info
 
     def feed_chunk(self, imgs: np.ndarray, block: bool = False
-                   ) -> List[FrameInfo]:
+                   ) -> FrameInfo:
         """Process a (T, H, W) stack of frames: ONE host->device copy, then
         on the card ONE replay of the chunk graph of T frames (a WHILE node
         over the step: ``make_chunk_step``'s scan), eagerly one step per
-        frame."""
+        frame. Returns one FrameInfo of device tensors with leading axis T,
+        as the reference's scan does."""
         imgs = np.asarray(imgs)[:, : self.crop_h, : self.crop_w]
         dev_imgs = self._uploads.upload(imgs)
         gumbels = self._noise.pose(self._n_fed, len(imgs))
@@ -341,7 +342,7 @@ class SdvlStream:
         self._rows.extend(rows.unbind(0))
         if block:
             self.block()
-        return [unpack_info(r) for r in rows]
+        return unpack_info(rows)
 
     def block(self):
         """Wait for all dispatched work."""
@@ -360,14 +361,5 @@ class SdvlStream:
 def unpack_infos(packed: np.ndarray) -> FrameInfo:
     """Frames' packed infos (N, 21) (``device_fsm.pack_info``) on the host:
     a FrameInfo of numpy arrays with leading dim N."""
-    return FrameInfo(
-        pose=packed[:, 0:7],
-        world_tf=packed[:, 7:14],
-        state=packed[:, 14].astype(np.int32),
-        quality=packed[:, 15].astype(np.int32),
-        n_matches=packed[:, 16].astype(np.int32),
-        n_attempts=packed[:, 17].astype(np.int32),
-        is_keyframe=packed[:, 18] > 0.5,
-        n_corners=packed[:, 19].astype(np.int32),
-        median_shift=packed[:, 20],
-    )
+    return FrameInfo(*(t.numpy() for t in unpack_info(
+        torch.from_numpy(packed))))

@@ -409,3 +409,134 @@ def test_nested_bodies_keep_streams_of_their_own(cuda_device):
     streams = [s.cuda_stream for s in graph_if._body_streams.values()]
     assert len(set(streams)) == len(streams)
     assert not set(streams) & {s.cuda_stream for s in pool}
+
+
+def _replay_kernels(g):
+    """The CUDA kernels one replay of ``g`` runs, by name (torch.profiler),
+    the condition kernel's as ``"condition"``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g.replay()
+        torch.cuda.synchronize()
+    return ["condition" if "set_condition_kernel" in e.name else e.name
+            for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.cuda
+def test_if_else_pairs_take_both_branches_nested_three_deep(cuda_device,
+                                                            monkeypatch):
+    """``device_if`` with an else, three pairs deep: every combination of
+    the three predicates picks its leaf on replay, as the eager path does,
+    with one condition-kernel launch per pair that runs (3 a replay, each
+    counted as a pair) and no ``logical_not``; a pair with empty bodies
+    replays one kernel."""
+    from sdvl_tpu_torch.ops.cuda import graph_if
+    from sdvl_tpu_torch.pipeline.device_fsm import device_if
+
+    preds = [torch.zeros((), dtype=torch.bool, device=cuda_device)
+             for _ in range(3)]
+    base = torch.zeros((), device=cuda_device)
+
+    def level(k, code):
+        if k == 3:
+            return base + float(code)
+        return device_if(preds[k], lambda: level(k + 1, 2 * code + 1),
+                         lambda: level(k + 1, 2 * code))
+
+    nots = []
+    real_not = torch.logical_not
+    monkeypatch.setattr(torch, "logical_not",
+                        lambda *a, **k: nots.append(1) or real_not(*a, **k))
+    level(0, 0)                 # eagerly first: loads every kernel
+    g = torch.cuda.CUDAGraph()
+    with graph_if.capture(g):
+        out = level(0, 0)
+    assert not nots, "the captured if/else pairs called logical_not"
+    for code in range(8):
+        for k, p in enumerate(preds):
+            p.fill_(bool(code >> (2 - k) & 1))
+        graph_if.reset_launches()
+        g.replay()
+        torch.cuda.synchronize()
+        assert float(out) == code == float(level(0, 0))
+        assert graph_if.launches() == 3 and graph_if.pairs() == 3
+    g_pair = torch.cuda.CUDAGraph()
+    with graph_if.capture(g_pair):
+        device_if(preds[0], lambda: None, lambda: None)
+    assert _replay_kernels(g_pair) == ["condition"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 17])
+def test_device_fori_counts_in_its_condition_kernel(cuda_device, n):
+    """``device_fori`` of n iterations inside a WHILE node of 3: bit for bit
+    the eager loops, with 1 + n condition launches per inner loop and no
+    loop-control kernel of its own (a replay of an empty body runs the
+    condition kernel alone, n + 1 times)."""
+    from sdvl_tpu_torch.ops.cuda import graph_if
+    from sdvl_tpu_torch.pipeline.device_fsm import device_fori, device_while
+
+    j0 = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    acc0 = torch.linspace(0.5, 2.0, 5, device=cuda_device)
+
+    def outer(c):
+        j, acc = c
+        acc = device_fori(n, lambda i, a: a * 1.5 + (i + 2 * j).float(), acc)
+        return j + 1, acc
+
+    def run():
+        return device_while(lambda c: c[0] < 3, outer, (j0, acc0),
+                            max_iters=3)
+
+    want = run()
+    g = torch.cuda.CUDAGraph()
+    with graph_if.capture(g):
+        got = run()
+    graph_if.reset_launches()
+    g.replay()
+    torch.cuda.synchronize()
+    assert int(got[0]) == 3 and torch.equal(got[1], want[1])
+    assert graph_if.launches() == 1 + 3 + 3 * (1 + n)
+    assert graph_if.pairs() == 0
+    g_empty = torch.cuda.CUDAGraph()
+    with graph_if.capture(g_empty):
+        device_fori(n, lambda i, a: a, acc0)
+    assert _replay_kernels(g_empty) == ["condition"] * (n + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", [0, 1, 6])
+def test_while_node_reads_its_predicate_where_cond_wrote_it(cuda_device,
+                                                            limit):
+    """A WHILE node whose ``cond`` is a leaf of the carry (read in the
+    carry's own buffer) and one whose ``cond`` is computed from a tensor
+    the graph reads on every replay: both stop on the right iteration,
+    replay after replay."""
+    from sdvl_tpu_torch.ops.cuda import graph_if
+    from sdvl_tpu_torch.pipeline.device_fsm import device_while
+
+    top = torch.full((), limit, dtype=torch.int32, device=cuda_device)
+    i0 = torch.zeros((), dtype=torch.int32, device=cuda_device)
+
+    def leaf_body(c):
+        i, _ = c
+        return i + 1, i + 1 < top
+
+    g = torch.cuda.CUDAGraph()
+    with graph_if.capture(g):
+        leaf = device_while(lambda c: c[1], leaf_body, (i0, i0 < top),
+                            max_iters=8)
+        bound = device_while(lambda c: c < top, lambda c: c + 1, i0,
+                             max_iters=8)
+    for want in (limit, limit + 2):
+        top.fill_(want)
+        graph_if.reset_launches()
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(leaf[0]) == want and int(bound) == want
+        assert graph_if.launches() == 2 * (1 + want)

@@ -24,10 +24,16 @@ singular values within 1e-5 of the largest in magnitude; each vector's
 the others by 1e-3 of the largest; ``A V = V diag(w)`` and ``U S Vh = A``
 within 1e-5 of the largest. The ``eigh`` kernel's output is also held,
 bit for bit, against the float64 numpy model of its parallel sweep
-(``torch_port_helpers.jacobi_eigh_model``), cast to float32.
+(``torch_port_helpers.jacobi_eigh_model``), cast to float32, and the
+``svd3`` kernel's against the model of its sweep
+(``torch_port_helpers.jacobi_svd3_model``) on ``svd3_cases`` (ties in
+index order, ranks 0 to 2, 1000 matrices). ``ptxas`` (``-Xptxas -v``)
+reports no stack frame and no spill for any kernel of
+``csrc/small_eig.cu`` and ``csrc/graph_if.cu``.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -36,7 +42,8 @@ import torch
 from sdvl_tpu_torch.ops import pyramid
 from sdvl_tpu_torch.ops.cuda import detect, small_eig
 from sdvl_tpu_torch.pipeline.device_fsm import CAPTURE_PASSES
-from torch_port_helpers import T, blocky_image, jacobi_eigh_model
+from torch_port_helpers import (T, blocky_image, jacobi_eigh_model,
+                                jacobi_svd3_model, svd3_cases)
 
 FAST_T, ST_T = 10.0, 50.0
 
@@ -315,21 +322,33 @@ def test_small_eigh_matches_plain_on_card(cuda_device, case):
     _assert_vectors_close(V, Vp, wp)
 
 
+def _svd3_case(case):
+    if case == "batch":         # 64 random matrices
+        rs = np.random.default_rng(1)
+        rs.normal(0, 0.2, (3, 3))
+        return rs.normal(0, 1, (64, 3, 3))
+    return svd3_cases()[case]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["homography", "rank_2", "batch"])
+@pytest.mark.parametrize("case", [*svd3_cases(), "batch"])
 def test_small_svd3_matches_plain_on_card(cuda_device, case):
-    rs = np.random.default_rng(1)
-    H = np.eye(3) + rs.normal(0, 0.2, (3, 3))
-    if case == "rank_2":
-        u, s, vt = np.linalg.svd(H)
-        H = u @ np.diag([s[0], s[1], 0.0]) @ vt
-    if case == "batch":
-        H = rs.normal(0, 1, (64, 3, 3))
-    A = T(H, torch.float32).to(cuda_device)
+    A = T(_svd3_case(case), torch.float32).to(cuda_device)
     before = small_eig.launches(kernel="svd3")
     U, S, Vh = small_eig.svd3(A)
     torch.cuda.synchronize()
     assert small_eig.launches(kernel="svd3") - before == 1
+    # the kernel is the sweep of the float64 model, operation for operation
+    Um, Sm, Vhm, sweeps = jacobi_svd3_model(A.cpu().numpy())
+    assert (sweeps >= 1).all()
+    for got, want in ((U, Um), (S, Sm), (Vh, Vhm)):
+        assert np.array_equal(got.cpu().numpy().reshape(want.shape),
+                              want.astype(np.float32))
+    if case == "ties":          # values 1, 1, 2: columns 2, 0, 1
+        order = [2, 0, 1]
+        eye = torch.eye(3, device=cuda_device)
+        assert torch.equal(S, A.diagonal()[order])
+        assert torch.equal(Vh, eye[order]) and torch.equal(U, eye[:, order])
     Up, Sp, Vhp = small_eig.svd3_plain(A)
     scale = float(Sp.abs().max())
     assert float((S - Sp).abs().max()) <= 1e-5 * scale
@@ -341,6 +360,31 @@ def test_small_svd3_matches_plain_on_card(cuda_device, case):
     assert float((Vh @ Vh.mT - eye).abs().max()) <= 1e-5
     _assert_vectors_close(U, Up, Sp)
     _assert_vectors_close(Vh.mT, Vhp.mT, Sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["small_eig.cu", "graph_if.cu"])
+def test_kernels_keep_no_stack_and_spill_nothing(cuda_device, source):
+    """``-Xptxas -v`` of a verbose build (into a library of its own name):
+    every kernel of the source uses no stack frame and spills nothing."""
+    name = f"libsdvl_ptxas_{source.split('.')[0]}.so"
+    detect.build_library(verbose=True, source=os.path.join(
+        detect._PKG_DIR, "csrc", source), name=name)
+    found, kernel = {}, None
+    for line in detect.BUILD_LOGS[name].splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernel:
+            found[kernel] = tuple(int(x) for x in m.groups())
+    want = {"small_eig.cu": ("eigh_kernel", "svd3_kernel"),
+            "graph_if.cu": ("set_condition_kernel",
+                            "launch_floor_kernel")}[source]
+    for k in want:
+        got = [v for f, v in found.items() if k in f]
+        assert got == [(0, 0, 0)], (k, found)
 
 
 @pytest.mark.cuda

@@ -32,7 +32,8 @@ from sdvl_tpu.pipeline.stream import SdvlStream as JStream
 from sdvl_tpu_torch.io.snapshot import load_stream_arrays as t_load
 from sdvl_tpu_torch.ops.cuda import detect as t_detect
 from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
-from torch_port_helpers import N, mapped_stream, ransac_gumbel
+from torch_port_helpers import (N, assert_info_is_result, assert_info_like,
+                                mapped_stream, ransac_gumbel)
 
 torch.set_num_threads(1)
 
@@ -124,6 +125,35 @@ def test_localizer_matches_jax(mapped, fused, monkeypatch):
     # detection ran on every frame whatever the route
     assert int(tloc.last_corners.valid.sum()) > 10
     assert int(tloc.carry.frame_id) == N_MAP + n
+
+
+def test_feed_chunk_returns_the_references_frame_info(mapped):
+    """``feed_chunk`` returns one FrameInfo with (T, ...) leaves: the
+    reference's leaves and numbers (this file's tolerances) on the same
+    query frames and noise, and what ``result()`` then reports."""
+    cfg_j, cfg_t, frames, _, snap = mapped
+    query = np.stack(frames[QUERY])
+    jloc = JStream.localizer(cfg_j, snap, seed=1, donate=False)
+    key, fid0 = jloc.carry.key, int(jloc.carry.frame_id)
+    s = cfg_j.sdvl
+    n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
+    n_lanes = int(jloc.carry.last_idx.shape[0])
+    noise = [ransac_gumbel(key, fid0 + i, n_hyp, n_lanes)
+             for i in range(len(query))]
+    info_j = jloc.feed_chunk(query)
+    tloc = TStream.localizer(cfg_t, snap, seed=1, device="cpu",
+                             gumbel_provider=lambda i: noise[i])
+    info = tloc.feed_chunk(query)
+    assert info.pose.shape == (len(query), 7)
+    assert_info_like(info, info_j)
+    for k in ("state", "quality", "is_keyframe"):
+        np.testing.assert_array_equal(N(getattr(info, k)),
+                                      np.asarray(getattr(info_j, k)))
+    assert np.abs(N(info.n_matches) - np.asarray(info_j.n_matches)).max() \
+        <= 2
+    np.testing.assert_allclose(N(info.pose), np.asarray(info_j.pose),
+                               atol=1e-3)
+    assert_info_is_result(info, tloc.result(), slice(None))
 
 
 def test_lost_recovery_and_escalation_match_jax(mapped, monkeypatch):

@@ -41,8 +41,10 @@ from sdvl_tpu.pipeline import config as jcfg
 from sdvl_tpu_torch.core import se3
 from sdvl_tpu_torch.dist.multi_stream import MultiStream as TMulti
 from sdvl_tpu_torch.pipeline import config as tcfg
+from sdvl_tpu_torch.pipeline.device_fsm import FrameInfo
 from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
-from torch_port_helpers import jax_draws
+from torch_port_helpers import (N, assert_info_is_result, assert_info_like,
+                                jax_draws)
 
 torch.set_num_threads(1)
 
@@ -76,15 +78,42 @@ def multi_run():
             for i in range(2)]
     batches = [np.stack([seqs[0][t], seqs[1][t]]) for t in range(N_FRAMES)]
     jm = JMulti(cfg_j, make_mesh(2, axis="stream"), n_streams=2, seed=0)
-    for b in batches:
-        jm.feed(b)
+    j_infos = [jm.feed(b) for b in batches]
     providers = _providers(cfg_t, 2, 0)
     tm = TMulti(cfg_t, 2, seed=0, device="cpu", gumbel_providers=providers)
-    for b in batches:
-        tm.feed(b)
+    t_infos = [tm.feed(b) for b in batches]
     return dict(cfg_j=cfg_j, cfg_t=cfg_t, seqs=seqs, batches=batches,
                 providers=providers, jax=jm.result(), port=tm.result(),
-                tm=tm)
+                tm=tm, j_infos=j_infos, t_infos=t_infos)
+
+
+@pytest.fixture(scope="module")
+def chunk_run(multi_run):
+    """6 per-frame feeds, then a 6-frame chunk, in both packages; the
+    chunk's returned FrameInfos and the port's results."""
+    b = multi_run["batches"]
+    jm = JMulti(multi_run["cfg_j"], make_mesh(2, axis="stream"), n_streams=2,
+                seed=0)
+    tm = TMulti(multi_run["cfg_t"], 2, seed=0, device="cpu",
+                gumbel_providers=multi_run["providers"])
+    for t in range(6):
+        jm.feed(b[t])
+        tm.feed(b[t])
+    chunk = np.stack(b[6:12])
+    return dict(jax=jm.feed_chunk(chunk), port=tm.feed_chunk(chunk),
+                results=tm.result())
+
+
+def _assert_lanes_match_jax(info_t, info_j):
+    """The criteria of ``test_streams_match_jax`` on returned infos (the
+    stream axis last of the leading ones): states and keyframe flags equal
+    on both lanes, lane 0's pose within 1e-3."""
+    assert_info_like(info_t, info_j)
+    np.testing.assert_array_equal(N(info_t.state), np.asarray(info_j.state))
+    np.testing.assert_array_equal(N(info_t.is_keyframe),
+                                  np.asarray(info_j.is_keyframe))
+    np.testing.assert_allclose(N(info_t.pose)[..., 0, :],
+                               np.asarray(info_j.pose)[..., 0, :], atol=1e-3)
 
 
 def _from_first_camera(trajectory):
@@ -167,16 +196,34 @@ def test_streams_progress_independently(multi_run):
     assert len(multi_run["tm"].m) == 2 and len(multi_run["tm"].carries) == 2
 
 
-def test_feed_chunk_matches_per_frame(multi_run):
+def test_feed_returns_the_references_frame_info(multi_run):
+    """``feed`` returns one FrameInfo with (N, ...) leaves in the
+    reference's dtypes, lane for lane the reference's numbers, and the
+    numbers ``result()`` then reports."""
+    for info_t, info_j in zip(multi_run["t_infos"], multi_run["j_infos"]):
+        assert info_t.pose.shape == (2, 7)
+        _assert_lanes_match_jax(info_t, info_j)
+    stacked = FrameInfo(*map(torch.stack, zip(*multi_run["t_infos"])))
+    for i, r in enumerate(multi_run["port"]):
+        assert_info_is_result(FrameInfo(*(x[:, i] for x in stacked)), r,
+                              slice(None))
+
+
+def test_feed_chunk_returns_the_references_frame_info(chunk_run):
+    """``feed_chunk`` returns one FrameInfo with (T, N, ...) leaves, as
+    the reference's scan does."""
+    info = chunk_run["port"]
+    assert info.pose.shape == (6, 2, 7) and info.state.shape == (6, 2)
+    _assert_lanes_match_jax(info, chunk_run["jax"])
+    for i, r in enumerate(chunk_run["results"]):
+        assert_info_is_result(FrameInfo(*(x[:, i] for x in info)), r,
+                              slice(6, 12))
+
+
+def test_feed_chunk_matches_per_frame(multi_run, chunk_run):
     """6 per-frame feeds, then a 6-frame chunk: the per-frame run's first
     12 frames exactly (bootstrap and tracking both cross the seam)."""
-    tm = TMulti(multi_run["cfg_t"], 2, seed=0, device="cpu",
-                gumbel_providers=multi_run["providers"])
-    b = multi_run["batches"]
-    for t in range(6):
-        tm.feed(b[t])
-    tm.feed_chunk(np.stack(b[6:12]))
-    for rc, rf in zip(tm.result(), multi_run["port"]):
+    for rc, rf in zip(chunk_run["results"], multi_run["port"]):
         np.testing.assert_array_equal(rc.states, rf.states[:12])
         np.testing.assert_array_equal(rc.trajectory, rf.trajectory[:12])
         np.testing.assert_array_equal(rc.n_matches, rf.n_matches[:12])

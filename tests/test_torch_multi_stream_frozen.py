@@ -35,8 +35,10 @@ from sdvl_tpu_torch.io import evaluate
 from sdvl_tpu_torch.io.snapshot import save_stream_snapshot
 from sdvl_tpu_torch.io.synthetic import PlaneScene
 from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
+from sdvl_tpu_torch.pipeline.device_fsm import FrameInfo
 from test_torch_multi_stream import N_FRAMES, _configs, _providers
-from torch_port_helpers import lane_counts_of, ransac_gumbel
+from torch_port_helpers import (N, assert_info_is_result, assert_info_like,
+                                lane_counts_of, ransac_gumbel)
 
 torch.set_num_threads(1)
 
@@ -72,11 +74,11 @@ def frozen_run(tmp_path_factory):
     tm = TMulti(cfg_t, 4, seed=7, frozen_map=snap, device="cpu",
                 gumbel_providers=providers)
     before = [t.clone() for t in _leaves(tm.m)]
-    tm.feed_chunk(np.repeat(query[:, None], 4, axis=1))   # (T, 4, H, W)
+    t_chunk = tm.feed_chunk(np.repeat(query[:, None], 4, axis=1))  # (T, 4, ..)
     # the reference serving the same file, one stream per mesh device
     jm = JMulti(cfg_j, make_mesh(4, axis="stream"), n_streams=4, seed=7,
                 frozen_map=snap)
-    jm.feed_chunk(np.repeat(query[:, None], 4, axis=1))
+    j_chunk = jm.feed_chunk(np.repeat(query[:, None], 4, axis=1))
     lone = []
     for i in (0, 3):
         ls = TStream.localizer(cfg_t, snap, seed=7 + i, device="cpu",
@@ -85,8 +87,48 @@ def frozen_run(tmp_path_factory):
         lone.append(ls.result())
     return dict(cfg_t=cfg_t, stream=st, snap=snap, query=query,
                 poses=np.stack(poses[QUERY]), port=tm.result(), lone=lone,
-                jax=jm.result(),
-                tm=tm, before=before)
+                jax=jm.result(), t_chunk=t_chunk, j_chunk=j_chunk,
+                tm=tm, before=before, cfg_j=cfg_j, providers=providers)
+
+
+def _assert_streams_match_jax(info_t, info_j):
+    """The criteria of ``test_frozen_streams_match_jax`` on returned infos:
+    the reference's leaves, states and match counts equal, poses within
+    1e-4."""
+    assert_info_like(info_t, info_j)
+    np.testing.assert_array_equal(N(info_t.state), np.asarray(info_j.state))
+    np.testing.assert_array_equal(N(info_t.n_matches),
+                                  np.asarray(info_j.n_matches))
+    np.testing.assert_allclose(N(info_t.pose), np.asarray(info_j.pose),
+                               atol=1e-4)
+
+
+def test_frozen_feed_chunk_returns_the_references_frame_info(frozen_run):
+    """``feed_chunk`` on the shared map returns one FrameInfo with
+    (T, N, ...) leaves: the reference's, and what ``result()`` reports."""
+    info = frozen_run["t_chunk"]
+    T = QUERY.stop - QUERY.start
+    assert info.pose.shape == (T, 4, 7) and info.is_keyframe.shape == (T, 4)
+    _assert_streams_match_jax(info, frozen_run["j_chunk"])
+    for i, r in enumerate(frozen_run["port"]):
+        assert_info_is_result(FrameInfo(*(x[:, i] for x in info)), r,
+                              slice(None))
+
+
+def test_frozen_feed_returns_the_references_frame_info(frozen_run):
+    """``feed`` on the shared map returns one FrameInfo with (N, ...)
+    leaves: the reference's on the same first query frame and draws."""
+    batch = np.repeat(frozen_run["query"][:1], 4, axis=0)
+    tm = TMulti(frozen_run["cfg_t"], 4, seed=7, frozen_map=frozen_run["snap"],
+                device="cpu", gumbel_providers=frozen_run["providers"])
+    jm = JMulti(frozen_run["cfg_j"], make_mesh(4, axis="stream"),
+                n_streams=4, seed=7, frozen_map=frozen_run["snap"])
+    info = tm.feed(batch)
+    assert info.pose.shape == (4, 7) and info.state.shape == (4,)
+    _assert_streams_match_jax(info, jm.feed(batch))
+    for i, r in enumerate(tm.result()):
+        assert_info_is_result(FrameInfo(*(x[None, i] for x in info)), r,
+                              slice(None))
 
 
 def test_frozen_streams_match_lone_localizers(frozen_run):

@@ -19,6 +19,18 @@ holds it against ``torch.linalg.eigh`` and against the model below). Here:
   sides), eigenvectors whose values stand apart by 1e-3 of the largest
   with |cos| >= 1 - 1e-4 (a vector's sign is not unique).
 
+The 3x3 SVD's kernel has a float64 numpy model too
+(``torch_port_helpers.jacobi_svd3_model``), held here against
+``numpy.linalg.svd`` in float64 (values within 1e-12 of the largest,
+``U diag(S) Vh = A`` within 1e-12 of the largest, U and Vh orthonormal
+within 1e-12) and against ``jnp.linalg.svd`` up to signs (float32:
+values within 1e-5 of the largest, vectors whose values stand apart by
+1e-3 of the largest with |cos| >= 1 - 1e-4), on the cases of
+``torch_port_helpers.svd3_cases`` (plane homographies as the bootstrap
+decomposes them, ties, ranks 0 to 2, a near-degenerate matrix, 1000 random
+matrices); tied values come out in index order, and the wrapper's CPU path
+(``torch.linalg.svd``) meets the same bounds against JAX.
+
 The cases are those of ``chip_smoke.py``'s ``eig_cases`` (the bootstrap's
 128-hypothesis DLT ``A^T A`` at 400 points, a weighted refit, a plane's 3x3
 covariance, a near-degenerate 9x9), made from the same seeded numpy, and
@@ -32,7 +44,8 @@ import pytest
 import torch
 
 from sdvl_tpu_torch.ops.cuda import small_eig
-from torch_port_helpers import T, jacobi_eigh_model
+from torch_port_helpers import T, jacobi_eigh_model, jacobi_svd3_model, \
+    svd3_cases
 
 
 def eig_arrays(seed=0) -> dict:
@@ -139,3 +152,70 @@ def test_eigh_on_cpu_matches_jax(case):
                 continue                            # not apart
             cos = abs(float(V[b, :, k] @ Vj[b, :, k]))
             assert cos >= 1 - 1e-4, (b, k, cos)
+
+
+SVD_CASES = list(svd3_cases())
+
+
+def _assert_close_to_jax_svd(U, S, Vh, A):
+    """(batch, 3, 3) U, Vh and (batch, 3) S against ``jnp.linalg.svd`` of
+    ``A`` up to signs: values within 1e-5 of the largest, columns of U and
+    rows of Vh whose values stand apart by 1e-3 of it with |cos| >= 1 -
+    1e-4."""
+    Uj, Sj, Vhj = (np.asarray(x) for x in jnp.linalg.svd(
+        jnp.asarray(A.reshape(-1, 3, 3))))
+    for b in range(len(S)):
+        scale = max(float(Sj[b].max()), 1e-30)
+        assert float(np.abs(S[b] - Sj[b]).max()) <= 1e-5 * scale, b
+        for k in range(3):
+            if np.abs(np.delete(Sj[b], k) - Sj[b, k]).min() < 1e-3 * scale:
+                continue                            # not apart
+            assert abs(float(U[b, :, k] @ Uj[b, :, k])) >= 1 - 1e-4, (b, k)
+            assert abs(float(Vh[b, k] @ Vhj[b, k])) >= 1 - 1e-4, (b, k)
+
+
+@pytest.mark.parametrize("case", SVD_CASES)
+def test_svd3_model_matches_numpy_and_jax(case):
+    A = svd3_cases()[case]
+    U, S, Vh, sweeps = jacobi_svd3_model(A, small_eig.MAX_SWEEPS)
+    flat = A.reshape(-1, 3, 3).astype(np.float64)
+    assert (sweeps >= 1).all(), f"no convergence in {small_eig.MAX_SWEEPS}"
+    want = np.linalg.svd(flat)[1]
+    scale = max(float(want.max()), 1e-30)
+    assert float(np.abs(S - want).max()) <= 1e-12 * scale
+    assert (np.diff(S, axis=-1) <= 0).all()            # descending
+    recon = U * S[:, None, :] @ Vh
+    assert float(np.abs(recon - flat).max()) <= 1e-12 * scale
+    eye = np.eye(3)
+    assert float(np.abs(np.swapaxes(U, 1, 2) @ U - eye).max()) <= 1e-12
+    assert float(np.abs(Vh @ np.swapaxes(Vh, 1, 2) - eye).max()) <= 1e-12
+    # a vanishing value's column of U completes a right-handed basis
+    assert (np.linalg.det(U[S[:, 2] <= 1e-13 * S[:, 0] + 1e-30]) > 0).all()
+    _assert_close_to_jax_svd(U, S, Vh, A)
+
+
+def test_svd3_model_orders_ties_by_index():
+    """Equal values come out in index order, the vectors with them: columns
+    of norms (1, 1, 2) give values (2, 1, 1) from columns 2, 0, 1 (a
+    selection swap gave 2, 1, 0), and (3, 3, 3) keeps 0, 1, 2."""
+    eye = np.eye(3)
+    for diag, order in (([1.0, 1.0, 2.0], [2, 0, 1]),
+                        ([1.0, 2.0, 1.0], [1, 0, 2]),
+                        ([2.0, 1.0, 2.0], [0, 2, 1]),
+                        ([3.0, 3.0, 3.0], [0, 1, 2])):
+        U, S, Vh, sweeps = jacobi_svd3_model(np.diag(diag))
+        assert sweeps.tolist() == [1]                   # nothing rotates
+        np.testing.assert_array_equal(S[0], np.asarray(diag)[order])
+        np.testing.assert_array_equal(Vh[0], eye[order])
+        np.testing.assert_array_equal(U[0], eye[:, order])
+
+
+@pytest.mark.parametrize("case", SVD_CASES)
+def test_svd3_on_cpu_matches_jax(case):
+    A = svd3_cases()[case]
+    U, S, Vh = small_eig.svd3(T(A))
+    assert U.dtype == S.dtype == Vh.dtype == torch.float32
+    assert tuple(U.shape) == A.shape and tuple(S.shape) == A.shape[:-1]
+    _assert_close_to_jax_svd(U.numpy().reshape(-1, 3, 3),
+                             S.numpy().reshape(-1, 3),
+                             Vh.numpy().reshape(-1, 3, 3), A)

@@ -31,6 +31,28 @@ def N(x) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def assert_info_like(info_t, info_j) -> None:
+    """The port's ``FrameInfo`` (torch) has the reference's (JAX or numpy)
+    leaves: the same fields, each of the same shape and dtype."""
+    assert info_t._fields == info_j._fields
+    for name, t, j in zip(info_t._fields, info_t, info_j):
+        j = np.asarray(j)
+        assert tuple(t.shape) == j.shape, (name, tuple(t.shape), j.shape)
+        assert str(t.dtype).removeprefix("torch.") == j.dtype.name, (
+            name, t.dtype, j.dtype)
+
+
+def assert_info_is_result(info, result, frames) -> None:
+    """A returned ``FrameInfo`` (leading axis: frames) holds exactly the
+    numbers ``result()`` reports for ``frames`` (a slice)."""
+    got = {k: N(v) for k, v in info._asdict().items()}
+    np.testing.assert_array_equal(got["pose"], result.poses_raw[frames])
+    np.testing.assert_array_equal(got["state"], result.states[frames])
+    for k in ("quality", "n_matches", "n_attempts", "is_keyframe",
+              "n_corners", "median_shift"):
+        np.testing.assert_array_equal(got[k], getattr(result, k)[frames])
+
+
 def blocky_image(seed=0, shape=(120, 160)) -> np.ndarray:
     """Noise plus bright rectangles: real corners on every pyramid level."""
     rng = np.random.default_rng(seed)
@@ -322,3 +344,111 @@ def jacobi_eigh_model(A, rounds, max_sweeps: int = 30):
     order = np.argsort(w, axis=1, kind="stable")
     return (np.take_along_axis(w, order, 1),
             np.take_along_axis(v, order[:, None, :], 2), sweeps)
+
+
+def jacobi_svd3_model(A, max_sweeps: int = 30):
+    """float64 numpy model of ``csrc/small_eig.cu``'s ``svd3_kernel`` on
+    (..., 3, 3) ``A``: one-sided Jacobi on the columns of B = A V, each
+    sweep the pairs (0, 1), (0, 2), (1, 2) in turn with the kernel's
+    rotation and skip test, until a sweep rotates none (at most
+    ``max_sweeps``); the values B's column norms, ordered by the kernel's
+    network of three exchanges (descending, ties in index order); U's
+    columns B's normalised, or where a value is below ``1e-30 + 1e-13``
+    of the largest the kernel's completion (e_0 for A = 0, a unit normal of
+    u0 and its least axis for rank 1, u0 x u1 for rank 2). Every operation
+    is one IEEE float64 operation, as the kernel's (built without
+    multiply-add contraction). Returns (U, S, Vh, sweeps), U (batch, 3, 3),
+    S (batch, 3), Vh (batch, 3, 3), and per matrix the sweeps run (-1
+    where ``max_sweeps`` did not suffice)."""
+
+    def dot(a, b):
+        return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+    def cross(a, b):
+        return np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], 1)
+
+    flat = np.asarray(A).reshape(-1, 3, 3).astype(np.float64)
+    n = len(flat)
+    b = [flat[:, :, j].copy() for j in range(3)]
+    v = [np.repeat(np.eye(3)[None, j], n, 0) for j in range(3)]
+    sweeps = np.full(n, -1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for sweep in range(max_sweeps):
+            rotated = np.zeros(n, bool)
+            for p, q in ((0, 1), (0, 2), (1, 2)):
+                alpha, beta = dot(b[p], b[p]), dot(b[q], b[q])
+                gamma = dot(b[p], b[q])
+                rot = ~((gamma == 0.0)
+                        | (gamma * gamma <= 1e-30 * (alpha * beta)))
+                d = beta - alpha
+                t = np.where(d >= 0.0, 2.0 * gamma, -2.0 * gamma) / (
+                    np.abs(d) + np.sqrt(d * d + 4.0 * (gamma * gamma)))
+                c = (1.0 / np.sqrt(1.0 + t * t))[:, None]
+                s = c * t[:, None]
+                for cols in (b, v):
+                    xp, xq = cols[p], cols[q]
+                    cols[p] = np.where(rot[:, None], c * xp - s * xq, xp)
+                    cols[q] = np.where(rot[:, None], s * xp + c * xq, xq)
+                rotated |= rot
+            # a matrix whose sweep rotated nothing is left as it is
+            sweeps[(sweeps < 0) & ~rotated] = sweep + 1
+            if not rotated.any():
+                break
+        x = [[np.sqrt(dot(b[j], b[j])), b[j], v[j]] for j in range(3)]
+        for hi, lo in ((0, 1), (1, 2), (0, 1)):
+            swap = x[lo][0] > x[hi][0]
+            for k in range(3):
+                sw = swap if k == 0 else swap[:, None]
+                x[hi][k], x[lo][k] = (np.where(sw, x[lo][k], x[hi][k]),
+                                      np.where(sw, x[hi][k], x[lo][k]))
+        (s0, b0, v0), (s1, b1, v1), (s2, b2, v2) = x
+        tiny = 1e-30 + 1e-13 * s0
+        u0 = np.where((s0 > tiny)[:, None], b0 / s0[:, None],
+                      np.array([1.0, 0.0, 0.0]))
+        a = np.abs(u0)
+        least = np.where(a[:, 2] < np.where(a[:, 1] < a[:, 0], a[:, 1],
+                                            a[:, 0]), 2,
+                         np.where(a[:, 1] < a[:, 0], 1, 0))
+        w = cross(u0, np.eye(3)[least])
+        u1 = np.where((s1 > tiny)[:, None], b1 / s1[:, None],
+                      w / np.sqrt(dot(w, w))[:, None])
+        u2 = np.where((s2 > tiny)[:, None], b2 / s2[:, None], cross(u0, u1))
+    return (np.stack([u0, u1, u2], 2), np.stack([s0, s1, s2], 1),
+            np.stack([v0, v1, v2], 1), sweeps)
+
+
+def svd3_cases(seed: int = 0) -> dict:
+    """name -> (..., 3, 3) float32 numpy matrices for ``svd3``: Euclidean
+    homographies of a plane (R + t n^T / d, what the bootstrap
+    decomposes), ``chip_smoke.py``'s random homography, exact ties (values
+    1, 1, 2 on the diagonal), ranks 0, 1 and 2, a near-degenerate matrix
+    (values 1, 1 + 1e-7, 2) and 1000 random matrices."""
+    rs = np.random.default_rng(seed)
+
+    def rotation(w):
+        th = np.linalg.norm(w)
+        k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        k = k / max(th, 1e-30)
+        return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+    homographies = []
+    for _ in range(64):
+        n = np.array([0.0, 0.0, -1.0]) + rs.normal(0, 0.1, 3)
+        homographies.append(rotation(rs.normal(0, 0.05, 3))
+                            + np.outer(rs.normal(0, 0.3, 3),
+                                       n / np.linalg.norm(n)) / 4.0)
+    q1, q2 = (np.linalg.qr(rs.normal(0, 1, (3, 3)))[0] for _ in range(2))
+    cases = dict(
+        homographies=np.stack(homographies),
+        homography=np.eye(3) + np.random.default_rng(1).normal(0, 0.2,
+                                                               (3, 3)),
+        ties=np.diag([1.0, 1.0, 2.0]),
+        rank_0=np.zeros((3, 3)),
+        rank_1=np.outer(rs.normal(0, 1, 3), rs.normal(0, 1, 3)),
+        rank_2=np.diag([2.0, 1.0, 0.0]) @ q1,
+        near_degenerate=q1 @ np.diag([1.0, 1.0 + 1e-7, 2.0]) @ q2,
+        batch_1000=rs.normal(0, 1, (1000, 3, 3)),
+    )
+    return {k: np.asarray(v, np.float32) for k, v in cases.items()}
