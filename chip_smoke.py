@@ -71,10 +71,11 @@ ending the run with a non-zero exit code:
    is saved with ``save_stream_snapshot`` and served by
    ``SdvlStream.localizer`` on ``frames[8:32]``: RUNNING within 5 frames and
    on the last 5, ATE under 5 %.
-   graph   -- the same 85 frames on the eager card path (``graphs=False``),
-   held to the record and to the graph run (every frame's packed info bit
-   for bit); prints synchronisations per frame by state, graph replays per
-   frame, the capture's time, ms per frame by state and frames/s of both
+   graph   -- the first 60 of the 85 frames (the bootstrap, tracking and
+   the tracked keyframe at frame 56) on the eager card path
+   (``graphs=False``), held to the record and to the graph run (every
+   frame's packed info bit for bit); prints synchronisations per frame by
+   state, graph replays per frame, the capture's time, ms per frame by state and frames/s of both
    paths, the graph path's rate with nothing synchronised between frames,
    one replay's kernels and device time (``torch.profiler``), and the
    device memory of the graph's pool; dropping the stream must give at
@@ -86,11 +87,11 @@ ending the run with a non-zero exit code:
    per-frame graph run; ms per frame, and the chunks after the first back
    to back against the per-frame path's unsynchronised rate.
    host    -- the host driver ``SDVL`` on the same 85 frames and draws, on
-   the graph path (each stage a replay of its own CUDA graph) and on the
-   eager card path (``graphs=False``): both held to the record; states,
-   match counts, keyframe flags, poses and trajectory bit-identical between
-   the two; one synchronisation on each frame that captures no graph,
-   FIRST and SECOND included; two or more stage replays on each tracking
+   the graph path (each stage a replay of its own CUDA graph), and on the
+   eager card path (``graphs=False``) over the first 60: both held to the
+   record; states, match counts, keyframe flags, poses and trajectory
+   bit-identical between the two; one synchronisation on each frame that
+   captures no graph, FIRST and SECOND included; two or more stage replays on each tracking
    frame, 4 on a SECOND frame (detection, bootstrap, seed map, initial
    match), 1 on a FIRST frame; kernel launches = frames + 2 in each of the
    detection and preprocess graphs' captures;
@@ -109,13 +110,22 @@ ending the run with a non-zero exit code:
    frame, every frame's packed info bit-identical.
 6. multi   -- ``dist.multi_stream.MultiStream``: the JAX-built map, frozen
    and shared, served to 1, 4 and 8 streams on the 24 query frames (stream
-   ``i`` seeded ``1 + i``, lane 0 fed the recorded noise), a graph per
-   stream captured in the first frame batch: every stream RUNNING within 5
-   frames and on the last 5, the map bit-identical, kernel launches and
-   graph replays = streams x frames, no synchronisation in the later
-   batches, lane 0 equal to phase slice; aggregate stream-frames/s after the
-   first batch and each stream's graph pool. Then 2 full-SLAM streams with a map each over the 85
-   record frames, lane 0 fed the record's draws and held to its criteria.
+   ``i`` seeded ``1 + i``, lane 0 fed the recorded noise), twice: one
+   ``feed`` per frame batch (one replay of the batch graph over all
+   streams, captured in the first batch), then ``feed_chunk`` in chunks of
+   8 (one replay of the chunk graph, a WHILE node over the batch, captured
+   in the first chunk). Each run: every stream RUNNING within 5 frames and
+   on the last 5, the map bit-identical, one capture, kernel launches =
+   streams x frames + streams in each of the capture's two eager passes,
+   one replay per feed or per chunk, no synchronisation after the
+   capture, lane 0 equal to phase slice; the chunked rows bit-identical to
+   the per-frame ones. Prints each graph's capture seconds, the shared
+   pool, the peak of allocated memory, aggregate stream-frames/s after the
+   first call of each run, the device ms per stream-frame of a chunk
+   replay (CUDA events), and the figures of a graph per stream beside
+   them. Then 2 full-SLAM streams with a map each over the 85 record
+   frames in chunks of 17 (one replay a chunk), lane 0 fed the record's
+   draws and held to its criteria, with the pool and peak memory.
 7. cli     -- the command-line program, ``sdvl_tpu_torch.cli.run.main``
    in process on the card, over 85 ``PlaneScene`` frames (plus 6 for a
    resumed session) rendered through the lens of ``configs/tum_f1.cfg``
@@ -150,9 +160,12 @@ ending the run with a non-zero exit code:
    over 6 more frames, and ``--stream --localize`` of run 1's map on frames
    8-31 (RUNNING within 5 frames and on the last 5, ATE under 5 %).
 8. dist    -- ``torch.distributed`` with nccl at world size 1:
-   ``mapper.global_ba(mesh=...)`` against ``global_ba()`` on run 2's map at
-   100 slots (Cholesky) and padded to 1000 (PCG): poses within 5e-4,
-   points within 5e-3, gated observations equal; both timed.
+   ``mapper.global_ba(mesh=...)`` as one graph replay (its all-reduces in
+   the WHILE bodies of the LM and CG loops, its gather at the top level;
+   no synchronisation before the result) and eagerly (``graphs=False``),
+   against ``global_ba()`` on run 2's map at 100 slots (Cholesky) and
+   padded to 1000 (PCG): poses within 5e-4, points within 5e-3, gated
+   observations equal; all timed, the replays apart.
 9. prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``. Launches are counted by the kernel
    itself, in a counter on the card that each launch adds 1 to (a launch
@@ -164,7 +177,8 @@ ending the run with a non-zero exit code:
    ``captures_by_path`` give each path's count beside its frames and its
    graph captures
    (``slam_eager``: the graph phase's eager card run)
-   (stream-frames for ``multi_1``, ``multi_4``, ``multi_8`` and
+   (stream-frames for ``multi_1``, ``multi_4``, ``multi_8``, the chunked
+   ``multi_chunk_1``, ``multi_chunk_4``, ``multi_chunk_8``, and
    ``multi_slam``; ``cli_stream``, ``cli_host``, ``cli_host_1000``,
    ``cli_async``, ``cli_async_1000``, ``cli_viz``
    for the cli phase; ``host``, ``host_eager`` for phase host; ``chunk``).
@@ -1066,12 +1080,14 @@ def check_slam_run(r, rec, n=None) -> dict:
 CAPTURES = [0]      # captures of graphs that hold the kernel, since
                     # reset_counts()
 # the stage graphs that launch the detection kernel: the stream's step and
-# chunks, the host driver's detection and locked preprocess
-KERNEL_GRAPHS = ("step", "preprocess", "detect")
+# chunks, the host driver's detection and locked preprocess, MultiStream's
+# frame batch and chunks
+KERNEL_GRAPHS = ("step", "preprocess", "detect", "batch_frame")
 
 
 def holds_detection(name: str) -> bool:
-    return name in KERNEL_GRAPHS or name.startswith("chunk_")
+    return name in KERNEL_GRAPHS or name.startswith(("chunk_",
+                                                     "batch_chunk_"))
 
 
 def count_captures() -> None:
@@ -1369,6 +1385,11 @@ def replay_profile(st, img, reps: int = 3):
                 device_ms=busy_us / 1e3 / reps)
 
 
+# record frames the eager card path runs in phases graph and host: the
+# bootstrap, tracking and the tracked keyframe at frame 56
+EAGER_FRAMES = 60
+
+
 def run_graph_phase(card: str, slam: dict) -> dict:
     """Phase graph (see the module docstring): the record on the eager card
     path beside phase slam's graph run, and the graph path's steady rate
@@ -1377,18 +1398,20 @@ def run_graph_phase(card: str, slam: dict) -> dict:
 
     rec, frames, cfg = slam["_rec"], slam["_frames"], slam["_cfg"]
     n = len(frames)
+    ne = EAGER_FRAMES
     cap = slam["capture_frame"]
     r, st, secs, sites, (launches, caps), replays = run_slam(
-        cfg, frames, rec, time_frames=True, count_syncs=True, graphs=False)
-    chk = check_slam_run(r, rec)
-    assert launches == n and caps == 0 and not any(replays), (
+        cfg, frames[:ne], rec, time_frames=True, count_syncs=True,
+        graphs=False)
+    chk = check_slam_run(r, rec, ne)
+    assert launches == ne and caps == 0 and not any(replays), (
         launches, caps, replays)
     syncs = [len(x) for x in sites]
     sy = per_state(r, syncs, skip=cap)
     ms = per_state(r, [1e3 * x for x in secs], skip=cap)
     g_ms = slam["ms_by_state"]
     # the graph path against the eager card path, frame by frame
-    rows_g, rows_e = slam["_rows"], torch.stack(st._rows)
+    rows_g, rows_e = slam["_rows"][:ne], torch.stack(st._rows)
     equal = bool(torch.equal(rows_g, rows_e))
     diff = (rows_g - rows_e).abs()
     cols = {}
@@ -1442,7 +1465,7 @@ def run_graph_phase(card: str, slam: dict) -> dict:
         f"{pool}")
     e_steady = [x for i, x in enumerate(secs) if i != cap]
     out = dict(
-        frames=n, eager_check=chk, equal_to_eager=equal,
+        frames=n, eager_frames=ne, eager_check=chk, equal_to_eager=equal,
         side_counts=st.side_counts,
         eager_ms_by_state=ms, graph_ms_by_state=g_ms,
         eager_syncs_by_state=sy, graph_syncs_by_state=slam["syncs_by_state"],
@@ -1456,9 +1479,10 @@ def run_graph_phase(card: str, slam: dict) -> dict:
         replay_call_host_ms=1e3 * t_call / reps,
         replay_wall_ms=1e3 * t_wall / reps, pinned_slots=slots,
         pool_bytes=pool, freed_on_drop_bytes=freed)
-    say("graph", f"eager card path (graphs=False), {n} record frames: {chk}")
+    say("graph", f"eager card path (graphs=False), the first {ne} record "
+                 f"frames: {chk}")
     say("graph", f"graph path against the eager card path: packed infos of "
-                 f"all {n} frames bit-identical ({equal})")
+                 f"the first {ne} frames bit-identical ({equal})")
     say("graph", "synchronisations per frame by state, graph / eager: "
                  + ", ".join(f"{k} {slam['syncs_by_state'][k]['mean']:.2f} / "
                              f"{v['mean']:.2f}" for k, v in sy.items()
@@ -1668,18 +1692,19 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
     record frames, on the graph path and on the eager card path."""
     rec, frames, cfg = slam_out["_rec"], slam_out["_frames"], slam_out["_cfg"]
     n = len(frames)
-    runs = {}
-    for graphs in (True, False):
-        runs[graphs] = run_host(cfg, frames, rec, graphs)
+    ne = EAGER_FRAMES
+    runs = {graphs: run_host(cfg, frames if graphs else frames[:ne], rec,
+                             graphs) for graphs in (True, False)}
     out = {}
     g_slam, g_infos, g_secs, g_sites, (g_l, g_c), g_rep, g_cap = runs[True]
     e_slam, e_infos, e_secs, e_sites, (e_l, e_c), e_rep, _ = runs[False]
     r = host_result(g_slam, g_infos)
     chk = check_slam_run(r, rec)
-    check_slam_run(host_result(e_slam, e_infos), rec)
+    r_e = host_result(e_slam, e_infos)
+    check_slam_run(r_e, rec, ne)
     pg, pe = packed_host_infos(g_slam, g_infos), packed_host_infos(e_slam,
                                                                    e_infos)
-    frames_diff = np.nonzero((pg != pe).any(1))[0].tolist()
+    frames_diff = np.nonzero((pg[:ne] != pe).any(1))[0].tolist()
     assert not frames_diff, (
         f"host driver: graph path differs from the eager card path on "
         f"frames {frames_diff}")
@@ -1704,13 +1729,13 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
     assert g_c == 2 and frame_launches(g_l, g_c) == n, (g_l, g_c)
     second_steady = [i for i in second if i not in capture_frames]
     assert second_steady, "no SECOND frame replayed without a capture"
-    assert e_l == n and e_c == 0 and not any(e_rep), (e_l, e_c)
+    assert e_l == ne and e_c == 0 and not any(e_rep), (e_l, e_c)
     ms_g = per_state(r, [1e3 * x for x in g_secs])
     ms_g_steady = per_state(r, [1e3 * x for x in g_secs],
                             skip=capture_frames)
-    ms_e = per_state(r, [1e3 * x for x in e_secs])
+    ms_e = per_state(r_e, [1e3 * x for x in e_secs])
     sy_g = per_state(r, g_syncs, skip=capture_frames)
-    sy_e = per_state(r, e_syncs)
+    sy_e = per_state(r_e, e_syncs)
     rp = per_state(r, g_rep)
     g_steady = [x for i, x in enumerate(g_secs) if i in steady]
     e_steady = [x for i, x in enumerate(e_secs) if i in steady]
@@ -1728,7 +1753,7 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
     torch.cuda.empty_cache()
     freed = held - torch.cuda.memory_reserved()
     assert freed >= pool, (freed, pool)
-    out = dict(frames=n, check=chk, equal_to_eager=True,
+    out = dict(frames=n, eager_frames=ne, check=chk, equal_to_eager=True,
                launches=g_l, captures=g_c, eager_launches=e_l,
                side_counts=g_side, eager_side_counts=e_side,
                second_ms=[1e3 * g_secs[i] for i in second_steady],
@@ -1753,7 +1778,7 @@ def run_host_phase(card: str, slam_out: dict) -> dict:
                 f"JAX record: {chk}")
     say("host", f"graph path against the eager card path (graphs=False): "
                 f"states, match counts, keyframe flags, poses and trajectory "
-                f"of all {n} frames bit-identical")
+                f"of the first {ne} frames bit-identical")
     say("host", f"stage graphs captured at frames "
                 + ", ".join(f"{i}: {g_cap[i]}" for i in capture_frames)
                 + "; warm-up and capture s "
@@ -1831,6 +1856,14 @@ def slice_syncs(cfg, query, graphs: bool) -> tuple:
 
 # ---------------------------------------------------------------- multi
 MULTI_STREAMS = (1, 4, 8)
+MULTI_CHUNK = 8          # frames per feed_chunk of the frozen-map runs
+SLAM_CHUNK = 17          # of the 2 SLAM streams' 85 frames
+# the same runs with a CUDA graph per stream (the design before the batch
+# graphs): per-frame stream-frames/s over three runs, and the streams'
+# pools in MiB, on NVIDIA H100 80GB HBM3, 700.00 W
+PER_STREAM_GRAPHS = {1: ("38.089-48.194", 170.0),
+                     4: ("38.452-48.525", 4 * 170.0),
+                     8: ("38.199-48.229", 8 * 170.0), "slam": 2 * 2886.0}
 
 
 def sync(device: str = "cuda") -> None:
@@ -1838,15 +1871,54 @@ def sync(device: str = "cuda") -> None:
         torch.cuda.synchronize()
 
 
-def run_multi_frozen(cfg, query, n_streams: int, device: str = "cuda"):
+def mib(n) -> float:
+    return round((n or 0) / 2**20, 1)
+
+
+def secs(by_graph: dict) -> dict:
+    return {k: round(v, 2) for k, v in by_graph.items()}
+
+
+def feed_multi(ms, batches, chunk, device: str = "cuda") -> dict:
+    """Feed ``batches`` (T, N, H, W) to ``ms``: one frame batch per
+    ``feed`` (``chunk`` None) or ``chunk`` frames per ``feed_chunk``. The
+    first call captures its graph (timed alone); the others are counted
+    for synchronisations (on the card) and timed together. Returns the
+    first call's seconds, the later calls' seconds and stream-frames, and
+    their synchronisations, with the device's peak memory over the run."""
+    step = 1 if chunk is None else chunk
+    calls = [batches[i:i + step] for i in range(0, len(batches), step)]
+    feed = (lambda b: ms.feed(b[0])) if chunk is None else ms.feed_chunk
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feed(calls[0])
+    sync(device)
+    first_s = time.perf_counter() - t0
+    syncs = []
+    t0 = time.perf_counter()
+    for b in calls[1:]:
+        if device == "cuda":
+            syncs.append(len(sync_sites(lambda: feed(b))))
+        else:
+            feed(b)
+    sync(device)
+    return dict(first_s=first_s, seconds=time.perf_counter() - t0,
+                later=ms.n * step * (len(calls) - 1), calls=len(calls),
+                syncs=syncs, peak_mib=mib(torch.cuda.max_memory_allocated())
+                if device == "cuda" else None)
+
+
+def run_multi_frozen(cfg, query, n_streams: int, device: str = "cuda",
+                     chunk=None) -> dict:
     """``MultiStream`` serving the JAX-built map to ``n_streams`` streams,
     every stream fed the query frames, stream ``i`` seeded ``1 + i`` and
-    lane 0 fed the recorded pose noise. The first frame batch captures each
-    stream's graph; the others are fed one batch at a time, each counted
-    for synchronisations (on the card) and timed together. Checks the map
-    bit-identical. Returns (results, steady seconds, (kernel launches,
-    graph captures), synchronisations per later batch, graph replays,
-    capture seconds, each stream's graph pool bytes)."""
+    lane 0 fed the recorded pose noise, through :func:`feed_multi`. Checks
+    the map bit-identical. Adds the results, the packed rows, (kernel
+    launches, graph captures), the batch graphs' replays, capture seconds
+    and pool bytes and, for chunks on the card, the device ms per
+    stream-frame of a chunk replay (CUDA events)."""
     from sdvl_tpu_torch.dist.multi_stream import MultiStream
 
     gumbel = query["gumbel"]
@@ -1858,27 +1930,22 @@ def run_multi_frozen(cfg, query, n_streams: int, device: str = "cuda"):
     batch = np.repeat(query["frames"][:, None], n_streams, axis=1)
     sync(device)
     reset_counts()
-    t0 = time.perf_counter()
-    ms.feed(batch[0])
-    sync(device)
-    capture_s = time.perf_counter() - t0
-    syncs = []
-    t0 = time.perf_counter()
-    for b in batch[1:]:
-        if device == "cuda":
-            syncs.append(len(sync_sites(lambda: ms.feed(b))))
-        else:
-            ms.feed(b)
-    sync(device)
-    seconds = time.perf_counter() - t0
+    run = feed_multi(ms, batch, chunk, device)
     counts = read_counts()
     after = map_leaves(ms.m)
     assert len(before) == len(after)
     for a, b in zip(before, after):
         assert a.dtype == b.dtype and torch.equal(a, b), "shared map changed"
-    replays = sum(r.replays for r in ms.runners)
-    pools = [r.pool_bytes for r in ms.runners]
-    return ms.result(), seconds, counts, syncs, replays, capture_s, pools
+    device_ms = None
+    if device == "cuda" and chunk is not None:
+        # the chunk graph once more on its last inputs: one submission, so
+        # the events time the device (the carries move on; the map is
+        # never written)
+        g = ms.batch_graphs[f"batch_chunk_{chunk}"].graph
+        device_ms = replay_ms_per(g, n_streams * chunk, reps=3)
+    return dict(run, results=ms.result(), rows=torch.cat(ms._rows),
+                counts=counts, replays=ms.replays, capture_s=ms.capture_s,
+                pool_bytes=ms.pool_bytes, device_ms=device_ms)
 
 
 def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
@@ -1886,6 +1953,7 @@ def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
     """Phase 6 (see the module docstring); ``slam_frames`` cuts the SLAM
     streams' frames (a rehearsal on the CPU)."""
     from sdvl_tpu_torch.dist.multi_stream import MultiStream
+    from sdvl_tpu_torch.pipeline.device_fsm import CAPTURE_PASSES
 
     out = {}
     cfg = preset_config()
@@ -1894,86 +1962,134 @@ def run_multi_phase(card: str, slice_result, query, device: str = "cuda",
     extent = float(np.linalg.norm(np.ptp(
         camera_centres(query["poses_gt"]), axis=0)))
     for n in streams:
-        results, secs, (launches, caps), syncs, replays, cap_s, pools = \
-            run_multi_frozen(cfg, query, n, device)
-        assert device != "cuda" or (
-            caps == n and frame_launches(launches, caps) == n * T), (
-            f"{launches} launches with {caps} captures: {n} x {T} frames "
-            f"and one per eager pass of each stream's capture expected")
-        assert device != "cuda" or replays == n * T, (
-            f"{replays} graph replays != {n} x {T}")
-        assert not any(syncs), f"frame batches synchronised: {syncs}"
-        for i, r in enumerate(results):
-            running = r.states == 2
-            assert np.isfinite(r.poses_raw).all(), f"stream {i}: non-finite"
-            assert int(np.argmax(running)) <= 5 and running[-5:].all(), (
-                f"N={n} stream {i}: states {r.states.tolist()}")
-        d0 = float(np.abs(camera_centres(results[0].trajectory)
-                          - c_slice).max())
-        assert (results[0].states == slice_result.states).all(), (
-            results[0].states.tolist(), slice_result.states.tolist())
-        assert d0 <= 1e-4 * extent, (d0, extent)
-        m = n * (T - 1)      # stream-frames after the capture batch
-        out[f"multi_{n}"] = dict(
-            streams=n, frames=n * T, launches=launches, captures=caps,
-            replays=replays, pool_bytes=pools, seconds=secs, capture_batch_s=cap_s, syncs_per_batch=syncs,
-            frames_per_s=m / secs, ms_per_stream_frame=1e3 * secs / m,
-            lane0_vs_slice_centre=d0)
-        say("multi", f"frozen JAX map, {n} streams x {T} frames: every "
-                     f"stream RUNNING within 5 frames and on the last 5, "
-                     f"map bit-identical, kernel launches {launches} = "
-                     f"{n} x {T} + {launches - n * T} in the captures' "
-                     f"eager passes, graph replays {replays} (one graph per "
-                     f"stream, captured in the first batch: {cap_s:.2f} s; "
-                     f"pools of "
-                     f"{[round(b / 2**20, 1) for b in pools if b]} MiB), "
-                     f"synchronisations in the {T - 1} later batches "
-                     f"{sum(syncs)}; lane 0 equal to phase slice (states "
-                     f"equal, centres within {d0:.3g} of extent "
-                     f"{extent:.4f}); after the first batch {m / secs:.3f} "
-                     f"stream-frames/s, {1e3 * secs / m:.2f} ms per "
-                     f"stream-frame on {card}")
+        runs = {}
+        for chunk in (None, MULTI_CHUNK):
+            r = runs[chunk] = run_multi_frozen(cfg, query, n, device, chunk)
+            launches, caps = r["counts"]
+            graph = ("batch_frame" if chunk is None
+                     else f"batch_chunk_{chunk}")
+            # one graph over all streams: its capture's eager passes step
+            # every stream once each
+            assert device != "cuda" or (
+                caps == 1
+                and launches - CAPTURE_PASSES * n * caps == n * T), (
+                f"{launches} launches with {caps} captures: {n} x {T} "
+                f"frames and {n} per eager pass of one capture expected")
+            assert device != "cuda" or r["replays"] == {graph: r["calls"]}, (
+                f"replays {r['replays']}: one per call ({r['calls']}) "
+                f"expected")
+            assert not any(r["syncs"]), f"calls synchronised: {r['syncs']}"
+            results = r["results"]
+            for i, res in enumerate(results):
+                running = res.states == 2
+                assert np.isfinite(res.poses_raw).all(), (
+                    f"stream {i}: non-finite")
+                assert int(np.argmax(running)) <= 5 and running[-5:].all(), (
+                    f"N={n} stream {i}: states {res.states.tolist()}")
+            r["lane0_vs_slice_centre"] = float(np.abs(
+                camera_centres(results[0].trajectory) - c_slice).max())
+            assert (results[0].states == slice_result.states).all(), (
+                results[0].states.tolist(), slice_result.states.tolist())
+            assert r["lane0_vs_slice_centre"] <= 1e-4 * extent, (
+                r["lane0_vs_slice_centre"], extent)
+            key = f"multi_{n}" if chunk is None else f"multi_chunk_{n}"
+            out[key] = dict(
+                streams=n, frames=n * T, launches=launches, captures=caps,
+                replays=r["replays"], calls=r["calls"],
+                capture_s=r["capture_s"], first_call_s=r["first_s"],
+                pool_bytes=r["pool_bytes"],
+                pool_mib=mib(sum(r["pool_bytes"].values())),
+                peak_mib=r["peak_mib"], seconds=r["seconds"],
+                syncs_per_call=r["syncs"],
+                frames_per_s=r["later"] / r["seconds"],
+                ms_per_stream_frame=1e3 * r["seconds"] / r["later"],
+                device_ms_per_stream_frame=r["device_ms"],
+                lane0_vs_slice_centre=r["lane0_vs_slice_centre"])
+        rows_equal = torch.equal(runs[None]["rows"],
+                                 runs[MULTI_CHUNK]["rows"])
+        assert rows_equal, "chunked rows differ from the per-frame ones"
+        f, c = out[f"multi_{n}"], out[f"multi_chunk_{n}"]
+        before_rate, before_pool = PER_STREAM_GRAPHS.get(
+            n, ("not measured", "not measured"))
+        dev_ms = c["device_ms_per_stream_frame"]
+        say("multi", f"frozen JAX map, {n} streams x {T} frames, batch "
+                     f"graphs over all streams: every stream RUNNING within "
+                     f"5 frames and on the last 5, map bit-identical, lane "
+                     f"0 equal to phase slice (centres within "
+                     f"{f['lane0_vs_slice_centre']:.3g} of extent "
+                     f"{extent:.4f}), chunked rows bit-identical to the "
+                     f"per-frame ones. feed: {f['launches']} kernel "
+                     f"launches, {f['captures']} capture "
+                     f"({secs(f['capture_s'])}), replays {f['replays']} in "
+                     f"{f['calls']} feeds (1 a feed), synchronisations "
+                     f"after the capture {sum(f['syncs_per_call'])}, "
+                     f"{f['frames_per_s']:.3f} stream-frames/s after the "
+                     f"first batch. feed_chunk of {MULTI_CHUNK}: "
+                     f"{c['launches']} launches, {c['captures']} capture "
+                     f"({secs(c['capture_s'])}), replays {c['replays']} in "
+                     f"{c['calls']} chunks (1 a chunk), synchronisations "
+                     f"{sum(c['syncs_per_call'])}, {c['frames_per_s']:.3f} "
+                     f"stream-frames/s after the first chunk, device "
+                     + ("not measured" if dev_ms is None
+                        else f"{dev_ms:.3f}")
+                     + f" ms per stream-frame in a chunk replay. Shared "
+                     f"pool {f['pool_mib']} + {c['pool_mib']} MiB (peak "
+                     f"allocated {f['peak_mib']}, {c['peak_mib']} MiB). A "
+                     f"graph per stream: {before_rate} stream-frames/s, "
+                     f"pools {before_pool} MiB. On {card}")
 
     # two full-SLAM streams with their own maps, lane 0 on the record
     rec = dict(np.load(SLAM_NPZ))
     frames, _ = render_preset_frames(rec)
     frames = frames[:slam_frames]
+    chunk = SLAM_CHUNK if len(frames) % SLAM_CHUNK == 0 else len(frames)
     cfg_slam = preset_config(localize_only=False, use_pallas_detect=True)
     ms = MultiStream(cfg_slam, 2, seed=0, device=device,
                      gumbel_providers=[slam_draws(rec), None])
     sync(device)
     reset_counts()
-    t0 = time.perf_counter()
-    ms.feed_chunk(np.repeat(np.stack(frames)[:, None], 2, axis=1),
-                  block=True)
-    secs = time.perf_counter() - t0
+    run = feed_multi(ms, np.repeat(np.stack(frames)[:, None], 2, axis=1),
+                     chunk, device)
     launches, caps = read_counts()
     r0, r1 = ms.result()
     chk = check_slam_run(r0, rec, len(frames))
     assert device != "cuda" or (
-        caps == 2 and frame_launches(launches, caps) == 2 * len(frames)), (
+        caps == 1
+        and launches - CAPTURE_PASSES * 2 * caps == 2 * len(frames)), (
         launches, caps)
     run1 = r1.states == 2
     assert run1.any() and run1[int(np.argmax(run1)):].all(), (
         r1.states.tolist())
-    n_sf = 2 * len(frames)
-    replays = [r.replays for r in ms.runners]
-    # each stream's graph captured at its first frame: one replay a frame
-    assert device != "cuda" or replays == [len(frames)] * 2, replays
-    pools = [r.pool_bytes for r in ms.runners]
-    out["multi_slam"] = dict(streams=2, frames=n_sf, launches=launches,
-                             captures=caps, replays=replays,
-                             pool_bytes=pools, seconds=secs,
-                             frames_per_s=n_sf / secs, lane0=chk)
+    replays = ms.replays
+    assert device != "cuda" or replays == {
+        f"batch_chunk_{chunk}": run["calls"]}, replays
+    assert not any(run["syncs"]), f"chunks synchronised: {run['syncs']}"
+    pool = mib(sum(ms.pool_bytes.values()))
+    rate = run["later"] / run["seconds"] if run["later"] else None
+    out["multi_slam"] = dict(streams=2, frames=2 * len(frames),
+                             launches=launches, captures=caps,
+                             replays=replays, calls=run["calls"],
+                             capture_s=ms.capture_s,
+                             first_call_s=run["first_s"],
+                             pool_bytes=ms.pool_bytes, pool_mib=pool,
+                             peak_mib=run["peak_mib"],
+                             syncs_per_call=run["syncs"],
+                             seconds=run["seconds"], frames_per_s=rate,
+                             lane0=chk)
     say("multi", f"2 full-SLAM streams x {len(frames)} record frames, a map "
-                 f"each: lane 0 against the JAX record {chk}; lane 1 (own "
-                 f"draws) RUNNING from frame {int(np.argmax(run1))} to the "
-                 f"end; kernel launches {launches} = 2 x {len(frames)} + "
-                 f"{launches - n_sf} in the captures' eager passes, graph "
-                 f"replays {replays} (captures included), pools of "
-                 f"{[round((b or 0) / 2**20, 1) for b in pools]} MiB; "
-                 f"{n_sf / secs:.3f} "
-                 f"stream-frames/s on {card}")
+                 f"each, in chunks of {chunk}: lane 0 against the JAX "
+                 f"record {chk}; lane 1 (own draws) RUNNING from frame "
+                 f"{int(np.argmax(run1))} to the end; kernel launches "
+                 f"{launches} = 2 x {len(frames)} + "
+                 f"{launches - 2 * len(frames)} in the capture's eager "
+                 f"passes, replays {replays} in {run['calls']} chunks (1 a "
+                 f"chunk), capture {secs(ms.capture_s)}, synchronisations after "
+                 f"it {sum(run['syncs'])}, shared pool {pool} MiB (a graph "
+                 f"per stream: {PER_STREAM_GRAPHS['slam']} MiB), peak "
+                 f"allocated {run['peak_mib']} MiB; "
+                 + ("no chunk after the first" if rate is None
+                    else f"{rate:.3f} stream-frames/s after the first chunk")
+                 + f" on {card}")
     return out
 
 
@@ -2013,9 +2129,11 @@ def write_cli_sequence(cfg_path: str, out_dir: str):
     return poses
 
 
-def timed_global_ba(m, intr, graphs: bool, device: str = "cuda") -> dict:
-    """``mapper.global_ba(m, intr, graphs=graphs)``, synchronised and timed,
-    its synchronisations counted (on the card). Returns the new map, the
+def timed_global_ba(m, intr, graphs: bool, device: str = "cuda",
+                    mesh=None) -> dict:
+    """``mapper.global_ba(m, intr, mesh=mesh, graphs=graphs)``, synchronised
+    and timed, its synchronisations counted (on the card). Returns the new
+    map, the
     ms, the synchronisation sites, the CG iterations of each LM step and,
     on the graph path, the graph's warm-up and capture seconds, its pool
     and its replays."""
@@ -2026,7 +2144,7 @@ def timed_global_ba(m, intr, graphs: bool, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     run = lambda: res.append(mapper.global_ba(  # noqa: E731
-        m, intr, graphs=graphs, stats=stats))
+        m, intr, mesh=mesh, graphs=graphs, stats=stats))
     sites = sync_sites(run) if device == "cuda" else run() or []
     if device == "cuda":
         torch.cuda.synchronize()
@@ -2369,15 +2487,16 @@ def run_cli_viz(cfg_path: str, seq_dir: str, host_run: dict, device: str,
 def run_dist_phase(card: str, m100, device: str = "cuda",
                    cfg_path: str = TUM_F1_CFG) -> dict:
     """Phase 8 (see the module docstring): ``global_ba(mesh=...)`` on nccl
-    at world size 1 against ``global_ba()``, on the cli phase's 100-slot map
-    (Cholesky) and on it padded to the shipped 1000 slots (PCG); in turns,
-    one process, mesh, mesh, one process."""
+    at world size 1, as one graph replay and eagerly (``graphs=False``),
+    against ``global_ba()`` (one process, one replay), on the cli phase's
+    100-slot map (Cholesky) and on it padded to the shipped 1000 slots
+    (PCG); in turns, one process, eager mesh, mesh graph, mesh graph,
+    eager mesh, one process."""
     import socket
 
     import torch.distributed as tdist
 
     from sdvl_tpu_torch.dist import multihost
-    from sdvl_tpu_torch.pipeline import mapper
     from sdvl_tpu_torch.pipeline.config import intrinsics, load_cfg
 
     intr = intrinsics(load_cfg(cfg_path))
@@ -2389,36 +2508,66 @@ def run_dist_phase(card: str, m100, device: str = "cuda",
         f"127.0.0.1:{port}", 1, 0,
         backend="nccl" if device == "cuda" else "gloo")
     out = {"backend": backend, "world_size": multihost.process_count()}
+    on_card = device == "cuda"
     try:
         mesh = multihost.global_mesh("point")
         for name, m in (("chol_100", m100),
                         ("cg_1000", pad_keyframe_slots(m100, K))):
-            ms = {"one": [], "mesh": []}
-            res = {}
-            for kind in ("one", "mesh", "mesh", "one"):
-                sync(device)
-                t0 = time.perf_counter()
-                res[kind] = mapper.global_ba(
-                    m, intr, mesh=mesh if kind == "mesh" else None)
-                sync(device)
-                ms[kind].append(1e3 * (time.perf_counter() - t0))
-            a, b = res["mesh"], res["one"]
-            kv, pv = b.kf_valid, b.pt_valid
-            d_pose = float((a.kf_pose - b.kf_pose)[kv].abs().max())
-            d_pt = float((a.pt_pos - b.pt_pos)[pv].abs().max())
-            same_obs = bool(torch.equal(a.obs_mask, b.obs_mask))
-            assert d_pose <= 5e-4 and d_pt <= 5e-3 and same_obs, (
-                name, d_pose, d_pt, same_obs)
-            out[name] = dict(pose_diff=d_pose, point_diff=d_pt,
-                             one_process_ms=ms["one"], mesh_ms=ms["mesh"])
+            runs = {"one": [], "mesh_eager": [], "mesh_graph": []}
+            for kind in ("one", "mesh_eager", "mesh_graph", "mesh_graph",
+                         "mesh_eager", "one"):
+                runs[kind].append(timed_global_ba(
+                    m, intr, graphs=on_card and kind != "mesh_eager",
+                    device=device, mesh=None if kind == "one" else mesh))
+            g, e, b = (runs[k][0] for k in ("mesh_graph", "mesh_eager",
+                                            "one"))
+            kv, pv = b["map"].kf_valid, b["map"].pt_valid
+            diffs = {}
+            for ref_name, ref in (("one", b), ("mesh_eager", e)):
+                for kind, got in (("mesh_graph", g), ("mesh_eager", e)):
+                    if kind == ref_name:
+                        continue
+                    a, r = got["map"], ref["map"]
+                    d_pose = float((a.kf_pose - r.kf_pose)[kv].abs().max())
+                    d_pt = float((a.pt_pos - r.pt_pos)[pv].abs().max())
+                    same_obs = bool(torch.equal(a.obs_mask, r.obs_mask))
+                    assert d_pose <= 5e-4 and d_pt <= 5e-3 and same_obs, (
+                        name, kind, ref_name, d_pose, d_pt, same_obs)
+                    diffs[f"{kind}_vs_{ref_name}"] = dict(
+                        pose_diff=d_pose, point_diff=d_pt)
+            graph_runs = runs["mesh_graph"] if on_card else []
+            for run in graph_runs:
+                assert run["replays"] == 1 and not run["sync_sites"], (
+                    run["replays"], run["sync_sites"])
+            ms = {k: [r["ms"] for r in v] for k, v in runs.items()}
+            replay_ms = [r["replay_ms"] for r in graph_runs]
+            one_replay_ms = [r["replay_ms"] for r in runs["one"]
+                             if "replay_ms" in r]
+            eager_syncs = [len(r["sync_sites"]) for r in runs["mesh_eager"]]
+            out[name] = dict(
+                diffs, ms=ms, mesh_replay_ms=replay_ms,
+                one_replay_ms=one_replay_ms,
+                mesh_capture_s=[r["capture_s"] for r in graph_runs],
+                mesh_pool_bytes=[r["pool_bytes"] for r in graph_runs],
+                mesh_graph_syncs=0 if on_card else None,
+                mesh_eager_syncs=eager_syncs,
+                cg_iterations=g["cg_iterations"])
+            d = diffs["mesh_graph_vs_one"]
             say("dist", f"global_ba on {int(kv.sum())} keyframes / "
                         f"{int(pv.sum())} points in {m.capacities[0]} slots "
                         f"({name.split('_')[0]}), {backend} mesh of "
-                        f"{out['world_size']} against one process: poses "
-                        f"within {d_pose:.3g} (<= 5e-4), points within "
-                        f"{d_pt:.3g} (<= 5e-3), gated observations equal; "
-                        f"ms one process {ms['one']}, mesh {ms['mesh']} "
-                        f"on {card}")
+                        f"{out['world_size']}: the mesh as one graph "
+                        f"replay (0 synchronisations before the result) "
+                        f"against one process: poses within "
+                        f"{d['pose_diff']:.3g} (<= 5e-4), points within "
+                        f"{d['point_diff']:.3g} (<= 5e-3), gated "
+                        f"observations equal; against the eager mesh "
+                        f"{diffs['mesh_graph_vs_mesh_eager']}. ms in all: "
+                        f"one process {ms['one']}, mesh graph "
+                        f"{ms['mesh_graph']} (replay {replay_ms}), eager "
+                        f"mesh {ms['mesh_eager']} with {eager_syncs} "
+                        f"synchronisations; one process's replay "
+                        f"{one_replay_ms} on {card}")
     finally:
         tdist.destroy_process_group()
     return out
@@ -2996,10 +3145,12 @@ def main() -> int:
                                f"({per_branch[k]})" for k in conditions))
     p3, p3_plain = checks["pallas"]["pyramid"], checks["plain"]["pyramid"]
     paths = {"slam": (slam["launches"], slam["frames"], slam["captures"]),
-             "slam_eager": (graph["eager_launches"], graph["frames"], 0),
+             "slam_eager": (graph["eager_launches"], graph["eager_frames"],
+                            0),
              "chunk": (chunk["launches"], chunk["frames"], chunk["captures"]),
              "host": (host["launches"], host["frames"], host["captures"]),
-             "host_eager": (host["eager_launches"], host["frames"], 0),
+             "host_eager": (host["eager_launches"], host["eager_frames"],
+                            0),
              "slam_map_served": (slam["loc_launches"], slam["loc_frames"],
                                  slam["loc_captures"]),
              "localizer": (launches, n, slice_caps)}

@@ -874,10 +874,11 @@ class StageGraph:
     """A stage function captured into a CUDA graph over fixed storage.
 
     ``fn(st, *inputs)`` reads and writes the in-place :class:`StepState`
-    ``st`` and returns its outputs (tensors, or tuples and NamedTuples of
-    them). The capture: :data:`CAPTURE_PASSES` eager passes through both
-    branches of every :func:`device_if` on a copy of the state (the map
-    itself where ``shared_map``: the stage only reads it), the last under
+    ``st`` (or a tuple of them, one per stream a batch steps) and returns
+    its outputs (tensors, or tuples and NamedTuples of them). The capture:
+    :data:`CAPTURE_PASSES` eager passes through both branches of every
+    :func:`device_if` on a copy of each state (its carry, and its map
+    unless ``shared_map``: the stage only reads it), the last under
     ``set_sync_debug_mode("error")``; then ``fn`` captured over input
     buffers of its own (clones of ``inputs``), its allocations from the
     graph memory pool ``pool`` where one is given (graphs that never run at
@@ -892,18 +893,23 @@ class StageGraph:
     overwrites. ``name`` says which stage it is.
     """
 
-    def __init__(self, name: str, fn, st: "StepState", inputs: tuple,
+    def __init__(self, name: str, fn, st, inputs: tuple,
                  shared_map: bool = False, pool=None):
         t0 = time.perf_counter()
         self.name = name
+
+        def scratch(s: StepState) -> StepState:
+            return StepState(s.m if shared_map else _clone(s.m),
+                             _clone(s.carry), inplace=True,
+                             frozen_map=s.frozen_map)
+
         for i in range(CAPTURE_PASSES):
-            scratch = StepState(st.m if shared_map else _clone(st.m),
-                                _clone(st.carry), inplace=True,
-                                frozen_map=st.frozen_map)
+            copy = (tuple(map(scratch, st)) if isinstance(st, tuple)
+                    else scratch(st))
             with warming(), (_sync_errors() if i == CAPTURE_PASSES - 1
                              else contextlib.nullcontext()):
-                fn(scratch, *inputs)
-            del scratch
+                fn(copy, *inputs)
+            del copy
         torch.cuda.synchronize()
         self.inputs = _clone(tuple(inputs))
         self.graph = torch.cuda.CUDAGraph()

@@ -262,22 +262,29 @@ def global_ba(m: MapState, intr, mesh=None, stage_iters=(8, 12),
     (``torch.distributed.device_mesh.DeviceMesh``), the point blocks are
     sharded over its ``axis`` and the reduced camera system all-reduced
     (``dist.ba_sharded.solve_sharded``); every rank of the axis calls it
-    with the same map and gets the same result. That path runs eagerly
-    (its collectives are not captured).
+    with the same map and gets the same result.
 
-    On the card without a ``mesh`` (``graphs`` None or True) the solve and
-    the write-back are one replay of a CUDA graph captured over the map
+    On the card (``graphs`` None or True) the solve and the write-back are
+    one replay of a CUDA graph captured over the map
     (``device_fsm.StageGraph``: its warm-up passes run each loop body once,
     its LM and CG loops are WHILE nodes), and nothing is read back before
-    the result; ``graphs=False`` runs them eagerly. ``stats``, a dict,
-    receives ``cg_iterations`` (the result's per-LM-step counts, a device
-    tensor) and ``chi2``, and on the graph path the graph's ``capture_s``,
-    ``pool_bytes`` and ``replays``."""
-    if mesh is not None and graphs:
-        raise ValueError("global_ba(mesh=...) runs eagerly: collectives "
-                         "are not captured")
+    the result; ``graphs=False`` runs them eagerly. Over an nccl mesh the
+    graph holds the collectives too: the all-reduces of the LM steps and
+    the PCG in the WHILE bodies, the gather of the point rows at the top
+    level; every rank captures and replays alike (the warm-up passes make
+    the communicator before the capture). A gloo mesh runs eagerly: its
+    collectives cannot be captured, and ``graphs=True`` with one raises.
+    ``stats``, a dict, receives ``cg_iterations`` (the result's per-LM-step
+    counts, a device tensor) and ``chi2``, and on the graph path the
+    graph's ``capture_s``, ``pool_bytes`` and ``replays``."""
+    gloo = (mesh is not None and torch.distributed.get_backend(
+        mesh.get_group(mesh_dim=axis)) == "gloo")
+    if gloo and graphs:
+        raise ValueError("global_ba(mesh=...) over a gloo mesh runs "
+                         "eagerly: gloo collectives cannot be captured in "
+                         "a CUDA graph (graphs=True needs nccl)")
     if graphs is None:
-        graphs = mesh is None and m.kf_pose.is_cuda
+        graphs = not gloo and m.kf_pose.is_cuda
     if graphs and not m.kf_pose.is_cuda:
         raise ValueError("graphs=True needs a CUDA device")
 

@@ -20,6 +20,15 @@ sweep of every keyframe) and in serving mode:
   equals the per-frame graph path bit for bit, from frame 0;
 * global BA (``mapper.global_ba``) is one replay, bit-identical to
   ``graphs=False``, on the dense and on the PCG route, with its CG counts;
+* ``MultiStream`` of 3 streams, in full SLAM mode and serving a frozen
+  map: each ``feed`` is one replay of the batch graph over all streams,
+  each ``feed_chunk`` one replay of the chunk graph of its length, none
+  synchronises once its graph exists, and rows, maps and carries equal
+  ``graphs=False`` bit for bit (the frozen map unchanged);
+* ``global_ba(mesh=...)`` over an nccl mesh of one rank is one replay (its
+  all-reduces in the WHILE bodies), within ``tests/test_torch_dist.py``'s
+  tolerances of the eager mesh path and of one process, and its pool is
+  freed with it;
 * ``feed(block=False)`` returns before the frame is done;
 * a graph's private memory pool is freed with the graph: serving streams
   built and dropped leave the card's reserved memory where it was.
@@ -206,6 +215,133 @@ def _pad_slots(m, n_slots):
         kf_pyr=tuple(grow(p) for p in m.kf_pyr),
         obs_mask=grow(m.obs_mask), obs_px=grow(m.obs_px),
         obs_level=grow(m.obs_level))
+
+
+def _multi_run(cfg, frames, graphs, sizes, frozen_map=None):
+    """``MultiStream`` of 3 streams (seeds 0, 1, 2) fed ``frames`` in turn:
+    a ``None`` in ``sizes`` is one ``feed``, a number a ``feed_chunk`` of
+    that many frames. On the graph path each call adds one replay to its
+    graph, and a call whose graph exists runs under
+    ``set_sync_debug_mode("error")``."""
+    from sdvl_tpu_torch.dist.multi_stream import MultiStream
+
+    ms = MultiStream(cfg, 3, seed=0, device="cuda", graphs=graphs,
+                     frozen_map=frozen_map)
+    at = 0
+    for size in sizes:
+        name = "batch_frame" if size is None else f"batch_chunk_{size}"
+        replays = ms.replays.get(name, 0)
+        torch.cuda.set_sync_debug_mode(
+            "error" if graphs and name in ms.batch_graphs else 0)
+        try:
+            if size is None:
+                ms.feed(np.repeat(frames[at][None], 3, axis=0))
+                at += 1
+            else:
+                ms.feed_chunk(np.repeat(
+                    np.stack(frames[at:at + size])[:, None], 3, axis=1))
+                at += size
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert ms.replays.get(name, 0) == replays + graphs
+    torch.cuda.synchronize()
+    return ms
+
+
+def _assert_multi_equal(a, b):
+    assert torch.equal(torch.cat(a._rows), torch.cat(b._rows))
+    maps = (([a.m], [b.m]) if a.frozen else (a.m, b.m))
+    for ma, mb in zip(*maps):
+        for x, y in zip(_leaves(ma), _leaves(mb)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    for ca, cb in zip(a.carries, b.carries):
+        for x, y in zip(_leaves(ca), _leaves(cb)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_multi_stream_is_one_replay_per_batch_and_per_chunk(cuda_device):
+    """3 full-SLAM streams from frame 0 (bootstrap, keyframes, the LOST
+    stretch): 4 frame batches, then chunks of 8 over the rest; one graph
+    per kind, one replay per call, bit-identical to ``graphs=False``."""
+    cfg, frames = graph_step_scene()
+    sizes = [None] * 4 + [8] * ((len(frames) - 4) // 8)
+    eager = _multi_run(cfg, frames, False, sizes)
+    graph = _multi_run(cfg, frames, True, sizes)
+    assert graph.replays == {"batch_frame": 4,
+                             "batch_chunk_8": len(sizes) - 4}
+    assert all(b > 0 for b in graph.pool_bytes.values())
+    rows = torch.cat(graph._rows)
+    assert rows.shape == (4 + 8 * (len(sizes) - 4), 3, 21)
+    assert (rows[:, :, 14] == 2).any() and (rows[:, :, 14] == 3).any()
+    _assert_multi_equal(eager, graph)
+
+
+@pytest.mark.cuda
+def test_multi_stream_serves_a_frozen_map_in_one_replay(cuda_device):
+    """3 streams serving one frozen map (LOST at the start): per-frame
+    batches, then chunks of 4; the map never written, bit-identical to
+    ``graphs=False``."""
+    cfg, frames = graph_step_scene()
+    slam = _run(cfg, frames[:22], graphs=False)
+    runs = {}
+    for graphs in (False, True):
+        loc_cfg, state = _serving(cfg, slam)
+        before = [t.clone() for t in _leaves(state[0])]
+        runs[graphs] = _multi_run(loc_cfg, frames[4:16], graphs,
+                                  [None] * 4 + [4, 4], frozen_map=state)
+        assert runs[graphs].m is state[0]
+        for x, y in zip(before, _leaves(state[0])):
+            assert torch.equal(x, y), "the frozen map changed"
+    assert runs[True].replays == {"batch_frame": 4, "batch_chunk_4": 2}
+    assert (torch.cat(runs[True]._rows)[-4:, :, 14] == 2).all()
+    _assert_multi_equal(runs[False], runs[True])
+
+
+@pytest.mark.cuda
+def test_global_ba_over_nccl_is_one_replay(cuda_device, tmp_path):
+    """``global_ba(mesh=...)`` over an nccl mesh of one rank, on the
+    stream's map at 12 slots (Cholesky) and 208 (PCG): one replay that
+    reads nothing back, within 5e-4 (poses) and 5e-3 (points) of the eager
+    mesh path and of one process, gated observations equal; dropping the
+    graph gives its pool back."""
+    import torch.distributed as dist
+
+    from sdvl_tpu_torch.dist import mesh as tmesh
+    from sdvl_tpu_torch.pipeline import mapper
+    from sdvl_tpu_torch.pipeline.config import intrinsics
+
+    cfg, frames = graph_step_scene()
+    m12 = _run(cfg, frames[:22], graphs=False).m
+    intr = intrinsics(cfg)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_mesh(axis="point")
+        for n_slots in (12, 208):
+            m = _pad_slots(m12, n_slots)
+            one = mapper.global_ba(m, intr)
+            eager = mapper.global_ba(m, intr, mesh=mesh, graphs=False)
+            gc.collect()
+            torch.cuda.empty_cache()
+            start = torch.cuda.memory_reserved()
+            stats = {}
+            graph = mapper.global_ba(m, intr, mesh=mesh, stats=stats)
+            assert stats["replays"] == 1 and stats["pool_bytes"] > 0
+            for ref in (eager, one):
+                kv, pv = ref.kf_valid, ref.pt_valid
+                assert float((graph.kf_pose - ref.kf_pose)[kv].abs().max()
+                             ) <= 5e-4
+                assert float((graph.pt_pos - ref.pt_pos)[pv].abs().max()
+                             ) <= 5e-3
+                assert torch.equal(graph.obs_mask, ref.obs_mask)
+            assert not torch.equal(graph.kf_pose, m.kf_pose)
+            del stats
+            gc.collect()
+            torch.cuda.empty_cache()
+            assert torch.cuda.memory_reserved() <= start
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

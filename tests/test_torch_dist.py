@@ -114,3 +114,26 @@ def test_global_ba_sharded_matches_one_process(point_mesh):
     np.testing.assert_array_equal(N(ms.obs_mask), N(m1.obs_mask))
     assert np.abs(N(ms.kf_pose)[2:, 4:] - np.asarray(poses_gt)[2:, 4:]).max() \
         < 1e-3
+
+
+def test_global_ba_over_gloo_refuses_graphs_and_runs_eagerly(point_mesh):
+    """gloo collectives cannot be captured in a CUDA graph: ``graphs=True``
+    over a gloo mesh raises, naming gloo, before any work; by default the
+    gloo mesh runs eagerly, bit for bit as ``graphs=False``."""
+    from test_global_ba import H, W, _gt_map, _perturb
+
+    _, m_gt, _, _ = _gt_map(seed=2)
+    intr_t = Intrinsics.create(90.0, 90.0, W / 2 - 0.5, H / 2 - 0.5,
+                               width=W, height=H)
+    mt0 = map_from_numpy(tree_to_numpy(_perturb(m_gt, seed=3)), "cpu")
+    with pytest.raises(ValueError, match="gloo"):
+        tmapper.global_ba(mt0, intr_t, mesh=point_mesh, graphs=True)
+    stats = {}
+    default = tmapper.global_ba(mt0, intr_t, mesh=point_mesh,
+                                stage_iters=(6, 6), stats=stats)
+    eager = tmapper.global_ba(mt0, intr_t, mesh=point_mesh, graphs=False,
+                              stage_iters=(6, 6))
+    assert "replays" not in stats
+    for a, b in zip((default.kf_pose, default.pt_pos, default.obs_mask),
+                    (eager.kf_pose, eager.pt_pos, eager.obs_mask)):
+        assert torch.equal(a, b)

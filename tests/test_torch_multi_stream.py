@@ -27,6 +27,13 @@ a lane and a lone stream; measured 2.0e-5). Lane 1's, in the first camera's
 frame, within 1e-3 (measured 1.9e-4). The port against itself (chunked
 feeding, lane 0 against a lone ``SdvlStream``) exactly, being the same
 operations on the CPU.
+
+The batch functions the card captures, run here eagerly: ``feed`` runs
+``MultiStream.batch_frame`` and ``feed_chunk`` ``batch_chunk``; each must
+equal per-stream stepping (each stream's own ``StepRunner``, the step
+``SdvlStream`` runs, frame by frame with its lane's draws) bit for bit:
+rows, maps and carries. ``feed_chunk`` over uneven chunk lengths equals
+per-frame ``feed`` from frame 0.
 """
 
 import jax
@@ -41,7 +48,9 @@ from sdvl_tpu.pipeline import config as jcfg
 from sdvl_tpu_torch.core import se3
 from sdvl_tpu_torch.dist.multi_stream import MultiStream as TMulti
 from sdvl_tpu_torch.pipeline import config as tcfg
-from sdvl_tpu_torch.pipeline.device_fsm import FrameInfo
+from sdvl_tpu_torch.pipeline.device_fsm import (FrameInfo, StepRunner,
+                                                cropped_shape, init_state)
+from sdvl_tpu_torch.pipeline.stream import NoiseSource
 from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
 from torch_port_helpers import (N, assert_info_is_result, assert_info_like,
                                 jax_draws)
@@ -101,7 +110,61 @@ def chunk_run(multi_run):
         tm.feed(b[t])
     chunk = np.stack(b[6:12])
     return dict(jax=jm.feed_chunk(chunk), port=tm.feed_chunk(chunk),
-                results=tm.result())
+                results=tm.result(), tm=tm)
+
+
+def _leaves(tree):
+    out = []
+    for v in tree:
+        out.extend(_leaves(v) if isinstance(v, tuple) else [v])
+    return out
+
+
+def _clone_tree(tree):
+    out = [_clone_tree(v) if isinstance(v, tuple) else v.clone()
+           for v in tree]
+    return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+
+def step_per_stream(cfg_t, runners, noises, frames):
+    """Each stream's ``StepRunner`` stepped frame by frame:
+    ``frames[t][i]`` is stream i's frame t; the packed rows (T, N, 21) and
+    each stream's (map, carry) after every frame (clones)."""
+    ch, cw = cropped_shape(cfg_t)
+    rows, states = [], []
+    for t, batch in enumerate(frames):
+        row = []
+        for r, src, f in zip(runners, noises, batch):
+            img = torch.from_numpy(np.ascontiguousarray(f[:ch, :cw]))
+            row.append(r.step(img, src.pose(t, 1)[0], src.boot)[0])
+        rows.append(torch.stack(row))
+        states.append([(_clone_tree(r.st.m), _clone_tree(r.st.carry))
+                       for r in runners])
+    return torch.stack(rows), states
+
+
+def assert_states_equal(maps, carries, want):
+    """Maps and carries of a MultiStream's streams against per-stream
+    (map, carry) pairs, bit for bit."""
+    assert len(maps) == len(carries) == len(want)
+    for m, c, (wm, wc) in zip(maps, carries, want):
+        for a, b in zip(_leaves(m) + _leaves(c), _leaves(wm) + _leaves(wc),
+                        strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def per_stream(multi_run):
+    """Stream i (seed i, lane i's draws) as its own ``StepRunner`` over its
+    18 frames."""
+    cfg = multi_run["cfg_t"]
+    runners = [StepRunner(cfg, False, *init_state(cfg, i, device="cpu"))
+               for i in range(2)]
+    noises = [NoiseSource(cfg, i, "cpu", multi_run["providers"][i])
+              for i in range(2)]
+    rows, states = step_per_stream(cfg, runners, noises,
+                                   multi_run["batches"])
+    return dict(rows=rows, states=states)
 
 
 def _assert_lanes_match_jax(info_t, info_j):
@@ -237,3 +300,39 @@ def test_lane_zero_matches_lone_stream(multi_run):
     solo, lane0 = st.result(), multi_run["tm"].result(0)
     np.testing.assert_array_equal(lane0.states, solo.states)
     np.testing.assert_array_equal(lane0.trajectory, solo.trajectory)
+
+
+def test_batch_frame_equals_per_stream_stepping(multi_run, per_stream):
+    """``feed`` (``batch_frame``, eagerly) over 18 frames: every row, and
+    each stream's map and carry, equal per-stream stepping bit for bit."""
+    tm = multi_run["tm"]
+    assert torch.equal(torch.cat(tm._rows), per_stream["rows"])
+    assert_states_equal(tm.m, tm.carries, per_stream["states"][-1])
+    assert tm.batch_graphs == {}
+
+
+def test_batch_chunk_equals_per_stream_stepping(chunk_run, per_stream):
+    """6 feeds, then ``batch_chunk`` (eagerly) over 6 frames: the 12 rows,
+    maps and carries equal per-stream stepping at frame 12."""
+    tm = chunk_run["tm"]
+    rows = torch.cat(tm._rows)
+    assert rows.shape == (12, 2, 21)
+    assert torch.equal(rows, per_stream["rows"][:12])
+    assert_states_equal(tm.m, tm.carries, per_stream["states"][11])
+
+
+def test_feed_chunk_over_uneven_chunks_equals_per_frame_feed(multi_run):
+    """Chunks of 5, 7 and 6 frames from frame 0 (the bootstrap in the
+    first, tracking across both seams): every row, map and carry of the
+    per-frame run, bit for bit."""
+    b = multi_run["batches"]
+    tm = TMulti(multi_run["cfg_t"], 2, seed=0, device="cpu",
+                gumbel_providers=multi_run["providers"])
+    at = 0
+    for t in (5, 7, 6):
+        info = tm.feed_chunk(np.stack(b[at:at + t]))
+        assert info.state.shape == (t, 2)
+        at += t
+    ref = multi_run["tm"]
+    assert torch.equal(torch.cat(tm._rows), torch.cat(ref._rows))
+    assert_states_equal(tm.m, tm.carries, list(zip(ref.m, ref.carries)))

@@ -19,6 +19,12 @@ the same file with the same draws exactly (the same operations on the CPU:
 the localizer's first frame relocalizes from the snapshot's pose, which is
 all a fresh carry keeps). The map stays bit-identical before and after
 serving.
+
+The batch functions the card captures, run here eagerly, against
+per-stream stepping (each stream's own ``StepRunner`` on the shared map,
+frame by frame with its draws) bit for bit, rows and carries: the chunk
+of 12 frames (``batch_chunk``) and 12 per-frame feeds (``batch_frame``);
+chunks of 5 and 7 equal the per-frame feeds.
 """
 
 import dataclasses
@@ -35,8 +41,10 @@ from sdvl_tpu_torch.io import evaluate
 from sdvl_tpu_torch.io.snapshot import save_stream_snapshot
 from sdvl_tpu_torch.io.synthetic import PlaneScene
 from sdvl_tpu_torch.pipeline.stream import SdvlStream as TStream
-from sdvl_tpu_torch.pipeline.device_fsm import FrameInfo
-from test_torch_multi_stream import N_FRAMES, _configs, _providers
+from sdvl_tpu_torch.pipeline.device_fsm import FrameInfo, StepRunner
+from sdvl_tpu_torch.pipeline.stream import NoiseSource
+from test_torch_multi_stream import (N_FRAMES, _configs, _providers,
+                                     assert_states_equal, step_per_stream)
 from torch_port_helpers import (N, assert_info_is_result, assert_info_like,
                                 lane_counts_of, ransac_gumbel)
 
@@ -185,3 +193,68 @@ def test_frozen_capacity_mismatch_raises(frozen_run):
         frozen_run["cfg_t"].sdvl, max_points=128))
     with pytest.raises(ValueError, match="capacities"):
         TMulti(cfg, 2, frozen_map=frozen_run["snap"], device="cpu")
+
+
+def _batches(frozen_run):
+    return np.repeat(frozen_run["query"][:, None], 4, axis=1)   # (T, 4, ..)
+
+
+@pytest.fixture(scope="module")
+def frozen_per_frame(frozen_run):
+    """The 4 streams fed the query one frame batch at a time."""
+    tm = TMulti(frozen_run["cfg_t"], 4, seed=7, frozen_map=frozen_run["snap"],
+                device="cpu", gumbel_providers=frozen_run["providers"])
+    for b in _batches(frozen_run):
+        tm.feed(b)
+    return tm
+
+
+@pytest.fixture(scope="module")
+def frozen_per_stream(frozen_run):
+    """Stream i as its own ``StepRunner`` on the one shared map, from the
+    carry ``MultiStream`` starts it with, fed stream i's draws."""
+    fresh = TMulti(frozen_run["cfg_t"], 4, seed=7,
+                   frozen_map=frozen_run["snap"], device="cpu")
+    cfg = fresh.cfg
+    runners = [StepRunner(cfg, False, fresh.m, c, frozen_map=True)
+               for c in fresh.carries]
+    noises = [NoiseSource(cfg, 7 + i, "cpu", frozen_run["providers"][i])
+              for i in range(4)]
+    before = [t.clone() for t in _leaves(fresh.m)]
+    rows, states = step_per_stream(cfg, runners, noises, _batches(frozen_run))
+    for a, b in zip(before, _leaves(fresh.m)):
+        assert torch.equal(a, b), "per-stream stepping wrote the map"
+    return dict(rows=rows, carries=[c for _, c in states[-1]])
+
+
+def _assert_carries_equal(tm, carries):
+    assert_states_equal([()] * len(carries), tm.carries,
+                        [((), c) for c in carries])
+
+
+def test_frozen_batch_chunk_equals_per_stream_stepping(frozen_run,
+                                                       frozen_per_stream):
+    tm = frozen_run["tm"]
+    assert torch.equal(torch.cat(tm._rows), frozen_per_stream["rows"])
+    _assert_carries_equal(tm, frozen_per_stream["carries"])
+
+
+def test_frozen_batch_frame_equals_per_stream_stepping(frozen_per_frame,
+                                                       frozen_per_stream):
+    assert torch.equal(torch.cat(frozen_per_frame._rows),
+                       frozen_per_stream["rows"])
+    _assert_carries_equal(frozen_per_frame, frozen_per_stream["carries"])
+
+
+def test_frozen_feed_chunk_over_uneven_chunks_equals_per_frame_feed(
+        frozen_run, frozen_per_frame):
+    tm = TMulti(frozen_run["cfg_t"], 4, seed=7, frozen_map=frozen_run["snap"],
+                device="cpu", gumbel_providers=frozen_run["providers"])
+    before = [t.clone() for t in _leaves(tm.m)]
+    batches = _batches(frozen_run)
+    tm.feed_chunk(batches[:5])
+    tm.feed_chunk(batches[5:])
+    assert torch.equal(torch.cat(tm._rows), torch.cat(frozen_per_frame._rows))
+    _assert_carries_equal(tm, frozen_per_frame.carries)
+    for a, b in zip(before, _leaves(tm.m)):
+        assert torch.equal(a, b), "the frozen map changed"
