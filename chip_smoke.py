@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port: full SLAM mode, serving, multi-
-stream serving, the command-line program and the sharded bundle adjustment,
-on one card.
+stream serving, the command-line program, the sharded bundle adjustment and
+a long live-mapping run, on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU, ``nvcc`` and
 PyTorch built for CUDA:
@@ -166,7 +166,28 @@ ending the run with a non-zero exit code:
    against ``global_ba()`` on run 2's map at 100 slots (Cholesky) and
    padded to 1000 (PCG): poses within 5e-4, points within 5e-3, gated
    observations equal; all timed, the replays apart.
-9. prints one JSON line ``{"kernels": [...]}`` and, last,
+9. long    -- the JAX package's long live-mapping run
+   (``sdvl_tpu_torch.tools.long_run.run_protocol``, the port's copy of
+   ``tools/long_run.py``) at the depth of
+   ``tests/data/torch_long_run_record.npz``: its 640x480 scene and config
+   (a plane at z = 8 under a 4096-px texture, ``min_avg_shift`` 10,
+   ``min_keyframe_its`` 10, 160 point slots per keyframe slot, 512
+   candidate slots) with the record's keyframe slots, frames and lawnmower
+   path, 5 black frames at 0.6 of the run, chunks of 16 through
+   ``SdvlStream.feed_chunk`` (one replay each), the frames rendered by a
+   pool of threads ahead of the feed, the card drawing its own RANSAC
+   noise. Checks the frames' SHA-256 against the record's, the JAX tool's
+   assertions (final RUNNING, tracked ratio > 0.9, a relocalization after
+   the blackout, live keyframes <= K, insertions >= 3K, evictions and
+   prunes > 0, a finite ATE), the bootstrap frame against the recorded
+   JAX runs', the tracked ratio, insertions, evictions, prunes, LOST frames
+   and Sim(3) ATE against the recorded JAX runs' range (one per seed)
+   widened on each side by its own width, at least by ``LONG_FLOORS``; one
+   replay per chunk, no synchronisation in a chunk that captures nothing,
+   kernel launches = frames + 2 per capture. Prints both rates (chunk
+   replays alone, CUDA events; the harness's wall clock with rendering
+   overlapped), the first chunk's seconds, the capture's and the pool.
+10. prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``. Launches are counted by the kernel
    itself, in a counter on the card that each launch adds 1 to (a launch
    replayed from a CUDA graph included), set to 0 just before a path is
@@ -181,15 +202,17 @@ ending the run with a non-zero exit code:
    ``multi_chunk_1``, ``multi_chunk_4``, ``multi_chunk_8``, and
    ``multi_slam``; ``cli_stream``, ``cli_host``, ``cli_host_1000``,
    ``cli_async``, ``cli_async_1000``, ``cli_viz``
-   for the cli phase; ``host``, ``host_eager`` for phase host; ``chunk``).
+   for the cli phase; ``host``, ``host_eager`` for phase host; ``chunk``;
+   ``long`` for phase long).
    ``ms`` is the pallas border rule's device time,
    ``plain_border_ms`` the plain rule's. The entries ``small_eig_eigh``
    and ``small_eig_svd3`` give each kernel's launches by path (counted by
-   the kernel; ``small_eig_launches_by_path`` both together), its times at
+   the kernel, beside ``frames_by_path``; ``small_eig_launches_by_path``
+   both together), its times at
    the bootstrap's largest call (the RANSAC batch; the 3x3 SVD), every
    shape in ``by_shape``, and its ``ptxas`` figures;
-   ``set_condition_kernel`` gives the condition kernel's launches by path
-   and the if/else pairs among them (each pair one launch that sets both
+   ``set_condition_kernel`` gives the condition kernel's launches and
+   frames by path and the if/else pairs among them (each pair one launch that sets both
    of its nodes, counted by the kernel: at least one a frame),
    ``per_branch_launches_by_path`` their sum (what a condition per branch
    would launch), the time of one IF node with an empty body beside the
@@ -224,6 +247,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MAP_NPZ = os.path.join(ROOT, "tests", "data", "torch_localize_map.npz")
 QUERY_NPZ = os.path.join(ROOT, "tests", "data", "torch_localize_query.npz")
 SLAM_NPZ = os.path.join(ROOT, "tests", "data", "torch_slam_record.npz")
+LONG_NPZ = os.path.join(ROOT, "tests", "data", "torch_long_run_record.npz")
 
 FAST_T, ST_T = 10.0, 50.0
 
@@ -2908,7 +2932,115 @@ def run_cli_phase(card: str, device: str = "cuda",
     return out
 
 
-def small_eig_entries(eig, slam, graph, chunk, host, card) -> list:
+# How far the card's long run may lie outside the range of the recorded JAX
+# runs (one per seed), in each of the tool's figures: the spread of the JAX
+# seeds themselves on each side (so a figure may lie as far outside their
+# range as the range is wide), and at least these floors: the spread of
+# both packages' runs of the recorded configuration, the JAX package's three
+# recorded seeds and three runs of the port on an H100 with noise seeds 0,
+# 1, 2 together (tracked ratio 0.9888-0.9938, insertions 39-46, evictions
+# 24-29, prunes 3-5, LOST frames 14-26, ATE 0.0137-0.3819), rounded up
+LONG_FLOORS = dict(tracked_ratio=0.005, keyframes_total_inserted=7,
+                   evictions=5, prunes=2, n_lost_frames=12, ate_rmse=0.01)
+
+
+def long_ranges(jax_stats: list) -> dict:
+    """Per figure of ``LONG_FLOORS``: the recorded JAX runs' (min, max),
+    widened on each side by their spread, at least the floor."""
+    out = {}
+    for k, floor in LONG_FLOORS.items():
+        v = [s[k] for s in jax_stats]
+        pad = max(max(v) - min(v), floor)
+        out[k] = (min(v) - pad, max(v) + pad)
+    return out
+
+
+def run_long_phase(card: str) -> dict:
+    """Phase long (see the module docstring): the JAX tool's long
+    live-mapping run through ``SdvlStream.feed_chunk`` at the recorded
+    depth, one replay per chunk, held to the recorded JAX runs."""
+    from sdvl_tpu_torch.tools import long_run
+
+    rec = np.load(LONG_NPZ)
+    proto = json.loads(bytes(rec["protocol"]).decode())
+    jax_stats = json.loads(bytes(rec["jax_stats"]).decode())
+    K, n, chunk = proto["kf"], proto["frames"], proto["chunk"]
+    cfg, scene = long_run.long_run_config(K, proto["points"])
+    poses = long_run.lawnmower_trajectory(n, **proto["path"])
+    syncs, replays, captured = [], [], []
+
+    def on_chunk(st, feed):
+        n0, g0 = st.runner.replays, len(st.runner.chunk_graphs)
+        syncs.append(len(sync_sites(feed)))
+        replays.append(st.runner.replays - n0)
+        captured.append(len(st.runner.chunk_graphs) > g0)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r, _, stats = long_run.run_protocol(
+        cfg, scene, n, chunk=chunk, blackout_frac=proto["blackout_frac"],
+        blackout_len=proto["blackout_len"], poses=poses, seed=0,
+        device="cuda", on_chunk=on_chunk)
+    seconds = time.perf_counter() - t0
+    launches, caps = read_counts()
+    side = side_counts()
+    want = bytes(rec["frames_sha256"]).decode()
+    assert stats["frames_sha256"] == want, (
+        f"rendered frames differ from the recorded run's: SHA-256 "
+        f"{stats['frames_sha256']} != {want}")
+    long_run.check_stats(stats, K)
+    boot = int(np.argmax(r.states == 2))
+    boot_j = sorted({int(np.argmax(s == 2)) for s in rec["jax_state"]})
+    assert boot in boot_j, f"bootstrap at frame {boot}, JAX at {boot_j}"
+    ranges = long_ranges(jax_stats)
+    outside = {k: (stats[k], lo, hi) for k, (lo, hi) in ranges.items()
+               if not lo <= stats[k] <= hi}
+    assert not outside, f"outside the recorded runs' range: {outside}"
+    n_chunks = -(-n // chunk)
+    assert replays == [1] * n_chunks, f"replays per chunk {replays}"
+    sizes = {min(chunk, n - i) for i in range(0, n, chunk)}
+    assert caps == len(sizes) and frame_launches(launches, caps) == n, (
+        launches, caps)
+    bad = [i for i, (s, c) in enumerate(zip(syncs, captured)) if s and not c]
+    assert not bad, f"chunks that captured nothing synchronised: {bad}"
+    pool = sum(stats["pool_mib"].values())
+    out = dict(frames=n, chunk=chunk, kf_slots=K, point_slots=proto["points"],
+               stats=stats, jax_stats=jax_stats, ranges=ranges,
+               bootstrap_frame=boot, launches=launches, captures=caps,
+               side_counts=side, replays_per_chunk=sorted(set(replays)),
+               syncs_after_capture=sum(s for s, c in zip(syncs, captured)
+                                       if not c),
+               seconds=seconds, pool_mib=pool)
+    say("long", f"{n} frames at 640x480, {K} keyframe / {proto['points']} "
+                f"point slots, chunks of {chunk}, 5 black frames from frame "
+                f"{int(n * proto['blackout_frac'])}: frames' SHA-256 equal "
+                f"to the JAX record's; bootstrap at frame {boot} (JAX "
+                f"runs: {boot_j}); the tool's assertions hold")
+    say("long", "card / JAX seeds " + str(rec["seeds"].tolist()) + ": "
+                + "; ".join(f"{k} {stats[k]} / "
+                            f"{[s[k] for s in jax_stats]} (allowed "
+                            f"{lo:.4g}..{hi:.4g})"
+                            for k, (lo, hi) in ranges.items())
+                + f"; lost segments {stats['lost_segments']} / "
+                  f"{[s['lost_segments'] for s in jax_stats]}")
+    say("long", f"one replay per chunk ({n_chunks} chunks), "
+                f"{out['syncs_after_capture']} synchronisations in the "
+                f"chunks that captured nothing; kernel launches {launches} "
+                f"= 1 x {n} frames + {launches - n} in the capture's eager "
+                f"passes; small eigensolver {side['small_eig']}, condition "
+                f"kernel {side['conditions']} (if/else pairs "
+                f"{side['pairs']})")
+    say("long", f"replays alone {stats['replay_fps']} frames/s, harness "
+                f"(rendering in {long_run.default_workers('cuda')} "
+                f"threads, overlapped) {stats['harness_fps']} frames/s; "
+                f"first chunk (capture and bootstrap) {stats['compile_s']} "
+                f"s, capture s {stats['capture_s']}, pool "
+                f"{pool:.1f} MiB; on {card}")
+    return out
+
+
+def small_eig_entries(eig, slam, graph, chunk, host, long, card) -> list:
     """The ``kernels`` line's entries of the small eigensolver's two
     kernels: launches by path (counted by each kernel), errors against the
     plain version over every checked case, times at the bootstrap's largest
@@ -2916,7 +3048,11 @@ def small_eig_entries(eig, slam, graph, chunk, host, card) -> list:
     ``by_shape``)."""
     paths = {"slam": slam["side_counts"], "slam_eager": graph["side_counts"],
              "chunk": chunk["side_counts"], "host": host["side_counts"],
-             "host_eager": host["eager_side_counts"]}
+             "host_eager": host["eager_side_counts"],
+             "long": long["side_counts"]}
+    frames = {"slam": slam["frames"], "slam_eager": graph["eager_frames"],
+              "chunk": chunk["frames"], "host": host["frames"],
+              "host_eager": host["eager_frames"], "long": long["frames"]}
     out = []
     for kernel, prefix, timed, replaces in (
             ("eigh", "eigh_", "eigh_ransac_9x9",
@@ -2938,6 +3074,7 @@ def small_eig_entries(eig, slam, graph, chunk, host, card) -> list:
             "launches": slam["side_counts"][kernel],
             "frames": slam["frames"],
             "launches_by_path": {k: v[kernel] for k, v in paths.items()},
+            "frames_by_path": frames,
             # both kernels together, as PR 9 counted them
             "small_eig_launches_by_path": {k: v["small_eig"]
                                            for k, v in paths.items()},
@@ -3124,8 +3261,14 @@ def main() -> int:
     dist_out = run_dist_phase(card, cli.pop("_map100"))
     say("dist", f"phase took {time.perf_counter() - t0:.1f} s")
 
-    # --------------------------------------------------------- 9 kernels
-    on_paths = (("slam", slam), ("chunk", chunk), ("host", host))
+    # ------------------------------------------------------------ 9 long
+    t0 = time.perf_counter()
+    long_out = run_long_phase(card)
+    say("long", f"phase took {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------------- 10 kernels
+    on_paths = (("slam", slam), ("chunk", chunk), ("host", host),
+                ("long", long_out))
     conditions = {k: v["side_counts"]["conditions"] for k, v in on_paths}
     pairs = {k: v["side_counts"]["pairs"] for k, v in on_paths}
     # a condition per branch: a pair's second node had a launch of its own
@@ -3133,7 +3276,7 @@ def main() -> int:
     for k in conditions:
         # every frame of the stream dispatches on its state with a pair,
         # every run of the host driver at least once (the seed stage's)
-        least_pairs = 1 if k == "host" else slam["frames"]
+        least_pairs = 1 if k == "host" else dict(on_paths)[k]["frames"]
         assert least_pairs <= pairs[k] <= conditions[k], (
             f"{k}: {pairs[k]} if/else pairs in {conditions[k]} "
             f"condition-kernel launches, at least {least_pairs} expected")
@@ -3153,7 +3296,9 @@ def main() -> int:
                             0),
              "slam_map_served": (slam["loc_launches"], slam["loc_frames"],
                                  slam["loc_captures"]),
-             "localizer": (launches, n, slice_caps)}
+             "localizer": (launches, n, slice_caps),
+             "long": (long_out["launches"], long_out["frames"],
+                      long_out["captures"])}
     paths.update({k: (v["launches"], v["frames"], v["captures"])
                   for k, v in multi.items()})
     paths.update({f"cli_{k}": (cli[k]["launches"], cli[k]["frames"],
@@ -3203,9 +3348,10 @@ def main() -> int:
                 for k, v in cli.items()},
         "dist": dist_out,
         "chunk": chunk,
+        "long": long_out,
         "conditional_nodes": cond,
         "card": card,
-    }, *small_eig_entries(eig, slam, graph, chunk, host, card), {
+    }, *small_eig_entries(eig, slam, graph, chunk, host, long_out, card), {
         "name": "set_condition_kernel",
         "route": "cuda",
         "source": "sdvl_tpu_torch/csrc/graph_if.cu",
@@ -3219,6 +3365,7 @@ def main() -> int:
         "launches": slam["side_counts"]["conditions"],
         "frames": slam["frames"],
         "launches_by_path": conditions,
+        "frames_by_path": {k: v["frames"] for k, v in on_paths},
         "pairs_by_path": pairs,
         # with a condition per branch: the launches and a second per pair
         "per_branch_launches_by_path": per_branch,

@@ -25,10 +25,23 @@ committed under ``tests/data/``:
   noise of each frame that tracks), the per-frame record and the final
   map's keyframe count, keyframe frame ids and point count.
 
-Run from the repository root (CPU is enough, a few minutes of XLA compile):
+* ``torch_long_run_record.npz`` (``--long-record``, which writes this file
+  only) -- the JAX package's long live-mapping run (``tools/long_run.py``,
+  ``run_protocol``) at the configuration of its ``main`` (640x480, a plane
+  at z = 8 under a 4096-px texture, a lawnmower path, a 5-frame blackout)
+  cut to ``LONG_KF`` keyframe slots and ``LONG_FRAMES`` frames, once per
+  seed of ``LONG_SEEDS``: the SHA-256 of the uint8 frames, the protocol's
+  numbers (so that the card run reads them from here), and per seed the
+  per-frame states, keyframe flags, match counts and trajectory, and the
+  tool's ``stats``. The per-frame RANSAC noise is not stored: the card run
+  draws its own, and the seeds measure the reference's own spread.
+
+Run from the repository root (CPU is enough, a few minutes of XLA compile;
+``--long-record`` about 5 minutes a seed):
 
     JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py
     JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py --slam-record
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py --long-record
 """
 
 from __future__ import annotations
@@ -191,20 +204,100 @@ def slam_record(out_dir: str) -> str:
     return path
 
 
+# The long run's protocol at the card's depth: the JAX tool's 640x480
+# configuration (tools/long_run.py main) cut from 100 keyframe slots and
+# 13000 frames to these, the lawnmower shrunk with it so that the image
+# moves about as far per frame as at the tool's defaults
+LONG_KF = 12
+LONG_FRAMES = 2400
+LONG_PATH = dict(ax=12.0, y0=-6.0, y1=6.0, k=5, legs=2)
+LONG_CHUNK = 16
+LONG_BLACKOUT = (0.6, 5)      # fraction of the run, frames
+LONG_SEEDS = (0, 1, 2)
+
+
+def long_setup(kf: int = LONG_KF):
+    """Scene and config of the JAX tool's ``main`` (``tools/long_run.py``)
+    at ``kf`` keyframe slots (160 point slots each)."""
+    from sdvl_tpu.io.synthetic import PlaneScene, make_texture
+    from sdvl_tpu.pipeline.config import CameraConfig, Config, SdvlConfig
+
+    z = 8.0
+    scene = PlaneScene(fx=517.3, fy=516.5, cx=318.6, cy=255.3,
+                       width=640, height=480, plane_z=z, extent=34.0,
+                       texture=make_texture(4096, seed=0))
+    cfg = Config(
+        camera=CameraConfig(width=640, height=480, fx=517.3, fy=516.5,
+                            u0=318.6, v0=255.3, dist=(0, 0, 0, 0, 0)),
+        sdvl=SdvlConfig(min_avg_shift=10.0, max_keyframes=kf,
+                        min_keyframe_its=10, min_init_corners=40,
+                        max_points=160 * kf, max_candidates=512,
+                        map_scale=z),
+    )
+    return scene, cfg
+
+
+def long_record(out_dir: str) -> str:
+    """Write ``torch_long_run_record.npz``; returns its path."""
+    import json
+
+    from tools.long_run import lawnmower_trajectory, run_protocol
+
+    scene, cfg = long_setup()
+    poses = lawnmower_trajectory(LONG_FRAMES, **LONG_PATH)
+    frac, length = LONG_BLACKOUT
+    b0 = int(LONG_FRAMES * frac)
+    black = set(range(b0, b0 + length))
+    frames = [np.zeros((scene.height, scene.width), np.uint8) if i in black
+              else np.round(np.clip(scene.render(p), 0, 255)).astype(np.uint8)
+              for i, p in enumerate(poses)]
+    runs = []
+    for seed in LONG_SEEDS:
+        r, _, stats = run_protocol(cfg, scene, LONG_FRAMES,
+                                   chunk=LONG_CHUNK, blackout_frac=frac,
+                                   blackout_len=length, poses=poses,
+                                   seed=seed)
+        print(f"long record, seed {seed}:", json.dumps(stats))
+        runs.append((r, stats))
+    path = os.path.join(out_dir, "torch_long_run_record.npz")
+    np.savez_compressed(
+        path,
+        frames_sha256=np.frombuffer(frames_sha256(frames).encode(),
+                                    dtype=np.uint8),
+        protocol=np.frombuffer(json.dumps(dict(
+            kf=LONG_KF, points=160 * LONG_KF, frames=LONG_FRAMES,
+            path=LONG_PATH, chunk=LONG_CHUNK, blackout_frac=frac,
+            blackout_len=length)).encode(), dtype=np.uint8),
+        seeds=np.asarray(LONG_SEEDS, np.int32),
+        jax_state=np.stack([r.states for r, _ in runs]).astype(np.int8),
+        jax_is_keyframe=np.stack([r.is_keyframe for r, _ in runs]),
+        jax_n_matches=np.stack([r.n_matches for r, _ in runs]
+                               ).astype(np.int16),
+        jax_trajectory=np.stack([r.trajectory for r, _ in runs]
+                                ).astype(np.float32),
+        jax_stats=np.frombuffer(json.dumps([s for _, s in runs]).encode(),
+                                dtype=np.uint8),
+    )
+    print(path, os.path.getsize(path) / 1e6, "MB")
+    return path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "data"))
     ap.add_argument("--slam-record", action="store_true",
                     help="write torch_slam_record.npz only")
+    ap.add_argument("--long-record", action="store_true",
+                    help="write torch_long_run_record.npz only")
     args = ap.parse_args(argv)
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    if args.slam_record:
+    if args.slam_record or args.long_record:
         os.makedirs(args.out, exist_ok=True)
-        slam_record(args.out)
+        (slam_record if args.slam_record else long_record)(args.out)
         return
 
     from sdvl_tpu.io.snapshot import save_stream_snapshot

@@ -18,6 +18,10 @@ sweep of every keyframe) and in serving mode:
   its ``feed``);
 * ``feed_chunk`` is one replay per chunk (a WHILE node over the step) and
   equals the per-frame graph path bit for bit, from frame 0;
+* the long live-mapping run (``tools.long_run.run_protocol`` at the CPU
+  test's scale: eviction, pruning, a blackout and its relocalization) as
+  one replay per chunk equals ``graphs=False`` bit for bit: rows, map
+  counters and the final map;
 * global BA (``mapper.global_ba``) is one replay, bit-identical to
   ``graphs=False``, on the dense and on the PCG route, with its CG counts;
 * ``MultiStream`` of 3 streams, in full SLAM mode and serving a frozen
@@ -168,6 +172,50 @@ def test_feed_chunk_is_one_replay_per_chunk(cuda_device):
         assert a.dtype == b.dtype and torch.equal(a, b)
     for a, b in zip(one.last_corners, st.last_corners):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_long_run_replays_equal_the_eager_card_path(cuda_device):
+    """The long live-mapping run (``tools.long_run.run_protocol``) at the
+    CPU test's scale (``tests/test_torch_long_run.py``: 320x240, 6
+    keyframe slots, 360 frames in chunks of 16, 5 black frames at 0.65),
+    eagerly and as one replay per chunk: the store fills and evicts, prunes
+    and relocalizes after the blackout, and every row, the map's counters
+    and the final map are bit-identical between the two."""
+    from sdvl_tpu_torch.io.synthetic import PlaneScene
+    from sdvl_tpu_torch.pipeline import config as tcfg
+    from sdvl_tpu_torch.tools import long_run
+
+    cfg = tcfg.Config(
+        camera=tcfg.CameraConfig(width=320, height=240, fx=210.0, fy=210.0,
+                                 u0=159.5, v0=119.5, dist=(0, 0, 0, 0, 0)),
+        sdvl=tcfg.SdvlConfig(min_avg_shift=5.0, max_keyframes=6,
+                             min_keyframe_its=4, min_init_corners=30,
+                             max_points=1024, max_candidates=256,
+                             min_matches=15, map_scale=4.0))
+    runs = {}
+    for graphs in (False, True):
+        kept = []
+        _, _, stats = long_run.run_protocol(
+            cfg, PlaneScene(fx=210.0, fy=210.0, cx=159.5, cy=119.5,
+                            width=320, height=240, plane_z=4.0, extent=12.0),
+            360, chunk=16, blackout_frac=0.65, blackout_len=5, span=10.0,
+            device="cuda", graphs=graphs,
+            on_chunk=lambda s, f: (kept.append(s), f()))
+        runs[graphs] = kept[-1], stats
+    (eager, s_eager), (graph, s_graph) = runs[False], runs[True]
+    assert s_graph["replays"] == s_graph["chunks"] == 23
+    assert s_eager["replays"] == 0
+    assert torch.equal(torch.stack(graph._rows), torch.stack(eager._rows))
+    for name in ("n_keyframes", "n_evicted", "n_pruned"):
+        assert int(getattr(graph.m, name)) == int(getattr(eager.m, name))
+    for a, b in zip(_leaves(eager.m) + _leaves(eager.carry),
+                    _leaves(graph.m) + _leaves(graph.carry)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert s_graph["evictions"] > 0 and s_graph["prunes"] > 0, s_graph
+    assert s_graph["reloc_after_blackout"], s_graph
+    assert s_graph["keyframes_live"] <= 6 < s_graph[
+        "keyframes_total_inserted"], s_graph
 
 
 @pytest.mark.cuda

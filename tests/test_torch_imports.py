@@ -63,6 +63,11 @@ def test_port_package_mirrors_the_reference_layout():
     for rel in pairs:
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu", rel)), rel
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu_torch", rel)), rel
+    # the JAX side's root tools the port has its own copy of
+    for rel in ("long_run.py",):
+        assert os.path.isfile(os.path.join(ROOT, "tools", rel)), rel
+        assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu_torch", "tools",
+                                           rel)), rel
     assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu_torch", "ops", "cuda",
                                        "detect.py"))
     assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu_torch", "csrc",

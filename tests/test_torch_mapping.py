@@ -587,3 +587,46 @@ def test_update_map_equal(live):
     mt2 = tmapper.update_map(live["mt"](), intr_t, live["pyr_t"],
                              live["pose_t"], **kw)
     assert_maps_match(mt2, mj2, atol=1e-4)
+
+
+# ------------------------------------------------ stores filled to the end
+
+@pytest.mark.parametrize("n_free", [0, 3], ids=["full", "three_free"])
+def test_promotion_into_a_full_point_store_equal(live, n_free):
+    """Converged candidates while the point store has no free slot, or
+    fewer than the candidates: ``alloc_slots`` rejects the rest with the
+    drop index, whose scatters (into the dump row) write nothing, and the
+    rejected candidates stay candidates, as in the reference."""
+    mj = live["mj"]
+    P = mj.pt_valid.shape[0]
+    free = np.flatnonzero(~np.asarray(mj.pt_valid))[:n_free]
+    pt_valid = np.ones(P, bool)
+    pt_valid[free] = False
+    # every live candidate converges: a tight filter and a high inlier ratio
+    cand = np.asarray(mj.cand_valid)
+    assert cand.sum() > n_free + 5
+    sigma2 = np.where(cand, 1e-8, np.asarray(mj.cand_sigma2))
+    mj0 = mj._replace(pt_valid=jnp.asarray(pt_valid),
+                      cand_sigma2=jnp.asarray(sigma2, jnp.float32),
+                      cand_a=jnp.where(mj.cand_valid, 40.0, mj.cand_a))
+    mj2 = jdf.promote_converged(mj0, 0.1)
+    mt2 = tdf.promote_converged(map_from_numpy(tree_to_numpy(mj0), "cpu"),
+                                0.1)
+    assert_maps_match(mt2, mj2, atol=1e-5)
+    assert int(N(mt2.pt_valid).sum()) == P
+    assert int(N(mt2.cand_valid).sum()) == cand.sum() - n_free
+
+
+def test_seeding_into_a_full_candidate_store_equal(live):
+    """A keyframe inserted while every candidate slot is taken: no seed
+    finds a slot, nothing is written through the drop index, and the map
+    equals the reference's."""
+    mj = live["mj"]
+    C = mj.cand_valid.shape[0]
+    full = mj._replace(cand_valid=jnp.ones(C, bool))
+    mj2, sj, mt2, st = _add_kf(full, live,
+                               map_from_numpy(tree_to_numpy(full), "cpu"),
+                               N_MAP, np.asarray(live["pose_j"]))
+    assert sj == st
+    assert_maps_match(mt2, mj2, atol=1e-3)
+    np.testing.assert_array_equal(N(mt2.cand_px), np.asarray(full.cand_px))
