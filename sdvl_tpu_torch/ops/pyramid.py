@@ -17,28 +17,32 @@ _K5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 
 def _pad2d(img: torch.Tensor, pad, mode: str) -> torch.Tensor:
-    """``F.pad`` of an (H, W) image; ``pad`` = (left, right, top, bottom)."""
-    return F.pad(img[None, None], pad, mode=mode)[0, 0]
+    """``F.pad`` of (..., H, W) images; ``pad`` = (left, right, top,
+    bottom)."""
+    H, W = img.shape[-2:]
+    out = F.pad(img.reshape(-1, 1, H, W), pad, mode=mode)
+    return out.reshape(img.shape[:-2] + out.shape[-2:])
 
 
 def _sep_filter(img: torch.Tensor, taps, mode: str = "reflect") -> torch.Tensor:
     """Separable odd-length filter via padded slices (no conv)."""
     r = len(taps) // 2
-    H, W = img.shape
+    H, W = img.shape[-2:]
     p = _pad2d(img, (0, 0, r, r), mode)
-    v = sum(w * p[i: i + H] for i, w in enumerate(taps))
+    v = sum(w * p[..., i: i + H, :] for i, w in enumerate(taps))
     p = _pad2d(v, (r, r, 0, 0), mode)
-    return sum(w * p[:, i: i + W] for i, w in enumerate(taps))
+    return sum(w * p[..., i: i + W] for i, w in enumerate(taps))
 
 
 def _blur_downsample(img: torch.Tensor) -> torch.Tensor:
-    return _sep_filter(img, _K5)[::2, ::2].contiguous()
+    return _sep_filter(img, _K5)[..., ::2, ::2].contiguous()
 
 
 def build_pyramid(img: torch.Tensor, levels: int = 5) -> list:
-    """Return ``levels`` images, level 0 = input (H, W) as float32. H and W
-    must be divisible by ``2**(levels-1)`` (the stream crops frames once at
-    ingest to guarantee it)."""
+    """Return ``levels`` images, level 0 = input (..., H, W) as float32 (a
+    stack of images builds a stack per level). H and W must be divisible by
+    ``2**(levels-1)`` (the stream crops frames once at ingest to guarantee
+    it)."""
     out = [img.float().contiguous()]
     for _ in range(1, levels):
         out.append(_blur_downsample(out[-1]))

@@ -275,6 +275,22 @@ class SdvlStream:
     def carry(self, carry) -> None:
         self._adopt(self.m, carry)
 
+    def write_carry(self, **fields) -> None:
+        """Write ``fields`` of the carry (``SlamCarry`` names; numbers or
+        arrays) into the stream's storage in place: the graphs captured so
+        far replay on, where setting ``carry`` starts a new runner that
+        captures again. Numbers are filled on the device, arrays uploaded
+        through pinned memory: nothing synchronises."""
+        carry = self.carry
+        for name, value in fields.items():
+            dst = getattr(carry, name)
+            if isinstance(value, (int, float, bool)):
+                dst.fill_(value)
+            else:
+                src = torch.as_tensor(np.asarray(value)).to(dst.dtype)
+                dst.copy_(self._uploads.upload(src.reshape(dst.shape)
+                                               .numpy()))
+
     # --------------------------------------------------------- serving
     @classmethod
     def localizer(cls, config: Config, snapshot_path: str, seed: int = 0,

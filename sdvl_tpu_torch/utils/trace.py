@@ -122,3 +122,23 @@ def torch_profile(logdir: str, timeline: bool = False):
         f.write(prof.key_averages().table(row_limit=60))
     if timeline:
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def sync_sites(fn) -> List[str]:
+    """Run ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``; the
+    ``file:line`` of each synchronisation it made (none off the card)."""
+    import warnings
+
+    if not torch.cuda.is_available():
+        fn()
+        return []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        was = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(was)
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]

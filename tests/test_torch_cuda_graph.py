@@ -33,6 +33,13 @@ sweep of every keyframe) and in serving mode:
   all-reduces in the WHILE bodies), within ``tests/test_torch_dist.py``'s
   tolerances of the eager mesh path and of one process, and its pool is
   freed with it;
+* the Zurich-capacity tool (``tools.zurich_scale_smoke``) and the capacity
+  probe (``tools.capacity_probe``) at their CPU tests' scales: global BA
+  over 220 of 256 filled slots one replay, serving over that map one
+  capture for the per-frame feeds (the warm reloc step a replay, the LOST
+  carry written in place) and one for the chunk graph, the probe one
+  replay per chunk at 8 and 72 slots; each bit-identical to
+  ``graphs=False``;
 * ``feed(block=False)`` returns before the frame is done;
 * a graph's private memory pool is freed with the graph: serving streams
   built and dropped leave the card's reserved memory where it was.
@@ -724,3 +731,104 @@ def test_while_node_reads_its_predicate_where_cond_wrote_it(cuda_device,
         torch.cuda.synchronize()
         assert int(leaf[0]) == want and int(bound) == want
         assert graph_if.launches() == 2 * (1 + want)
+
+
+@pytest.mark.cuda
+def test_zurich_global_ba_replay_equals_eager(cuda_device):
+    """The Zurich tool's global BA at the CPU test's scale
+    (``tests/test_torch_zurich_scale.py``: 220 of 256 keyframe slots filled,
+    512 points, 128x160): one replay with no synchronisation before its
+    result, bit-identical to ``graphs=False`` (map, CG counts), and the
+    tool's ``e1 < 0.35 * e0``."""
+    from sdvl_tpu_torch.tools import zurich_scale_smoke as z
+
+    intr, _, _, m, _, _ = z.build_map(220, 512, 256, 128, 160, "cuda")
+    noise = z.draws(256, 512, "cuda")
+    runs = {g: z.run_global_ba(m, intr, *noise, graphs=g)
+            for g in (False, True)}
+    eager, graph = runs[False], runs[True]
+    assert graph["replays"] == 1 and graph["sync_sites"] == []
+    for a, b in zip(_leaves(eager["map"]), _leaves(graph["map"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert eager["cg_iterations"] == graph["cg_iterations"]
+    assert len(graph["cg_iterations"]) == 10
+    assert graph["e1"] == eager["e1"] < 0.35 * graph["e0"]
+
+
+@pytest.mark.cuda
+def test_zurich_serving_replays_equal_eager(cuda_device):
+    """The Zurich tool's serving phase at the CPU test's scale
+    (``tests/test_torch_zurich_serve.py``: 220 of 256 slots, 320x240): on
+    the graph path one capture for the per-frame feeds (the cold reloc
+    step), one for the chunk graph, one replay per feed or chunk, the warm
+    reloc step a replay on the cold step's runner, the standalone
+    relocalizer a replay per call; every frame's pose, state and counts and
+    each lane budget's result bit-identical to ``graphs=False``."""
+    from sdvl_tpu_torch.tools import zurich_scale_smoke as z
+
+    intr, scene, cfg, m, kf_poses, _ = z.build_map(220, 512, 256, 240, 320,
+                                                   "cuda")
+    phase = dict(chunk=8, steady=8, n_chunks=2, lanes=(16, 64, 240))
+    q = z.query_views(scene, kf_poses, n=17)
+    runs = {}
+    for graphs in (False, True):
+        calls = []
+
+        def on_feed(st, feed):
+            g0 = (st.runner.graph, len(st.runner.chunk_graphs))
+            n0 = st.runner.replays
+            feed()
+            calls.append((st.runner, st.runner.replays - n0,
+                          (st.runner.graph, len(st.runner.chunk_graphs))
+                          != g0))
+
+        stats, res, lanes = z.serve_smoke(m, intr, cfg, kf_poses, q,
+                                          device="cuda", graphs=graphs,
+                                          on_feed=on_feed, **phase)
+        runs[graphs] = stats, res, lanes, calls
+    (se, re_, le, ce), (sg, rg, lg, cg) = runs[False], runs[True]
+    assert all(c[0] is cg[0][0] for c in cg)
+    assert [c[1] for c in cg] == [1] * len(cg)
+    # captures: the cold reloc step and the first chunk (index 2 + steady)
+    assert [i for i, c in enumerate(cg) if c[2]] == [0, 10]
+    assert sg["serve_captures"] == 2 and se["serve_replays"] == 0
+    assert sg["reloc_lane_replays"] == {16: 9, 64: 9, 240: 9}
+    for name in ("poses_raw", "states", "n_matches", "quality"):
+        np.testing.assert_array_equal(getattr(rg, name), getattr(re_, name))
+    assert sg["serve_relocalized"] and sg["serve_final_state"] == "RUNNING"
+    for n in phase["lanes"]:
+        for a, b in zip(le[n], lg[n]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_capacity_probe_replays_equal_eager(cuda_device):
+    """The capacity probe at the CPU test's scale
+    (``tests/test_torch_capacity_probe.py``: 320x240, 512 point and 256
+    candidate slots, 64 frames in chunks of 16) at 8 and 72 keyframe slots:
+    one replay per chunk, no synchronisation in a chunk that captures
+    nothing, and every frame and the final map bit-identical to
+    ``graphs=False``."""
+    from sdvl_tpu_torch.tools import capacity_probe as cp
+
+    scene, cfg = cp.probe_config(240, 320)
+    cfg = dataclasses.replace(cfg, sdvl=dataclasses.replace(
+        cfg.sdvl, max_points=512, max_candidates=256))
+    _, frames = cp.probe_frames(scene, 64)
+    for K in (8, 72):
+        runs = {}
+        for graphs in (False, True):
+            kept = []
+            out = cp.probe_one(K, frames, cfg, device="cuda", graphs=graphs,
+                               on_chunk=lambda s, f: (kept.append(s), f()))
+            runs[graphs] = out, kept[-1]
+        (oe, se), (og, sg) = runs[False], runs[True]
+        assert og["replays_per_chunk"] == [1] * 4
+        assert og["syncs_after_capture"] == 0
+        assert oe["replays_per_chunk"] == [0] * 4
+        assert og["capture_s"].keys() == {16}
+        assert torch.equal(torch.stack(sg._rows), torch.stack(se._rows))
+        for a, b in zip(_leaves(se.m) + _leaves(se.carry),
+                        _leaves(sg.m) + _leaves(sg.carry)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert sum(og["is_keyframe"]) >= 2 and og["states"][-1] == 2

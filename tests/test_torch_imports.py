@@ -9,6 +9,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+sdvl_tpu\b(?!_torch)"
@@ -64,7 +66,7 @@ def test_port_package_mirrors_the_reference_layout():
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu", rel)), rel
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu_torch", rel)), rel
     # the JAX side's root tools the port has its own copy of
-    for rel in ("long_run.py",):
+    for rel in ("long_run.py", "zurich_scale_smoke.py", "capacity_probe.py"):
         assert os.path.isfile(os.path.join(ROOT, "tools", rel)), rel
         assert os.path.isfile(os.path.join(ROOT, "sdvl_tpu_torch", "tools",
                                            rel)), rel
@@ -102,3 +104,19 @@ def test_port_imports_no_opencv_but_for_the_live_camera():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("tool", ["zurich_scale_smoke", "capacity_probe",
+                                  "long_run"])
+def test_tools_default_to_the_card_with_no_fallback(tool):
+    """Each tool runs on the card unless asked for the CPU: without one it
+    stops before any work, naming the device."""
+    import importlib
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool would run on it")
+    mod = importlib.import_module(f"sdvl_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main([])
