@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port: full SLAM mode, serving, multi-
 stream serving, the command-line program, the sharded bundle adjustment, a
-long live-mapping run, a Zurich-capacity map and the step's cost against
-the map's capacity, on one card.
+long live-mapping run, a Zurich-capacity map, the step's cost against the
+map's capacity and the shipped EuRoC configuration, on one card.
 
 Run from the repository root on a machine with one NVIDIA GPU, ``nvcc`` and
 PyTorch built for CUDA:
@@ -25,8 +25,10 @@ ending the run with a non-zero exit code:
    shipped configs'; ``pallas``: its Pallas kernel's): the three detection
    levels of the first query frame in one launch (at cell 32, then 16 and
    64; at cell 32 also the launch replayed from a CUDA graph, as the graph
-   path makes it), each level alone, a small 64x96 level and a ragged
-   123x171 one (scalar staging). Maps and cell results must be
+   path makes it), the three levels of phase euroc's first frame (752x480:
+   23.5, 11.75 and 5.875 cells of 32, a partial cell at every level; timed,
+   and replayed from a graph), each level alone, a small 64x96 level and a
+   ragged 123x171 one (scalar staging). Maps and cell results must be
    bit-identical. It times, with CUDA events, the device time of one launch
    (many launches replayed from a CUDA graph), one eager call of the launch
    and of the wrapper with its cell decode, the plain version, and one
@@ -218,9 +220,13 @@ ending the run with a non-zero exit code:
    its result, the error before within ``ZURICH_E0_REL`` of the record's,
    the tool's ``e1 < 0.35 * e0``, both errors after under
    ``ZURICH_E1_ABS`` px, the filled slots' camera centres within
-   ``ZURICH_CENTRES`` of the record's; the CG iterations of each LM step
-   beside the record's. Prints every key of the tool's JSON, the peak of
-   allocated memory and the phase's seconds.
+   ``ZURICH_CENTRES`` of the record's, the points each at its distance from
+   the nearer of the reference's two evaluations in the record (jitted, op
+   by op) within ``ZURICH_POINTS`` of the reference's own spread between
+   them among points seen by as many keyframes (the distribution printed
+   beside the reference's); the CG iterations of each LM step beside the
+   record's. Prints every key of the tool's JSON, the peak of allocated
+   memory and the phase's seconds.
 11. capacity -- the JAX package's capacity probe
    (``sdvl_tpu_torch.tools.capacity_probe``) at K = 100, 300 and 1000 over
    its 320 frames (SHA-256 checked) in chunks of 16: each K held to the
@@ -238,7 +244,33 @@ ending the run with a non-zero exit code:
    Prints per K the ms per frame, frames/s, the first chunk's seconds, the
    capture's, the pool, the map's MB and the device ms per frame of a
    chunk replay.
-12. prints one JSON line ``{"kernels": [...]}`` and, last,
+12. euroc -- ``configs/euroc.cfg`` as shipped (752x480, its radial-
+   tangential lens, 1000 keyframe slots, the plain detection route)
+   against ``tests/data/torch_euroc_record.npz`` (the JAX stream on a
+   CPU): its 85 ``PlaneScene`` frames rendered through the lens (SHA-256
+   checked) and written as PGM files. (1) ``SdvlStream`` on the graph path
+   fed the record's draws, held to the record (``check_witnessed_run``) by
+   phase slam's criteria (bootstrap frame and states equal, three tracked
+   keyframes, centres within 1 % and Sim(3) ATE under 3 % of the extent,
+   keyframe count within 1), ``n_matches`` within the bounds of the
+   record's witness (its bootstrap frame op by op) widened as phase
+   capacity widens its seeds, keyframe flags equal but on a tie
+   (``keyframe_tie``), and gauge-free: the world yaw about z against the
+   record's within ``EUROC_YAW`` of the witness's (the tilt within
+   ``EUROC_TILT``), the camera centres then within ``EUROC_CENTRES`` of
+   the extent; one capture
+   at frame 0, one replay per frame, no synchronisation after it, kernel
+   launches = frames + 2. (2) global BA at the 1000 slots on the recorded
+   map (its filled slots and points put into an empty map on the card):
+   one replay, no synchronisation, the PCG path, points and centres held
+   to the record's two evaluations as phase zurich holds them
+   (``EUROC_POINTS``). (3) ``python -m sdvl_tpu_torch.cli.run --config
+   configs/euroc.cfg --images DIR --stream --global-ba --output``: RUNNING
+   from the bootstrap on, Sim(3) ATE under 3 % of the extent before and
+   after global BA, the PCG path, one kernel launch and one replay per
+   frame. Prints frames/s, ms per frame by state, the capture's seconds
+   and pool, global BA's times.
+13. prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``. Launches are counted by the kernel
    itself, in a counter on the card that each launch adds 1 to (a launch
    replayed from a CUDA graph included), set to 0 just before a path is
@@ -255,8 +287,9 @@ ending the run with a non-zero exit code:
    ``cli_async``, ``cli_async_1000``, ``cli_viz``
    for the cli phase; ``host``, ``host_eager`` for phase host; ``chunk``;
    ``long``, ``long_lanes`` for phase long; ``zurich_serve``; ``capacity_100``,
-   ``capacity_300``, ``capacity_1000``; the condition kernel also
-   ``zurich_ba``, global BA's replay).
+   ``capacity_300``, ``capacity_1000``; ``euroc``, ``euroc_cli`` for phase
+   euroc; the condition kernel also ``zurich_ba`` and ``euroc_ba``, global
+   BA's replays).
    ``ms`` is the pallas border rule's device time,
    ``plain_border_ms`` the plain rule's. The entries ``small_eig_eigh``
    and ``small_eig_svd3`` give each kernel's launches by path (counted by
@@ -304,6 +337,8 @@ LONG_NPZ = os.path.join(ROOT, "tests", "data", "torch_long_run_record.npz")
 LONG_LANES_NPZ = os.path.join(ROOT, "tests", "data",
                               "torch_long_run_lanes_record.npz")
 ZURICH_NPZ = os.path.join(ROOT, "tests", "data", "torch_zurich_record.npz")
+EUROC_NPZ = os.path.join(ROOT, "tests", "data", "torch_euroc_record.npz")
+EUROC_CFG = os.path.join(ROOT, "configs", "euroc.cfg")
 
 FAST_T, ST_T = 10.0, 50.0
 
@@ -545,6 +580,15 @@ def check_graph_launch(levels, border: str, cell: int = 32) -> None:
                   f"bit-identical to the plain version")
 
 
+def euroc_frame() -> np.ndarray:
+    """The first frame of phase euroc's sequence: ``configs/euroc.cfg``'s
+    752x480 view through its lens, float32."""
+    _, scene = lens_scene(EUROC_CFG)
+    pose = scene.trajectory(1)[0]
+    return np.clip(scene.render(pose), 0, 255).astype(np.uint8).astype(
+        np.float32)
+
+
 def run_kernel_phase():
     """Phase 3 (see the module docstring). Returns the checks by border rule
     and shape, and the eager ``detect_pyramid`` times."""
@@ -559,9 +603,13 @@ def run_kernel_phase():
     levels = pyr[:cfg.sdvl.max_fast_levels]
     small = torch.from_numpy(blocky_image(0, (64, 96))).to(dev)
     ragged = torch.from_numpy(blocky_image(1, (123, 171))).to(dev)
+    euroc = pyramid.build_pyramid(torch.from_numpy(euroc_frame()).to(dev),
+                                  5)[:cfg.sdvl.max_fast_levels]
     checks = {}
     for border in detect.BORDERS:
-        c = {"pyramid": check_launch("pyramid", levels, border=border)}
+        c = {"pyramid": check_launch("pyramid", levels, border=border),
+             "euroc": check_launch("euroc", euroc, border=border)}
+        check_graph_launch(euroc, border)
         check_graph_launch(levels, border)
         for cell in (16, 64):
             check_launch("pyramid", levels, cell=cell, timed=False,
@@ -2177,32 +2225,43 @@ CLI_QUERY = (8, 32)          # frames served by the localizer run
 MATCHES = re.compile(r"matches\s+(\d+)/\s*(\d+)")
 
 
-def write_cli_sequence(cfg_path: str, out_dir: str):
-    """``CLI_FRAMES + CLI_RESUME_FRAMES`` ``PlaneScene`` frames rendered by
-    the port's ``io/synthetic.py`` through the lens of ``cfg_path`` (its
-    size, intrinsics and d1..d5), written as binary PGM files, with image
-    lists ``files.txt`` (the run), ``resume.txt`` (the frames after it) and
-    ``query.txt`` (``CLI_QUERY``). Returns the ground-truth poses."""
+def lens_scene(cfg_path: str):
+    """(camera config, ``PlaneScene`` seen through it: the port's
+    ``io/synthetic.py`` with the config's size, intrinsics and d1..d5, the
+    plane at z = 4)."""
     from sdvl_tpu_torch.io.synthetic import PlaneScene
     from sdvl_tpu_torch.pipeline.config import load_cfg
 
     c = load_cfg(cfg_path).camera
-    scene = PlaneScene(fx=c.fx, fy=c.fy, cx=c.u0, cy=c.v0, width=c.width,
-                       height=c.height, plane_z=4.0, dist=c.dist)
-    n = CLI_FRAMES + CLI_RESUME_FRAMES
-    poses = np.stack(scene.trajectory(n, translation_amp=1.0))
-    names = [f"frame_{i:04d}.pgm" for i in range(n)]
+    return c, PlaneScene(fx=c.fx, fy=c.fy, cx=c.u0, cy=c.v0, width=c.width,
+                         height=c.height, plane_z=4.0, dist=c.dist)
+
+
+def write_cli_sequence(cfg_path: str, out_dir: str, n: int = CLI_FRAMES,
+                       extra: int = CLI_RESUME_FRAMES, amp: float = 1.0):
+    """``n + extra`` ``PlaneScene`` frames along its trajectory at
+    translation amplitude ``amp``, rendered by the port's
+    ``io/synthetic.py`` through the lens of ``cfg_path`` (its size,
+    intrinsics and d1..d5), written as binary PGM files, with image lists
+    ``files.txt`` (the run's ``n``), ``resume.txt`` (the frames after it)
+    and ``query.txt`` (``CLI_QUERY``). Returns the ground-truth poses and
+    the uint8 frames."""
+    c, scene = lens_scene(cfg_path)
+    poses = np.stack(scene.trajectory(n + extra, translation_amp=amp))
+    names = [f"frame_{i:04d}.pgm" for i in range(n + extra)]
+    frames = []
     for name, p in zip(names, poses):
-        img = np.clip(scene.render(p), 0, 255).astype(np.uint8)
+        frames.append(np.clip(scene.render(p), 0, 255).astype(np.uint8))
         with open(os.path.join(out_dir, name), "wb") as f:
-            f.write(b"P5\n%d %d\n255\n" % (c.width, c.height) + img.tobytes())
-    lists = {"files.txt": names[:CLI_FRAMES],
-             "resume.txt": names[CLI_FRAMES:],
+            f.write(b"P5\n%d %d\n255\n" % (c.width, c.height)
+                    + frames[-1].tobytes())
+    lists = {"files.txt": names[:n],
+             "resume.txt": names[n:],
              "query.txt": names[CLI_QUERY[0]:CLI_QUERY[1]]}
     for fname, rows in lists.items():
         with open(os.path.join(out_dir, fname), "w") as f:
             f.write("\n".join(rows) + "\n")
-    return poses
+    return poses, frames
 
 
 def timed_global_ba(m, intr, graphs: bool, device: str = "cuda",
@@ -2251,7 +2310,7 @@ def run_cli(argv, device: str = "cuda") -> dict:
 
     on_card = device == "cuda"
     rec = {"frame_syncs": [], "mappers": [], "sync_sites": {},
-           "frame_replays": [], "frame_captures": []}
+           "frame_replays": [], "frame_captures": [], "stream_replays": []}
     caught = []
 
     def graphs(drv):
@@ -2268,10 +2327,13 @@ def run_cli(argv, device: str = "cuda") -> dict:
             rec["driver"] = self
             n0 = len(caught)
             c0, r0 = graphs(self)
+            s0 = self.runner.replays if isinstance(self, SdvlStream) else 0
             out = fn(self, *a, **k)
             c1, r1 = graphs(self)
             rec["frame_captures"].append(c1 - c0)
             rec["frame_replays"].append(r1 - r0)
+            if isinstance(self, SdvlStream):
+                rec["stream_replays"].append(self.runner.replays - s0)
             new = [w for w in caught[n0:] if "synchroniz" in str(w.message)]
             rec["frame_syncs"].append(len(new))
             for w in new:
@@ -2740,7 +2802,7 @@ def run_cli_phase(card: str, device: str = "cuda",
     n = CLI_FRAMES
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        poses = write_cli_sequence(cfg_path, tmp)
+        poses, _ = write_cli_sequence(cfg_path, tmp)
         cfg = load_cfg(cfg_path)
         K = cfg.sdvl.max_keyframes
         assert K > ba.CG_KF_THRESHOLD and any(cfg.camera.dist), (
@@ -3126,12 +3188,19 @@ def run_long_phase(card: str, record: str = LONG_NPZ,
 # phase zurich's bounds against the JAX record (the JAX tool at its defaults
 # on a CPU): the reprojection error before BA (float32 sums over 0.62M
 # observations), the filled slots' camera centres after it (the CPU test's
-# bound, tests/test_torch_zurich_scale.py), both runs' error after it
-# (float32's floor: 0.0023 in the record), the serving run's RUNNING frames
-# (the card draws its own RANSAC noise; 5 % of the 226 frames), the
-# standalone relocalizer's pose
+# bound, tests/test_torch_zurich_scale.py), the points after it, both runs'
+# error after it (float32's floor: 0.0023 in the record), the serving run's
+# RUNNING frames (the card draws its own RANSAC noise; 5 % of the 226
+# frames), the standalone relocalizer's pose
 ZURICH_E0_REL = 1e-4
 ZURICH_CENTRES = 1e-4
+# the points after global BA, each at its distance from the nearer of the
+# reference's two evaluations in the record (jitted, op by op), within this
+# share of the reference's own largest distance between the two among the
+# points seen by as many keyframes (zurich_scale_smoke.OBS_GROUPS; 3.60e-3
+# for the 8 points seen by 2, 4.0e-4 for 3-4, 1.04e-4 to 1.16e-4 for 5 and
+# more; spread_against): the reference's own spread, no more
+ZURICH_POINTS = 1.0
 ZURICH_E1_ABS = 0.01
 ZURICH_TRACKED = 11
 ZURICH_LANE_POSE = 1e-3
@@ -3266,7 +3335,19 @@ def run_zurich_phase(card: str) -> dict:
                        - rec["ba_pt_pos"]).max())
     obs = np.packbits(ba["map"].obs_mask[:kf].cpu().numpy(), axis=1)
     obs_apart = int(np.unpackbits(obs ^ rec["ba_obs_mask"]).sum())
+    sp = z.spread_against(ba["map"].pt_pos.cpu().numpy(),
+                          ba["map"].kf_pose[:kf].cpu().numpy(), obs, rec,
+                          ZURICH_POINTS)
+    say("zurich", f"global BA's points, each at its distance from the "
+                  f"nearer of the reference's two runs (jitted, op by op), "
+                  f"by the keyframes that see it: {json.dumps(sp['points'])}"
+                  f"; the reference's own spread (op by op against "
+                  f"jitted): {json.dumps(sp['own']['points'])}; camera "
+                  f"centres {json.dumps(sp['centres'])}, own "
+                  f"{json.dumps(sp['own']['centres'])}")
     assert d_c <= ZURICH_CENTRES, f"camera centres {d_c} from the record's"
+    assert not sp["apart"], f"beyond the reference's own spread: " \
+                            f"{sp['apart']}"
     cg_j = rec["ba_cg_iterations"].tolist()
     say("zurich", f"global BA over {kf} filled of {kf_cap} slots, fed the "
                   f"JAX draws: one replay, 0 synchronisations before the "
@@ -3292,6 +3373,9 @@ def run_zurich_phase(card: str) -> dict:
            "jax_cg_iterations": cg_j,
            "ba_syncs_before_result": len(ba["sync_sites"]),
            "centre_diff": d_c, "point_diff": d_p, "obs_apart": obs_apart,
+           "point_spread": sp["points"], "own_point_spread":
+           sp["own"]["points"], "centre_spread": sp["centres"],
+           "own_centre_spread": sp["own"]["centres"],
            "jax_reproj_px_before": e0_j, "jax_reproj_px_after": e1_j,
            **serve, "serve_hbm_in_use_gb": mem_serve["hbm_in_use_gb"],
            **mem, "lanes": lane_rows, "jax_tracked_frames": j_tracked,
@@ -3325,22 +3409,30 @@ def probe_result(out: dict):
         poses_raw=traj)
 
 
-def probe_match_bounds(rec) -> tuple:
+def widened_match_bounds(base, others) -> tuple:
     """The largest ``n_matches`` difference and the share of RUNNING frames
-    that differ between the record's JAX probe runs at K = 100 under seeds
-    1, 2 and under seed 0 (the reference's own spread under other RANSAC
-    noise), each widened as ``long_ranges`` widens (the range from 0 to the
-    largest, by its width), at least the same-draws bounds (2, 15 %)."""
-    seeds = rec["probe_seeds"]
-    base = rec["probe_n_matches"][0].astype(np.int64)
-    running = rec["probe_state"][0] == 2
+    that differ between a reference run ``base`` and each of ``others``
+    (its own runs under other noise or another summation order), each a
+    (matches, states) pair, widened as ``long_ranges`` widens (the range
+    from 0 to the largest, by its width), at least the same-draws bounds
+    (2, 15 %)."""
     worst, share = 0, 0.0
-    for i in np.flatnonzero(seeds > 0):
-        both = running & (rec["probe_state"][i] == 2)
-        dm = np.abs(rec["probe_n_matches"][i].astype(np.int64) - base)[both]
+    for matches, states in others:
+        both = (base[1] == 2) & (states == 2)
+        dm = np.abs(matches.astype(np.int64)
+                    - base[0].astype(np.int64))[both]
         worst, share = max(worst, int(dm.max())), max(share,
                                                       float((dm > 0).mean()))
     return max(2 * worst, 2), max(2 * share, 0.15)
+
+
+def probe_match_bounds(rec) -> tuple:
+    """``widened_match_bounds`` of the record's JAX probe runs at K = 100
+    under seeds 1, 2 against seed 0 (the reference's own spread under
+    other RANSAC noise)."""
+    runs = list(zip(rec["probe_n_matches"], rec["probe_state"]))
+    return widened_match_bounds(runs[0], [
+        runs[i] for i in np.flatnonzero(rec["probe_seeds"] > 0)])
 
 
 def run_capacity_phase(card: str) -> dict:
@@ -3436,6 +3528,271 @@ def run_capacity_phase(card: str) -> dict:
         for k in ("states", "is_keyframe", "n_matches"):
             runs[K].pop(k)
     return dict(runs=runs, extent=extent, frames=n, apart=apart)
+
+
+# phase euroc's bounds against tests/data/torch_euroc_record.npz (the JAX
+# stream over the shipped configs/euroc.cfg on a CPU, and its witness: the
+# same run with its bootstrap frame stepped op by op). The world yaw about
+# z between the card's run and the record's (the ground-plane alignment's
+# gauge, ROADMAP.md "How the SLAM parity tests compare worlds") within
+# this share of the witness's own (1.85e-3 rad; the port on the CPU
+# 6.8e-4); the tilt beside it in rad (tests/test_torch_cli_parity.py's
+# bound; the port on the CPU 1.8e-5, the witness 6.9e-6); the camera
+# centres once the yaw is taken out, as a share of the trajectory's extent
+# (the port on the CPU 9.2e-5, the witness 3.1e-5); global BA's points and
+# centres on the recorded map as phase zurich holds them (ZURICH_POINTS)
+EUROC_YAW = 1.0
+EUROC_TILT = 1e-4
+EUROC_CENTRES = 2e-4
+EUROC_POINTS = 1.0
+
+
+def keyframe_tie(r, rec, min_keyframe_its: int):
+    """The first frame whose keyframe flag the run and the record part on,
+    and whether that decision was a tie: the record's decision there
+    within ``1.9 x`` the largest ``n_matches`` difference between the two
+    runs since the record's previous keyframe (the frame's count and the
+    running maximum the policy holds it against, times 0.9 at most, each
+    move by that much: a larger margin cannot flip). Returns (None, ...)
+    where the flags never part."""
+    from sdvl_tpu_torch.pipeline.mapper import keyframe_margin
+
+    apart = np.flatnonzero(r.is_keyframe != rec["jax_is_keyframe"])
+    if not len(apart):
+        return None, None, None
+    i = int(apart[0])
+    k, fsk = rec["jax_kf_policy"][i - 1]
+    margin = keyframe_margin(int(rec["jax_n_matches"][i]), int(k),
+                             int(fsk) + 1, min_keyframe_its)
+    prev = np.flatnonzero(rec["jax_is_keyframe"][:i])[-1]
+    moved = int(np.abs(r.n_matches - rec["jax_n_matches"])[prev + 1:i + 1]
+                .max())
+    return i, margin, abs(margin) <= 1.9 * moved
+
+
+def check_witnessed_run(r, rec, cfg) -> dict:
+    """Hold a run of ``cfg`` to a record with a witness
+    (``torch_euroc_record.npz``): phase slam's criteria with the
+    ``n_matches`` bounds ``widened_match_bounds`` takes from the witness
+    (the record's JAX run with its bootstrap frame op by op; the same
+    states), on every frame or,
+    where the keyframe flags part on a tie (``keyframe_tie``), on the
+    frames before it and, over the whole run, states equal, Sim(3) ATE
+    under 3 % of the extent and the keyframe count within 1; then
+    gauge-free: the world yaw about z against the record's within
+    ``EUROC_YAW`` of the witness's own, the tilt within ``EUROC_TILT``, the
+    camera centres, the yaw taken out, within ``EUROC_CENTRES`` of the
+    extent. Raises on disagreement."""
+    import types
+
+    from sdvl_tpu_torch.io import evaluate
+
+    matches = widened_match_bounds(
+        (rec["jax_n_matches"], rec["jax_state"]),
+        [(rec["witness_n_matches"], rec["jax_state"])])
+    parted, margin, tie = keyframe_tie(r, rec, cfg.sdvl.min_keyframe_its)
+    if parted is None:
+        chk = check_slam_run(r, rec, matches=matches)
+    else:
+        assert tie, (f"keyframe flags part on frame {parted}, the record's "
+                     f"decision {margin:.2f} matches from its threshold: "
+                     f"not a tie; {first_divergence(r, rec)}")
+        head = types.SimpleNamespace(
+            n_frames=parted, **{k: getattr(r, k)[:parted] for k in (
+                "states", "is_keyframe", "n_matches", "trajectory",
+                "poses_raw")})
+        chk = check_slam_run(head, rec, n=parted, matches=matches)
+        assert (r.states == rec["jax_state"]).all(), "states differ"
+        n_kf = int(r.is_keyframe.sum()) + 1
+        assert abs(n_kf - int(rec["jax_n_keyframes"])) <= 1, n_kf
+        c_gt = evaluate.positions_from_poses(rec["poses_gt"])
+        start = chk["bootstrap_frame"]
+        chk["ate"] = evaluate.ate_rmse(evaluate.positions_from_poses(
+            r.trajectory)[start:], c_gt[start:], with_scale=True)
+        chk["extent"] = float(np.linalg.norm(np.ptp(c_gt[start:], axis=0)))
+        assert chk["ate"] < 0.03 * chk["extent"], chk
+        chk.update(n_keyframes=n_kf, keyframes=np.flatnonzero(
+            r.is_keyframe).tolist())
+    c_j = evaluate.positions_from_poses(rec["jax_trajectory"])
+    start = chk["bootstrap_frame"]
+    yaw = {}
+    for name, traj in (("run", r.trajectory),
+                       ("witness", rec["witness_trajectory"])):
+        rotvec, c = evaluate.world_rotation(rec["jax_trajectory"], traj)
+        yaw[name] = dict(yaw=float(rotvec[2]),
+                         tilt=float(np.abs(rotvec[:2]).max()),
+                         centres=float(np.linalg.norm(c - c_j, axis=1)[
+                             start:].max()))
+    run, wit = yaw["run"], yaw["witness"]
+    assert abs(run["yaw"]) <= EUROC_YAW * abs(wit["yaw"]), yaw
+    assert run["tilt"] <= EUROC_TILT, yaw
+    assert run["centres"] <= EUROC_CENTRES * chk["extent"], yaw
+    chk.update(matches_bound=list(matches), keyframes_parted=parted,
+               parted_margin=margin, world=yaw)
+    return chk
+
+
+def run_euroc_phase(card: str) -> dict:
+    """Phase euroc (see the module docstring): ``configs/euroc.cfg`` as
+    shipped, held against ``tests/data/torch_euroc_record.npz``."""
+    from sdvl_tpu_torch.pipeline.config import intrinsics, load_cfg
+    from sdvl_tpu_torch.tools.zurich_scale_smoke import (recorded_ba_map,
+                                                        spread_against)
+
+    rec = dict(np.load(EUROC_NPZ))
+    proto = json.loads(bytes(rec["protocol"]).decode())
+    with open(EUROC_CFG) as f:
+        assert f.read() == proto["cfg"], (
+            "stale record: configs/euroc.cfg is not the recorded run's "
+            "(tests/make_torch_fixtures.py --euroc-record)")
+    cfg = load_cfg(EUROC_CFG)
+    n = proto["frames"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        poses, frames = write_cli_sequence(EUROC_CFG, tmp, n=n, extra=0,
+                                           amp=proto["translation_amp"])
+        h = hashlib.sha256()
+        for f in frames:
+            h.update(np.ascontiguousarray(f).tobytes())
+        want = bytes(rec["frames_sha256"]).decode()
+        assert h.hexdigest() == want, (h.hexdigest(), want)
+        assert np.abs(poses - rec["poses_gt"]).max() <= 1e-6
+        crop = tuple(d // 16 * 16 for d in frames[0].shape)
+        say("euroc", f"rendered {n} frames at {frames[0].shape[0]}x"
+                     f"{frames[0].shape[1]} through the lens of "
+                     f"configs/euroc.cfg (d = {cfg.camera.dist}) in "
+                     f"{time.perf_counter() - t0:.1f} s, SHA-256 equal to "
+                     f"the record's; the step keeps {crop[0]}x{crop[1]}, "
+                     f"detection levels "
+                     + ", ".join(f"{crop[1] / 32 / 2 ** l:g}"
+                                 for l in range(cfg.sdvl.max_fast_levels))
+                     + f" cells of {cfg.sdvl.cell_size} across")
+
+        # 1. the stream, fed the record's draws, against the record
+        r, st, secs, sites, (launches, caps), replays = run_slam(
+            cfg, frames, rec, time_frames=True, count_syncs=True)
+        chk = check_witnessed_run(r, rec, cfg)
+        assert r.is_keyframe[chk["bootstrap_frame"] + 1:].sum() >= 3, chk
+        cap = capture_frame(replays)
+        assert cap == 0 and replays == [1] * n, replays
+        syncs = [len(x) for x in sites]
+        assert not any(syncs[1:]), f"frames after the capture synchronised: " \
+                                   f"{syncs}"
+        assert caps == 1 and frame_launches(launches, caps) == n, (launches,
+                                                                   caps)
+        ms = per_state(r, [1e3 * x for x in secs], skip=cap)
+        steady = [x for i, x in enumerate(secs) if i != cap]
+        out["stream"] = dict(
+            check=chk, launches=launches, captures=caps, frames=n,
+            side_counts=st.side_counts, ms_by_state=ms,
+            frames_per_s=len(steady) / sum(steady),
+            capture_s=st.runner.capture_s,
+            capture_frame_ms=1e3 * secs[cap],
+            pool_mib=st.runner.pool_bytes / 2 ** 20, syncs=syncs)
+        w = chk["world"]
+        say("euroc", f"stream (graph path) against the record: {chk}")
+        say("euroc", f"the worlds part by a yaw about z of "
+                     f"{w['run']['yaw']:.3e} rad (the reference against "
+                     f"itself, its bootstrap frame op by op: "
+                     f"{w['witness']['yaw']:.3e}), tilt "
+                     f"{w['run']['tilt']:.1e} (witness "
+                     f"{w['witness']['tilt']:.1e}); camera centres "
+                     f"{w['run']['centres']:.3e} apart once it is taken out "
+                     f"(witness {w['witness']['centres']:.3e}; extent "
+                     f"{chk['extent']:.4f}); keyframe flags part on frame "
+                     f"{chk['keyframes_parted']} (the record's decision "
+                     f"{chk['parted_margin']} matches from its threshold); "
+                     f"n_matches bounds {chk['matches_bound']}")
+        say("euroc", f"graph replays one per frame, captured at frame 0 "
+                     f"({st.runner.capture_s:.3f} s of warm-up and capture, "
+                     f"{1e3 * secs[cap]:.1f} ms for the frame, pool "
+                     f"{out['stream']['pool_mib']:.1f} MiB); 0 "
+                     f"synchronisations after it; kernel launches "
+                     f"{launches} = {n} frames + {launches - n}; small "
+                     f"eigensolver {st.side_counts['small_eig']}, condition "
+                     f"kernel {st.side_counts['conditions']}")
+        say("euroc", "ms per frame by state (synchronised per frame, "
+                     "capture frame apart): "
+                     + ", ".join(f"{k} {v['mean']:.2f} ({v['frames']} "
+                                 f"frames)" for k, v in ms.items()
+                                 if v["frames"])
+                     + f"; {out['stream']['frames_per_s']:.3f} frames/s on "
+                       f"{card}")
+        del st
+
+        # 2. global BA at the shipped 1000 slots on the recorded map
+        m = recorded_ba_map(rec, cfg)
+        reset_counts()
+        g = timed_global_ba(m, intrinsics(cfg), graphs=True)
+        b_side = side_counts()
+        assert g["replays"] == 1 and not g["sync_sites"], (g["replays"],
+                                                           g["sync_sites"])
+        assert g["cg_iterations"], "global BA did not take the PCG path"
+        S = rec["ba_kf_pose"].shape[0]
+        mb = g["map"]
+        sp = spread_against(
+            mb.pt_pos.cpu().numpy(), mb.kf_pose[:S].cpu().numpy(),
+            np.packbits(mb.obs_mask[:S].cpu().numpy(), axis=1), rec,
+            EUROC_POINTS)
+        assert not sp["apart"], sp["apart"]
+        assert sp["obs_apart"] <= sp["own_obs_apart"], sp
+        out["ba"] = dict(spread=sp, ms=g["ms"], replay_ms=g["replay_ms"],
+                         capture_s=g["capture_s"],
+                         pool_mib=g["pool_bytes"] / 2 ** 20,
+                         cg_iterations=g["cg_iterations"],
+                         side_counts=b_side)
+        say("euroc", f"global BA at {cfg.sdvl.max_keyframes} slots on the "
+                     f"recorded map ({int(rec['map_kf_valid'].sum())} "
+                     f"keyframes, {int(rec['map_pt_valid'].sum())} points): "
+                     f"one replay, 0 synchronisations; against the nearer of "
+                     f"the reference's two runs, points {json.dumps(sp['points'])}"
+                     f", centres {json.dumps(sp['centres'])}; the "
+                     f"reference's own spread: points "
+                     f"{json.dumps(sp['own']['points'])}, centres "
+                     f"{json.dumps(sp['own']['centres'])}; gated "
+                     f"observations apart {sp['obs_apart']} (own "
+                     f"{sp['own_obs_apart']}); CG iterations per LM step "
+                     f"{g['cg_iterations']}")
+        say("euroc", f"global BA: {g['ms']:.1f} ms with the warm-up and "
+                     f"capture ({g['capture_s']:.3f} s), replay "
+                     f"{g['replay_ms']:.1f} ms, pool "
+                     f"{g['pool_bytes'] / 2 ** 20:.1f} MiB; on {card}")
+        del m, mb, g
+
+        # 3. the command-line program with the shipped config
+        txt = os.path.join(tmp, "euroc.txt")
+        r1 = run_cli(["--config", EUROC_CFG, "--images", tmp, "--stream",
+                      "--global-ba", "--output", txt, "--quiet"])
+        res1 = r1["result"]
+        running = res1.states == 2
+        start = int(np.argmax(running))
+        assert running.any() and running[start:].all(), res1.states.tolist()
+        gt = poses[:n]
+        ate_before = sim3_ate_pct(
+            camera_centres(r1["traj_before"][start:]), gt[start:])
+        rows = tum_rows(txt, n)
+        ate_after = sim3_ate_pct(rows[start:, 1:4], gt[start:])
+        assert ate_before < 3.0 and ate_after < 3.0, (ate_before, ate_after)
+        assert r1["cg_iterations"], "global BA did not take the PCG path"
+        assert r1["frame_launches"] == n, r1["launches"]
+        assert r1["stream_replays"] == [1] * n, r1["stream_replays"]
+        out["cli"] = dict(summary=r1["summary"], launches=r1["launches"],
+                          captures=r1["captures"], frames=n,
+                          replays=sum(r1["stream_replays"]),
+                          ate_pct_before=ate_before, ate_pct_after=ate_after,
+                          global_ba_ms=r1["gba_ms"],
+                          cg_iterations=r1["cg_iterations"],
+                          syncs_per_frame=float(np.mean(r1["frame_syncs"])))
+        say("euroc", f"cli --stream --global-ba with configs/euroc.cfg: "
+                     f"{r1['summary']}; RUNNING from frame {start} to the "
+                     f"end; Sim(3) ATE {ate_before:.4f} % of the extent "
+                     f"before global BA, {ate_after:.4f} % after; global BA "
+                     f"{r1['gba_ms']:.1f} ms, CG iterations per LM step "
+                     f"{r1['cg_iterations']}; one graph replay on each of "
+                     f"the {n} frames")
+        say("euroc", "cli: " + per_frame(r1, card))
+    return out
 
 
 def small_eig_entries(eig, slam, graph, chunk, host, long, new_paths,
@@ -3678,9 +4035,15 @@ def main() -> int:
     capacity = run_capacity_phase(card)
     say("capacity", f"phase took {time.perf_counter() - t0:.1f} s")
 
+    # ----------------------------------------------------------- euroc
+    t0 = time.perf_counter()
+    euroc = run_euroc_phase(card)
+    say("euroc", f"phase took {time.perf_counter() - t0:.1f} s")
+
     # -------------------------------------------------------- 10 kernels
     new_paths = {"long_lanes": long_lanes, "zurich_serve": zurich, **{
-        f"capacity_{K}": v for K, v in capacity["runs"].items()}}
+        f"capacity_{K}": v for K, v in capacity["runs"].items()},
+        "euroc": euroc["stream"]}
     on_paths = (("slam", slam), ("chunk", chunk), ("host", host),
                 ("long", long_out), *new_paths.items())
     conditions = {k: v["side_counts"]["conditions"] for k, v in on_paths}
@@ -3722,6 +4085,8 @@ def main() -> int:
                                cli[k]["captures"])
                   for k in ("stream", "host", "host_1000", "async",
                             "async_1000", "viz")})
+    paths["euroc_cli"] = (euroc["cli"]["launches"], euroc["cli"]["frames"],
+                          euroc["cli"]["captures"])
     kernels = {"kernels": [{
         "name": "fast_shi_tomasi_cells",
         "route": "cuda",
@@ -3769,6 +4134,11 @@ def main() -> int:
         "long_lanes": long_lanes,
         "zurich": zurich,
         "capacity": capacity,
+        "euroc": {"stream": {k: v for k, v in euroc["stream"].items()
+                             if k != "side_counts"},
+                  "ba": {k: v for k, v in euroc["ba"].items()
+                         if k != "side_counts"},
+                  "cli": euroc["cli"]},
         "conditional_nodes": cond,
         "card": card,
     }, *small_eig_entries(eig, slam, graph, chunk, host, long_out,
@@ -3786,10 +4156,12 @@ def main() -> int:
         "launches": slam["side_counts"]["conditions"],
         "frames": slam["frames"],
         "launches_by_path": dict(
-            conditions, zurich_ba=zurich["ba_side_counts"]["conditions"]),
+            conditions, zurich_ba=zurich["ba_side_counts"]["conditions"],
+            euroc_ba=euroc["ba"]["side_counts"]["conditions"]),
         "frames_by_path": {k: v["frames"] for k, v in on_paths},
         "pairs_by_path": dict(
-            pairs, zurich_ba=zurich["ba_side_counts"]["pairs"]),
+            pairs, zurich_ba=zurich["ba_side_counts"]["pairs"],
+            euroc_ba=euroc["ba"]["side_counts"]["pairs"]),
         # with a condition per branch: the launches and a second per pair
         "per_branch_launches_by_path": per_branch,
         # the condition it sets was checked exact (phase kernel)

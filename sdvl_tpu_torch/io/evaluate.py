@@ -115,6 +115,25 @@ def positions_from_poses(poses_wc: np.ndarray) -> np.ndarray:
     return se3.translation(se3.inverse(_t(poses_wc))).numpy()
 
 
+def world_rotation(traj_a: np.ndarray, traj_b: np.ndarray):
+    """The rotation that turns run b's world onto run a's, from two runs'
+    world->cam trajectories (N, 7) of the same frames: the mean over
+    frames of R_a^T R_b made a rotation, as an axis-angle vector (a yaw
+    about world z is the ground-plane alignment's gauge); and run b's
+    camera centres turned by it into run a's world. A quaternion and its
+    negation give the same rotation."""
+    def rot(traj):
+        return se3.matrix_from_quat(_t(traj)[:, :4]).double().numpy()
+
+    M = np.einsum("nji,njk->ik", rot(traj_a), rot(traj_b))
+    u, _, vt = np.linalg.svd(M)
+    Y = u @ np.diag([1.0, 1.0, np.linalg.det(u @ vt)]) @ vt
+    angle = np.arccos(np.clip((np.trace(Y) - 1) / 2, -1, 1))
+    axis = np.array([Y[2, 1] - Y[1, 2], Y[0, 2] - Y[2, 0], Y[1, 0] - Y[0, 1]])
+    rotvec = axis / max(np.linalg.norm(axis), 1e-300) * angle
+    return rotvec, positions_from_poses(traj_b).astype(np.float64) @ Y.T
+
+
 def rebase_trajectory(traj_wc: np.ndarray, frame_ids: np.ndarray,
                       kf_frame_ids: np.ndarray, kf_old: np.ndarray,
                       kf_new: np.ndarray, kf_valid: np.ndarray) -> np.ndarray:

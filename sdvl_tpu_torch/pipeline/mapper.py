@@ -389,6 +389,29 @@ def check_redundant_keyframes(m: MapState) -> MapState:
                       n_pruned=m.n_pruned + do.to(torch.int32))
 
 
+# the keyframe policy's shares of the matches at the last keyframe: a
+# keyframe once this many are lost after min_keyframe_its frames, or once
+# LOST_ANY are lost at all (map.cc:170-188)
+LOST_AFTER_ITS, LOST_ANY = 0.1, 0.3
+
+
+def keyframe_margin(n_matches: int, kf_matches: int, frames_since_kf: int,
+                    min_keyframe_its: int = 30) -> float:
+    """How far a tracked frame's keyframe decision (``need_keyframe``, on
+    the carry's ``kf_matches`` and ``frames_since_kf`` before the frame,
+    the latter already counting the frame) lies from flipping, in matches:
+    negative where it inserts a keyframe (the matches it would have to
+    gain), positive where it does not (the matches it would have to
+    lose). A decision within a match or two of its threshold is a tie
+    that float32 rounding of the match count can take either way."""
+    k = max(float(kf_matches), 1.0)
+    thresholds = [(1 - LOST_ANY) * k] + (
+        [(1 - LOST_AFTER_ITS) * k] if frames_since_kf >= min_keyframe_its
+        else [])
+    below = [t - n_matches for t in thresholds if n_matches < t]
+    return -max(below) if below else min(n_matches - t for t in thresholds)
+
+
 def need_keyframe(n_matches, kf_matches, frames_since_kf,
                   min_keyframe_its: int = 30):
     """Keyframe policy: enough frames elapsed AND 10 % of the matches since
@@ -400,8 +423,8 @@ def need_keyframe(n_matches, kf_matches, frames_since_kf,
     else:
         kf_matches = max(float(kf_matches), 1.0)
     lost = 1.0 - n_matches / kf_matches
-    return (((frames_since_kf >= min_keyframe_its) & (lost > 0.1))
-            | (lost > 0.3))
+    return (((frames_since_kf >= min_keyframe_its) & (lost > LOST_AFTER_ITS))
+            | (lost > LOST_ANY))
 
 
 def transform_initial_map(m: MapState, gumbel: torch.Tensor,

@@ -224,6 +224,117 @@ def camera_centres(poses: torch.Tensor) -> torch.Tensor:
     return se3.translation(se3.inverse(poses))
 
 
+# observation counts that split a spread: a point seen by 0, 1 or 2
+# keyframes is far less constrained than one seen by twenty
+OBS_GROUPS = ((0, 0), (1, 1), (2, 2), (3, 4), (5, 9), (10, 19), (20, None))
+# a distance this many float32 ulps of the largest coordinate is float32's
+# resolution, however close the reference's two runs came: a pose one ulp
+# apart in each component moves its camera centre by up to about 8 ulps of
+# the centre's size (the rotation's ulp times the translation's lever arm,
+# and the translation's own, over three axes); a point global BA leaves
+# out (seen by fewer than 2 keyframes, mapper.extract_global_ba) keeps its
+# perturbed position, equal in the reference's two runs and rounded apart
+# from the JAX tool's fused perturbation in any other; a small map's BA
+# converges to within an ulp or two (configs/euroc.cfg's: the reference's
+# two runs' centres 3.6e-7 apart)
+FLOOR_ULPS = 8
+
+
+def spread(d, n_obs=None) -> dict:
+    """The distribution of per-row distances ``d`` (points, or camera
+    centres): median, 99th percentile and largest, and with ``n_obs``
+    (each row's observation count) the largest in each ``OBS_GROUPS``
+    group (``"lo-hi"``; ``None`` where the group is empty) and the group's
+    rows."""
+    d = np.asarray(d, np.float64)
+    out = dict(median=float(np.median(d)), p99=float(np.quantile(d, 0.99)),
+               max=float(d.max()))
+    if n_obs is not None:
+        n_obs = np.asarray(n_obs)
+        out["max_by_obs"], out["rows_by_obs"] = {}, {}
+        for lo, hi in OBS_GROUPS:
+            sel = (n_obs >= lo) & (n_obs <= (n_obs.max() if hi is None
+                                              else hi))
+            name = f"{lo}-{'' if hi is None else hi}"
+            out["max_by_obs"][name] = (float(d[sel].max()) if sel.any()
+                                       else None)
+            out["rows_by_obs"][name] = int(sel.sum())
+    return out
+
+
+def spread_against(pt_pos, kf_pose, obs_mask, rec, share: float = 1.0
+                   ) -> dict:
+    """A global BA's result (points (P, 3), the filled slots' poses (K, 7),
+    their packed gated observations) against a record of the reference's
+    own two evaluations of it (``ba_*`` jitted, ``ba_eager_*`` op by op;
+    ``tests/data/torch_zurich_record.npz``, ``torch_euroc_record.npz``).
+    Each point and camera centre is taken at its distance from the nearer
+    of the two; ``own`` is the reference's spread, its two runs' distance
+    to each other. Points are grouped by their observations after the
+    jitted BA. ``apart`` lists what lies beyond ``share`` of the
+    reference's own largest distance, or ``FLOOR_ULPS`` float32 ulps of the
+    largest coordinate where that is more: each ``OBS_GROUPS`` group of
+    points, the centres (``floor`` holds both floors). ``obs_apart``
+    counts gated observations that differ from the jitted run's."""
+    n_pts = rec["ba_pt_pos"].shape[0]
+    n_obs = np.unpackbits(rec["ba_obs_mask"], axis=1)[:, :n_pts].sum(0)
+
+    def distance(a, b):
+        return np.linalg.norm(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64), axis=-1)
+
+    def centres(q):
+        return camera_centres(torch.as_tensor(np.asarray(q, np.float32))
+                              ).numpy()
+
+    c, c_j, c_e = (centres(q) for q in (kf_pose, rec["ba_kf_pose"],
+                                        rec["ba_eager_kf_pose"]))
+    near_p = np.minimum(distance(pt_pos, rec["ba_pt_pos"]),
+                        distance(pt_pos, rec["ba_eager_pt_pos"]))
+    near_c = np.minimum(distance(c, c_j), distance(c, c_e))
+    own = dict(points=spread(distance(rec["ba_eager_pt_pos"],
+                                      rec["ba_pt_pos"]), n_obs),
+               centres=spread(distance(c_e, c_j)))
+    floor = {k: FLOOR_ULPS * float(np.spacing(np.float32(np.abs(v).max())))
+             for k, v in (("points", rec["ba_pt_pos"]), ("centres", c_j))}
+    out = dict(points=spread(near_p, n_obs), centres=spread(near_c),
+               own=own, share=share, floor=floor,
+               obs_apart=int(np.unpackbits(np.asarray(obs_mask)
+                                           ^ rec["ba_obs_mask"]).sum()),
+               own_obs_apart=int(np.unpackbits(rec["ba_eager_obs_mask"]
+                                               ^ rec["ba_obs_mask"]).sum()))
+    bound = {g: max(share * v, floor["points"]) for g, v in
+             own["points"]["max_by_obs"].items() if v is not None}
+    bound["centres"] = max(share * own["centres"]["max"], floor["centres"])
+    got = dict(out["points"]["max_by_obs"], centres=out["centres"]["max"])
+    out["apart"] = [(g, v, bound[g]) for g, v in got.items()
+                    if v is not None and v > bound[g]]
+    return out
+
+
+def recorded_ba_map(rec, cfg, device="cuda"):
+    """A map as a record keeps it for global BA (``map_<field>``: the
+    fields ``mapper.extract_global_ba`` reads, of the filled keyframe
+    slots and every point slot; ``tests/data/torch_euroc_record.npz``) in
+    an empty map of ``cfg``'s capacities on ``device``."""
+    from ..state.map_state import empty_map
+
+    s = cfg.sdvl
+    m = empty_map(n_kf=s.max_keyframes, n_pts=s.max_points,
+                  n_cand=s.max_candidates,
+                  img_shape=(cfg.camera.height, cfg.camera.width),
+                  levels=s.pyramid_levels, device=device)
+
+    def put(name):
+        t = getattr(m, name)
+        v = torch.from_numpy(np.ascontiguousarray(rec["map_" + name])).to(
+            t.device, t.dtype)
+        return torch.cat([v, t[len(v):]])
+
+    return m._replace(**{k[4:]: put(k[4:]) for k in rec
+                         if k.startswith("map_")})
+
+
 def synchronize(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)

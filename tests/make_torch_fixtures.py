@@ -89,6 +89,7 @@ two hours on 3 cores):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -468,10 +469,14 @@ def jax_zurich_draws(kf_cap: int, pts: int):
     return tuple(np.array(a, np.float32) for a in draws(dk, pk))
 
 
-def jax_zurich_ba(intr, m, stage_iters):
+def jax_zurich_ba(intr, m, stage_iters, op_by_op: bool = False):
     """The Zurich tool's perturbation, reprojection error and global BA
-    (``:122-168``) with the JAX package. Returns (perturbed map, map after
-    BA, e0, e1, the CG iterations of each LM step)."""
+    (``:122-168``) with the JAX package; with ``op_by_op`` the global BA
+    alone is evaluated op by op (``jax.disable_jit``), the perturbation and
+    the errors jitted as before. Returns (perturbed map, map after BA, e0,
+    e1, the CG iterations of each LM step)."""
+    import contextlib
+
     import jax
     import jax.numpy as jnp
 
@@ -512,13 +517,56 @@ def jax_zurich_ba(intr, m, stage_iters):
 
     jax.lax.while_loop = counted
     try:
-        m_ba = jax.jit(lambda mm: mapper.global_ba(
-            mm, intr, stage_iters=tuple(stage_iters)))(m_noisy)
-        jax.block_until_ready(m_ba.kf_pose)
+        with jax.disable_jit() if op_by_op else contextlib.nullcontext():
+            m_ba = jax.jit(lambda mm: mapper.global_ba(
+                mm, intr, stage_iters=tuple(stage_iters)))(m_noisy)
+            jax.block_until_ready(m_ba.kf_pose)
     finally:
         jax.lax.while_loop = while_loop
     e1 = float(reproj_err(m_ba))
     return m_noisy, m_ba, e0, e1, cg
+
+
+def zurich_ba_spread(intr, m, kf: int, stage_iters) -> dict:
+    """The Zurich tool's global BA (``jax_zurich_ba``) twice on the same
+    filled map and draws, jitted (the recorded run) and op by op
+    (``jax.disable_jit`` around the BA alone; the perturbation and the
+    errors jitted in both, so nothing else changes between the two): the
+    reference's own float32 spread after BA at this size. Returns the
+    record's arrays: the jitted run's (``reproj_px_before``,
+    ``reproj_px_after``, ``ba_kf_pose`` of the ``kf`` filled slots,
+    ``ba_pt_pos``, the packed ``ba_obs_mask``, ``ba_cg_iterations``) and
+    the op-by-op run's under ``ba_eager_``; prints the spread
+    (``zurich_scale_smoke.spread_against``'s ``own``) and each run's
+    seconds."""
+    import json
+    import time
+
+    from sdvl_tpu_torch.tools.zurich_scale_smoke import spread_against
+
+    out = {}
+    for name, op_by_op in (("ba_", False), ("ba_eager_", True)):
+        t0 = time.perf_counter()
+        _, m_ba, e0, e1, cg = jax_zurich_ba(intr, m, stage_iters, op_by_op)
+        print(f"zurich record: {name} e0 {e0} e1 {e1} cg {cg} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        assert e1 < 0.35 * e0, (e0, e1)
+        if not op_by_op:
+            out["reproj_px_before"] = np.float64(e0)
+        out.update({
+            ("reproj_px_after" if name == "ba_" else name
+             + "reproj_px_after"): np.float64(e1),
+            name + "kf_pose": np.asarray(m_ba.kf_pose[:kf], np.float32),
+            name + "pt_pos": np.asarray(m_ba.pt_pos, np.float32),
+            name + "obs_mask": np.packbits(np.asarray(m_ba.obs_mask[:kf]),
+                                           axis=1),
+            name + "cg_iterations": np.asarray(cg, np.int32)})
+    got = spread_against(out["ba_eager_pt_pos"], out["ba_eager_kf_pose"],
+                         out["ba_eager_obs_mask"], out)
+    print("zurich record: the reference's own spread after BA",
+          json.dumps(dict(got["own"], obs_apart=got["own_obs_apart"])),
+          flush=True)
+    return out
 
 
 def serve_config_jax(height, width, kf_cap, pts):
@@ -626,6 +674,10 @@ def zurich_record(out_dir: str) -> str:
     sha = images_sha256(imgs)
     del imgs
     print(f"zurich record: filled in {time.perf_counter() - t0:.1f} s")
+    pose_noise, pt_noise = jax_zurich_draws(z["kf_cap"], z["pts"])
+    ba = zurich_ba_spread(intr, m, z["kf"], z["stage_iters"])
+    print(f"zurich record: global BA twice at {time.perf_counter() - t0:.1f}"
+          " s")
     cfg = serve_config_jax(z["height"], z["width"], z["kf_cap"], z["pts"])
     q_frames = query_frames(scene, kf_poses)
     slam, rs, lanes = jax_zurich_serve(cfg, m, intr, kf_poses, q_frames)
@@ -633,11 +685,6 @@ def zurich_record(out_dir: str) -> str:
     print("zurich record: serving states", rs.states.tolist())
     print("zurich record: lanes", {k: int(v["kf"]) for k, v in lanes.items()})
     print(f"zurich record: served at {time.perf_counter() - t0:.1f} s")
-    pose_noise, pt_noise = jax_zurich_draws(z["kf_cap"], z["pts"])
-    _, m_ba, e0, e1, cg = jax_zurich_ba(intr, m, z["stage_iters"])
-    print(f"zurich record: e0 {e0} e1 {e1} cg {cg} at "
-          f"{time.perf_counter() - t0:.1f} s")
-    assert e1 < 0.35 * e0, (e0, e1)
 
     _, pcfg, poses_gt, frames = probe_setup()
     probes = []
@@ -657,7 +704,6 @@ def zurich_record(out_dir: str) -> str:
               np.flatnonzero(rp.is_keyframe).tolist())
         print(f"probe record, {at}: matches", rp.n_matches.tolist())
 
-    kn = z["kf"]
     path = os.path.join(out_dir, "torch_zurich_record.npz")
     np.savez_compressed(
         path,
@@ -669,12 +715,7 @@ def zurich_record(out_dir: str) -> str:
         kf_images_sha256=np.frombuffer(sha.encode(), dtype=np.uint8),
         pose_noise=pose_noise,
         pt_noise=pt_noise,
-        reproj_px_before=np.float64(e0),
-        reproj_px_after=np.float64(e1),
-        ba_kf_pose=np.asarray(m_ba.kf_pose[:kn], np.float32),
-        ba_pt_pos=np.asarray(m_ba.pt_pos, np.float32),
-        ba_obs_mask=np.packbits(np.asarray(m_ba.obs_mask[:kn]), axis=1),
-        ba_cg_iterations=np.asarray(cg, np.int32),
+        **ba,
         serve_state=rs.states.astype(np.int8),
         serve_n_matches=rs.n_matches.astype(np.int16),
         serve_is_keyframe=rs.is_keyframe,
@@ -700,6 +741,182 @@ def zurich_record(out_dir: str) -> str:
                             ).astype(np.float32),
         probe_trajectory=np.stack([r.trajectory for r in probes]
                                   ).astype(np.float32),
+        jax_version=np.frombuffer(jax.__version__.encode(), dtype=np.uint8),
+    )
+    print(path, os.path.getsize(path) / 1e6, "MB")
+    return path
+
+
+# configs/euroc.cfg end to end: the shipped file as loaded (752x480, its
+# radial-tangential lens, 1000 keyframe slots, the plain detection route),
+# PlaneScene frames rendered through that lens along its trajectory at this
+# amplitude: the shipped knobs insert a keyframe once 30 % of the matches
+# are lost (or 10 % after 30 frames), and the wide lens keeps the map in
+# view longer than the tum_f1 sequence's; at 3.0 the JAX stream bootstraps
+# on frame 1 and inserts keyframes at 15, 55 and 77 (at 1.0 none in 120
+# frames, at 2.0 two in 85)
+EUROC_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         os.pardir, "configs", "euroc.cfg")
+EUROC_FRAMES = 85
+EUROC_AMP = 3.0
+
+
+def euroc_setup(n: int = EUROC_FRAMES, amp: float = EUROC_AMP):
+    """(JAX config of ``configs/euroc.cfg``, ground-truth poses, uint8
+    frames rendered through its lens, truncated as the smoke's
+    ``write_cli_sequence`` casts)."""
+    from sdvl_tpu.io.synthetic import PlaneScene
+    from sdvl_tpu.pipeline.config import load_cfg
+
+    cfg = load_cfg(EUROC_CFG)
+    c = cfg.camera
+    scene = PlaneScene(fx=c.fx, fy=c.fy, cx=c.u0, cy=c.v0, width=c.width,
+                       height=c.height, plane_z=4.0, dist=c.dist)
+    poses = scene.trajectory(n, translation_amp=amp)
+    frames = render_threads(
+        lambda p: np.clip(scene.render(p), 0, 255).astype(np.uint8), poses)
+    return cfg, poses, frames
+
+
+def jax_stream(cfg, frames, op_by_op=()):
+    """The JAX SLAM stream over ``frames``, the frames in ``op_by_op``
+    stepped op by op (``jax.disable_jit``: the step's branches as Python
+    control flow, every op dispatched alone) and the others through the
+    stream's jitted step: the same program and numbers under another
+    float32 summation order. With the bootstrap frame (the SECOND frame
+    that seeds the map: homography, triangulation, ground-plane alignment)
+    in ``op_by_op`` it is the reference's own witness for the world's yaw,
+    as ``tests/test_torch_cli_witness.py`` evaluates the host driver's
+    bootstrap. Returns the stream, with the keyframe policy's inputs after
+    each frame (the carry's ``kf_matches`` and ``frames_since_kf``) as
+    ``kf_policy``, (frames, 2)."""
+    import jax
+
+    from sdvl_tpu.pipeline.device_fsm import make_step
+    from sdvl_tpu.pipeline.stream import SdvlStream
+
+    js = SdvlStream(cfg, seed=0, donate=False)
+    eager = make_step(cfg, js._undistort)
+    policy = []
+    for i, f in enumerate(frames):
+        if i in op_by_op:
+            with jax.disable_jit():
+                js.m, js.carry, info = eager(js.m, js.carry, js._prep(f),
+                                             js._grid)
+            js._infos.append((False, info))
+        else:
+            js.feed(f)
+        policy.append((int(js.carry.kf_matches),
+                       int(js.carry.frames_since_kf)))
+    js.kf_policy = np.asarray(policy, np.int32)
+    return js
+
+
+def bootstrap_frame(r) -> int:
+    """The frame whose step seeded the map (its keyframe flag is the
+    stream's first)."""
+    return int(np.argmax(r.is_keyframe))
+
+
+# the fields of a map that global BA reads (mapper.extract_global_ba), kept
+# for the keyframe slots a stream filled
+BA_MAP_FIELDS = ("kf_pose", "kf_valid", "kf_frame_id", "obs_mask", "obs_px")
+BA_PT_FIELDS = ("pt_pos", "pt_valid")
+
+
+def euroc_record(out_dir: str) -> str:
+    """Write ``torch_euroc_record.npz``; returns its path."""
+    import time
+
+    import jax
+
+    from sdvl_tpu.pipeline import mapper
+    from sdvl_tpu.pipeline.config import intrinsics
+
+    t0 = time.perf_counter()
+    cfg, poses_gt, frames = euroc_setup()
+    runs = {}
+    for name in ("jax", "witness"):
+        js = jax_stream(cfg, frames, op_by_op=(
+            (bootstrap_frame(runs["jax"][1]),) if runs else ()))
+        r = js.result()
+        runs[name] = (js, r)
+        print(f"euroc record, {name}: states", r.states.tolist())
+        print(f"euroc record, {name}: keyframes",
+              np.flatnonzero(r.is_keyframe).tolist())
+        print(f"euroc record, {name}: matches", r.n_matches.tolist(),
+              f"at {time.perf_counter() - t0:.1f} s", flush=True)
+    slam, r = runs["jax"]
+    w = runs["witness"][1]
+    assert (r.states == 2)[3:].all(), "not RUNNING after the bootstrap"
+    assert r.is_keyframe.sum() >= 4, "fewer than 3 keyframes after the " \
+                                     "bootstrap"
+    np.testing.assert_array_equal(w.states, r.states)
+
+    key = slam.carry.key
+    s = cfg.sdvl
+    n_hyp = min(s.ransac_hypotheses, s.max_ransac_its)
+    n_lanes = int(slam.carry.last_idx.shape[0])
+    n_corners = int(slam.carry.c1_xy.shape[0])
+    before = np.concatenate([[0], r.states[:-1]])
+    pose_frames = np.nonzero(before >= 2)[0].astype(np.int32)
+    pose_noise = np.stack([ransac_gumbel(key, int(i), n_hyp, n_lanes)
+                           for i in pose_frames])
+    world_tf = np.asarray(np.concatenate(
+        [i.world_tf[None] for _, i in slam._infos]))
+
+    # global BA over the final map at its 1000 slots (PCG), as the CLI
+    # runs it, jitted and op by op
+    m = slam.m
+    n_slots = int(np.flatnonzero(np.asarray(m.kf_valid)).max()) + 1
+    intr = intrinsics(cfg)
+    ba = {}
+    for name, op_by_op in (("ba_", False), ("ba_eager_", True)):
+        t1 = time.perf_counter()
+        with jax.disable_jit() if op_by_op else contextlib.nullcontext():
+            m_ba = jax.jit(lambda mm: mapper.global_ba(mm, intr))(m)
+            jax.block_until_ready(m_ba.kf_pose)
+        print(f"euroc record: global BA {name} in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        ba.update({name + "kf_pose": np.asarray(m_ba.kf_pose[:n_slots]),
+                   name + "pt_pos": np.asarray(m_ba.pt_pos),
+                   name + "obs_mask": np.packbits(np.asarray(
+                       m_ba.obs_mask[:n_slots]), axis=1)})
+
+    path = os.path.join(out_dir, "torch_euroc_record.npz")
+    with open(EUROC_CFG) as f:
+        cfg_text = f.read()
+    np.savez_compressed(
+        path,
+        protocol=_blob(dict(cfg=cfg_text, frames=EUROC_FRAMES,
+                            translation_amp=EUROC_AMP, plane_z=4.0)),
+        frames_sha256=np.frombuffer(frames_sha256(frames).encode(),
+                                    dtype=np.uint8),
+        frame_shape=np.asarray(frames[0].shape, np.int32),
+        poses_gt=np.stack(poses_gt).astype(np.float32),
+        homography_gumbel=homography_gumbel(key, n_corners),
+        plane_gumbel=plane_gumbel(key, s.max_points),
+        pose_frames=pose_frames,
+        pose_gumbel=pose_noise.astype(np.float32),
+        jax_pose=r.poses_raw.astype(np.float32),
+        jax_world_tf=world_tf.astype(np.float32),
+        jax_trajectory=r.trajectory.astype(np.float32),
+        jax_state=r.states.astype(np.int32),
+        jax_quality=r.quality.astype(np.int32),
+        jax_n_matches=r.n_matches.astype(np.int32),
+        jax_is_keyframe=r.is_keyframe,
+        jax_n_corners=r.n_corners.astype(np.int32),
+        jax_kf_policy=slam.kf_policy,
+        jax_n_keyframes=np.asarray(m.n_keyframes, np.int32),
+        jax_kf_frame_id=np.asarray(m.kf_frame_id, np.int32),
+        jax_n_points=np.asarray(np.sum(np.asarray(m.pt_valid)), np.int32),
+        witness_trajectory=w.trajectory.astype(np.float32),
+        witness_n_matches=w.n_matches.astype(np.int32),
+        witness_is_keyframe=w.is_keyframe,
+        **{"map_" + k: np.asarray(getattr(m, k))[:n_slots]
+           for k in BA_MAP_FIELDS},
+        **{"map_" + k: np.asarray(getattr(m, k)) for k in BA_PT_FIELDS},
+        **ba,
         jax_version=np.frombuffer(jax.__version__.encode(), dtype=np.uint8),
     )
     print(path, os.path.getsize(path) / 1e6, "MB")
@@ -857,6 +1074,29 @@ def slam_test_runs() -> dict:
             **slam_stream_run("distorted", cfg_d, frames_d, "pallas")}
 
 
+def euroc_test_runs() -> dict:
+    """The JAX SLAM streams of ``tests/test_torch_euroc.py``'s small case
+    (``configs/euroc.cfg``'s lens at half its size, plain route): as
+    compiled (``euroc``), and with the bootstrap frame stepped op by op
+    (``euroc_witness``, ``jax_stream``: the reference's own world yaw)."""
+    import dataclasses
+
+    import test_torch_euroc as E
+
+    cfg_j, _, frames, _ = E.setup()
+    out = slam_stream_run("euroc", cfg_j, frames, "plain")
+    w = jax_stream(cfg_j, frames, op_by_op=(bootstrap_frame(as_result(
+        {k[len("euroc."):]: v for k, v in out.items()})),))
+    r = w.result()
+    out.update({
+        "euroc_witness.protocol": _blob(dict(
+            cfg=dataclasses.asdict(cfg_j),
+            frames_sha256=frames_sha256(frames, np.float32))),
+        **{"euroc_witness." + k: np.asarray(getattr(r, k)) for k in (
+            "states", "is_keyframe", "n_matches", "trajectory")}})
+    return out
+
+
 def _infos(name: str, infos) -> dict:
     """A JAX ``FrameInfo`` (its leaves stacked, where a list of them) as
     arrays under ``name``."""
@@ -985,15 +1225,16 @@ def record_test_runs(path: str = TEST_RUNS) -> str:
     """Write ``torch_test_jax_runs.npz``: the JAX runs that port tests hold
     the port against (``probe_test_run``, ``serve_test_run``,
     ``step_test_run``, ``slam_test_runs``, ``multi_stream_test_runs``,
-    ``localize_test_runs``, ``cli_test_runs``), recorded so that tier-1
-    does not compile and run them; returns its path."""
+    ``localize_test_runs``, ``cli_test_runs``, ``euroc_test_runs``),
+    recorded so that tier-1 does not compile and run them; returns its
+    path."""
     import jax
 
     np.savez_compressed(path, jax_version=np.frombuffer(
         jax.__version__.encode(), dtype=np.uint8),
         **probe_test_run(), **serve_test_run(), **step_test_run(),
         **slam_test_runs(), **multi_stream_test_runs(),
-        **localize_test_runs(), **cli_test_runs())
+        **localize_test_runs(), **cli_test_runs(), **euroc_test_runs())
     print(path, os.path.getsize(path) / 1e6, "MB")
     return path
 
@@ -1005,8 +1246,8 @@ JSON_NAMES = ("protocol", "out", "lines", "viz")
 def recorded_run(prefix: str, protocol: dict) -> dict:
     """The record of ``record_test_runs`` under ``prefix`` (``probe``,
     ``serve``, ``step``, ``slam_plain``, ``slam_pallas``, ``distorted``,
-    ``multi``, ``frozen``, ``localize``, ``cli_stream``, ``cli_host``):
-    its arrays by name (``m.`` for the final map's, ``snap.`` for a
+    ``multi``, ``frozen``, ``localize``, ``cli_stream``, ``cli_host``,
+    ``euroc``, ``euroc_witness``): its arrays by name (``m.`` for the final map's, ``snap.`` for a
     snapshot file's), JSON objects decoded.
     Raises when
     the recorded ``protocol`` (the configuration and frames' hash the test
@@ -1178,6 +1419,8 @@ def main(argv=None):
                          "torch_long_run_lanes_record.npz only")
     ap.add_argument("--zurich-record", action="store_true",
                     help="write torch_zurich_record.npz only")
+    ap.add_argument("--euroc-record", action="store_true",
+                    help="write torch_euroc_record.npz only")
     ap.add_argument("--test-runs", action="store_true",
                     help="write torch_test_jax_runs.npz and "
                          "torch_long_twin_record.npz only")
@@ -1201,11 +1444,14 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
         long_spread(args.out, args.long_spread)
         return
-    if args.slam_record or args.long_record or args.zurich_record:
+    if (args.slam_record or args.long_record or args.zurich_record
+            or args.euroc_record):
         os.makedirs(args.out, exist_ok=True)
         if args.long_record:
             long_record(args.out)
             long_record(args.out, LONG_LANES)
+        elif args.euroc_record:
+            euroc_record(args.out)
         else:
             (slam_record if args.slam_record else zurich_record)(args.out)
         return

@@ -85,11 +85,14 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
 
 
 def _levels(case, dev):
-    """The stream's three levels (a 480x640 pyramid), a small level, a
-    ragged one (scalar staging: W % 4 != 0) and an aligned shape at a base
-    that is not 16-byte aligned (scalar staging too)."""
-    if case == "stream":
-        img = T(blocky_image(11, (480, 640))).to(dev)
+    """The stream's three levels (a 480x640 pyramid), ``configs/euroc.cfg``'s
+    (a 480x752 pyramid: 23.5, 11.75 and 5.875 cells of 32 across, a partial
+    cell at every level), a small level, a ragged one (scalar staging: W %
+    4 != 0) and an aligned shape at a base that is not 16-byte aligned
+    (scalar staging too)."""
+    if case in ("stream", "euroc"):
+        shape = (480, 640) if case == "stream" else (480, 752)
+        img = T(blocky_image(11, shape)).to(dev)
         return pyramid.build_pyramid(img, 3)
     if case == "small":
         return [T(blocky_image(12, (64, 96))).to(dev)]
@@ -116,7 +119,8 @@ def _assert_cells_equal(got, want, border="pallas"):
 @pytest.mark.cuda
 @pytest.mark.parametrize("border", detect.BORDERS)
 @pytest.mark.parametrize("cell", [16, 32, 64])
-@pytest.mark.parametrize("case", ["stream", "small", "ragged", "misaligned"])
+@pytest.mark.parametrize("case", ["stream", "euroc", "small", "ragged",
+                                  "misaligned"])
 def test_cells_match_plain_on_card(cuda_device, case, cell, border):
     """All levels in one launch: maps, and cell winners exactly the plain
     version's (per-level score map plus ``grid_best``), under both border
@@ -195,21 +199,31 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
             detect.fast_shi_tomasi_cells(levels, cell)
 
 
+CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "configs")
+SHIPPED = sorted(f for f in os.listdir(CONFIGS) if f.endswith(".cfg"))
+
+
+def test_the_card_tests_cover_every_shipped_config():
+    assert len(SHIPPED) == 7 and "euroc.cfg" in SHIPPED, SHIPPED
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("driver", ["host", "stream"])
-def test_shipped_config_detects_with_the_kernel(cuda_device, driver):
+@pytest.mark.parametrize("name", SHIPPED)
+def test_shipped_config_detects_with_the_kernel(cuda_device, name, driver):
     """``SDVL(cfg, device="cuda")`` and ``SdvlStream(cfg, device="cuda")``
-    with ``configs/tum_f1.cfg`` as shipped (which leaves
-    ``use_pallas_detect`` off: the plain border rule) launch the kernel once
-    per frame: the implementation follows the device, the config only the
+    with each of ``configs/*.cfg`` as shipped (each leaves
+    ``use_pallas_detect`` off: the plain border rule; six are 640x480,
+    ``euroc.cfg`` 752x480) launch the kernel once per frame, six frames
+    each: the implementation follows the device, the config only the
     border rule."""
     from sdvl_tpu_torch.io.synthetic import PlaneScene
     from sdvl_tpu_torch.pipeline.config import load_cfg
     from sdvl_tpu_torch.pipeline.sdvl import SDVL
     from sdvl_tpu_torch.pipeline.stream import SdvlStream
 
-    cfg = load_cfg(os.path.join(os.path.dirname(__file__), os.pardir,
-                                "configs", "tum_f1.cfg"))
+    cfg = load_cfg(os.path.join(CONFIGS, name))
+    assert not cfg.sdvl.use_pallas_detect
     c = cfg.camera
     scene = PlaneScene(fx=c.fx, fy=c.fy, cx=c.u0, cy=c.v0, width=c.width,
                        height=c.height, plane_z=4.0, dist=c.dist)
@@ -228,8 +242,7 @@ def test_shipped_config_detects_with_the_kernel(cuda_device, driver):
     # the kernel counts its own launches: one per frame, and one in each
     # eager pass before the capture of a graph that holds it (the stream's
     # step, the host driver's locked preprocess)
-    captures = (sum(name in slam._graphs for name in ("detect",
-                                                      "preprocess"))
+    captures = (sum(g in slam._graphs for g in ("detect", "preprocess"))
                 if driver == "host" else int(slam.runner.graph is not None))
     assert (detect.launches() - before
             == len(frames) + CAPTURE_PASSES * captures)
