@@ -52,8 +52,10 @@ def main(argv=None):
                     help="decode frames without the native loader (binary "
                          "PGM only)")
     ap.add_argument("--trace", default=None,
-                    help="write per-stage timing summary JSON here and "
-                         "print the table at exit")
+                    help="trace the run (utils/trace.py) and write JSON "
+                         "here at exit: span timings, the global BA's "
+                         "device ms per stage and the kernels' build "
+                         "counters; also prints the table")
     ap.add_argument("--snapshot", default=None,
                     help="write a resumable session checkpoint here at exit")
     ap.add_argument("--resume", default=None,
@@ -101,6 +103,11 @@ def main(argv=None):
     from ..pipeline.sdvl import SDVL
 
     device = require_device(args.device)
+    if args.trace:
+        from ..utils import trace
+
+        trace.tracer().reset()
+        trace.tracer().enabled = True
     stamps = []
     gt_poses = None
     if args.synthetic:
@@ -182,10 +189,7 @@ def main(argv=None):
                   "with --stream (use --viz for post-run rendering)")
         return _run_stream(args, cfg, frames, gt_poses, device)
 
-    from ..utils.trace import Tracer
-
-    tracer = Tracer(enabled=args.trace is not None, device=device)
-    slam = SDVL(cfg, device=device, tracer=tracer)
+    slam = SDVL(cfg, device=device)
     if args.resume:
         from ..io.snapshot import load_snapshot
 
@@ -284,9 +288,7 @@ def main(argv=None):
     print(json.dumps(summary))
 
     if args.trace:
-        print(tracer.report())
-        tracer.write_json(args.trace)
-        print(f"[INFO] trace summary written to {args.trace}")
+        _write_trace(args.trace)
 
     if args.snapshot:
         from ..io.snapshot import save_snapshot
@@ -371,6 +373,18 @@ def _ate_vs_gt(traj_wc, gt_wc, tracked=None):
     if len(traj_wc) < 3:
         return {}
     return _aligned_scores(traj_wc, gt_wc, idx=orig)
+
+
+def _write_trace(path):
+    """Print the process tracer's table, write its JSON to ``path`` and
+    disable it."""
+    from ..utils import trace
+
+    tracer = trace.tracer()
+    print(tracer.report())
+    tracer.write_json(path)
+    tracer.enabled = False
+    print(f"[INFO] trace summary written to {path}")
 
 
 def _apply_global_ba(slam, cfg, traj, traj_ids):
@@ -500,6 +514,8 @@ def _run_stream(args, cfg, frames, gt_poses=None, device="cuda"):
             tracked=np.asarray(r.states)[:k] == 2,
         ))
     print(json.dumps(summary))
+    if args.trace:
+        _write_trace(args.trace)
     if args.viz:
         from ..viz import render_stream_session
 

@@ -52,6 +52,9 @@
 //     handle to *index < n. `n` travels by value. The body reads *index;
 //     no add, compare or copy of the loop's own runs per iteration.
 //
+// sdvl_stage_mark(stream, acc, stage, first, counter) launches the stage-mark
+// kernel, which times the stages of a replay (see stage_mark_kernel).
+//
 // The caller runs the body's work on `body` in between. Nesting works the
 // same way, the body stream of one level being the parent of the next.
 // Nothing here synchronises or allocates device memory. Each function returns
@@ -86,7 +89,8 @@ struct Condition {
 // Sets the node's handle (and an if/else pair's second handle), and counts
 // its launches in counter[0] (one per IF node or if/else pair and one per
 // WHILE iteration, plus one per WHILE node, each time the graph replays)
-// and the if/else pairs among them in counter[1].
+// and the if/else pairs among them in counter[1] (counter[2] counts the
+// stage marks below).
 __global__ void set_condition_kernel(const __grid_constant__ Condition c) {
     unsigned value;
     if (c.pred != nullptr) {
@@ -106,6 +110,39 @@ __global__ void set_condition_kernel(const __grid_constant__ Condition c) {
 
 // An empty one-thread kernel: the least a kernel node of a replay costs.
 __global__ void launch_floor_kernel() {}
+
+// Stage marks (sdvl_tpu_torch/utils/trace.py): a graph captured with marks
+// owns `acc`, SDVL_MAX_STAGES stage slots of device ns, then as many of
+// marks, then the previous mark's %globaltimer reading and slot. A mark of
+// stage `stage` adds the time since the previous mark to the previous
+// mark's slot and counts itself in its own, so the stages partition the
+// replay between its first and its last mark; the graph's first mark
+// (`first`) zeroes the slots instead. Each launch adds 1 to counter[2] of
+// the condition kernel's counters. One thread: a mark is a launch-floor
+// node with a few loads and stores, never in a loop's body but at the
+// boundaries of stages that take milliseconds.
+#define SDVL_MAX_STAGES 16
+
+__global__ void stage_mark_kernel(unsigned long long* acc, int stage,
+                                  int first, unsigned long long* counter) {
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    unsigned long long* ns = acc;
+    unsigned long long* marks = acc + SDVL_MAX_STAGES;
+    unsigned long long* last = acc + 2 * SDVL_MAX_STAGES;  // time, slot
+    if (first) {
+        for (int i = 0; i < SDVL_MAX_STAGES; ++i) {
+            ns[i] = 0ull;
+            marks[i] = 0ull;
+        }
+    } else if (last[1] < SDVL_MAX_STAGES) {
+        ns[last[1]] += now - last[0];
+    }
+    marks[stage] += 1ull;
+    last[0] = now;
+    last[1] = static_cast<unsigned long long>(stage);
+    if (counter != nullptr) atomicAdd(counter + 2, 1ull);
+}
 
 // the step of the last failed call (for the caller's error message)
 static thread_local int last_step = 0;
@@ -292,6 +329,17 @@ extern "C" int sdvl_fori_end(void* body_stream, unsigned long long handle,
 // One launch of the empty kernel on `stream` (timing only).
 extern "C" int sdvl_launch_floor(void* stream) {
     launch_floor_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One stage mark on `stream` (see stage_mark_kernel).
+extern "C" int sdvl_stage_mark(void* stream, void* acc, int stage, int first,
+                               void* counter) {
+    if (stage < 0 || stage >= SDVL_MAX_STAGES)
+        return static_cast<int>(cudaErrorInvalidValue);
+    stage_mark_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<unsigned long long*>(acc), stage, first,
+        static_cast<unsigned long long*>(counter));
     return static_cast<int>(cudaGetLastError());
 }
 

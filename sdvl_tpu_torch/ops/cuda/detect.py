@@ -46,10 +46,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ...utils import trace
 
 _CIRCLE = (
     (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
@@ -102,14 +105,22 @@ def build_library(verbose: bool = False, source: str = SOURCE,
                   name: str = "libsdvl_detect.so") -> str:
     """Compile ``source`` (default ``csrc/detect.cu``) into
     ``_build/<name>`` and return its path. Raises when the compiler is
-    missing or fails."""
+    missing or fails. Every build counts in the process tracer's
+    ``kernels.builds``, and the compiler's seconds in ``kernels.build_s``
+    (``utils/trace.py``), failed builds too."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, name)
     cmd = [_find_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", out, source]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    finally:
+        tracer = trace.tracer()
+        tracer.count("kernels.builds")
+        tracer.count("kernels.build_s", time.perf_counter() - t0)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"

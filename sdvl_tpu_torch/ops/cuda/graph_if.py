@@ -21,7 +21,9 @@ later, in the runtime and the driver: loading the library checks both.
 Every condition kernel adds one to a launch counter on the card
 (:func:`launches`): once per IF node or if/else pair and per WHILE node,
 and once per WHILE iteration, each time a graph replays; a pair's adds one
-to a second counter too (:func:`pairs`).
+to a second counter too (:func:`pairs`). :func:`stage_mark` launches the
+stage-mark kernel of ``utils/trace.py``'s marks, which counts its own
+launches in a third (:func:`marks`).
 :func:`launch_floor` launches an empty kernel, the least a kernel node
 costs, for timing beside it.
 
@@ -62,8 +64,8 @@ _lib_lock = threading.Lock()
 _body_streams = {}   # (device index, nesting depth) -> torch.cuda.Stream
 _capture_streams = {}   # device index -> the stream graphs capture on
 _depth = threading.local()
-# per CUDA device index, the (2,) int64 counts of condition-kernel launches
-# and of the if/else pairs among them
+# per CUDA device index, the (3,) int64 counts of condition-kernel launches,
+# of the if/else pairs among them and of stage-mark launches
 _counters = {}
 
 
@@ -86,6 +88,7 @@ def load_library(verbose: bool = False):
             lib.sdvl_fori_begin.argtypes = [vp, vp, vp, ci, vp, p_ull]
             lib.sdvl_fori_end.argtypes = [vp, ull, vp, ci, vp]
             lib.sdvl_launch_floor.argtypes = [vp]
+            lib.sdvl_stage_mark.argtypes = [vp, vp, ci, ci, vp]
             lib.sdvl_cuda_versions.argtypes = [
                 ctypes.POINTER(ctypes.c_int)] * 2
             lib.sdvl_error_string.argtypes = [ctypes.c_int]
@@ -97,7 +100,7 @@ def load_library(verbose: bool = False):
                        lib.sdvl_if_end, lib.sdvl_while_begin,
                        lib.sdvl_while_end, lib.sdvl_fori_begin,
                        lib.sdvl_fori_end, lib.sdvl_launch_floor,
-                       lib.sdvl_cuda_versions):
+                       lib.sdvl_stage_mark, lib.sdvl_cuda_versions):
                 fn.restype = ctypes.c_int
             runtime, driver = ctypes.c_int(), ctypes.c_int()
             _check(lib.sdvl_cuda_versions(ctypes.byref(runtime),
@@ -113,14 +116,14 @@ def load_library(verbose: bool = False):
 
 def _counter(dev: int) -> torch.Tensor:
     """The condition kernel's counters of device ``dev``: launches, then
-    if/else pairs. A graph holds their address, so :func:`capture` makes
-    them before a capture begins."""
+    if/else pairs, then stage marks. A graph holds their address, so
+    :func:`capture` makes them before a capture begins."""
     c = _counters.get(dev)
     if c is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the conditional nodes' launch counter must "
                                "be made before a capture")
-        c = _counters[dev] = torch.zeros(2, dtype=torch.int64,
+        c = _counters[dev] = torch.zeros(3, dtype=torch.int64,
                                          device=torch.device("cuda", dev))
     return c
 
@@ -131,8 +134,9 @@ def _index(device) -> int:
 
 
 def reset_launches(device=None) -> None:
-    """Set the condition kernel's counters of ``device`` (default: the
-    current one), its launches and its if/else pairs, to 0."""
+    """Set the counters of ``device`` (default: the current one), the
+    condition kernel's launches and if/else pairs and the stage marks, to
+    0."""
     _counter(_index(device)).zero_()
 
 
@@ -147,6 +151,12 @@ def pairs(device=None) -> int:
     both of its nodes) since the last :func:`reset_launches` (a host
     read)."""
     return int(_counter(_index(device))[1])
+
+
+def marks(device=None) -> int:
+    """Stage-mark launches on ``device`` since the last
+    :func:`reset_launches` (a host read)."""
+    return int(_counter(_index(device))[2])
 
 
 def _check(err: int, what: str) -> None:
@@ -350,6 +360,17 @@ def launch_floor() -> None:
     a kernel node costs at the least, timed beside the condition kernel."""
     _check(load_library().sdvl_launch_floor(
         torch.cuda.current_stream().cuda_stream), "the empty kernel's launch")
+
+
+def stage_mark(acc: torch.Tensor, stage: int, first: bool) -> None:
+    """One launch of the stage-mark kernel on the current stream: the
+    time since the previous mark goes to the previous mark's slot of
+    ``acc`` (a graph's ``utils.trace.Stages``), and mark ``stage`` counts
+    itself; ``first`` zeroes the slots instead."""
+    _check(load_library().sdvl_stage_mark(
+        torch.cuda.current_stream(acc.device).cuda_stream, acc.data_ptr(),
+        int(stage), int(first), _counter(acc.device.index).data_ptr()),
+        "a stage mark")
 
 
 @contextlib.contextmanager

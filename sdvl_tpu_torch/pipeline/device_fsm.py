@@ -69,6 +69,7 @@ from ..ops.cuda import graph_if
 from ..solvers import ba
 from ..state.map_state import (MapState, alloc_slots, empty_map, scatter,
                                set_row, store_pyramid)
+from ..utils import trace
 from . import bootstrap, depth_filter, mapper, matcher, relocalize, tracker
 from .config import Config, intrinsics
 
@@ -891,12 +892,22 @@ class StageGraph:
     Calling the graph copies ``inputs`` into its buffers and replays it; it
     returns the graph's own output tensors, which the next replay
     overwrites. ``name`` says which stage it is.
+
+    Spans of the process tracer (``utils/trace.py``, recorded while it is
+    active), under whatever span is open: ``graph.warmup``, one per eager
+    pass, and ``graph.capture`` (the wait for the passes' work, the input
+    buffers, the capture), which together take ``capture_s``;
+    ``graph.replay`` per call (the input copy and the replay's launch).
+    With ``marks``, a graph captured while the tracer is active owns
+    ``stages`` (a ``trace.Stages``, else None), which the stage marks that
+    ``fn`` makes (``trace.mark``) time on each replay.
     """
 
     def __init__(self, name: str, fn, st, inputs: tuple,
-                 shared_map: bool = False, pool=None):
+                 shared_map: bool = False, pool=None, marks: bool = False):
         t0 = time.perf_counter()
         self.name = name
+        tracer = trace.tracer()
 
         def scratch(s: StepState) -> StepState:
             return StepState(s.m if shared_map else _clone(s.m),
@@ -904,25 +915,31 @@ class StageGraph:
                              frozen_map=s.frozen_map)
 
         for i in range(CAPTURE_PASSES):
-            copy = (tuple(map(scratch, st)) if isinstance(st, tuple)
-                    else scratch(st))
-            with warming(), (_sync_errors() if i == CAPTURE_PASSES - 1
-                             else contextlib.nullcontext()):
-                fn(copy, *inputs)
-            del copy
-        torch.cuda.synchronize()
-        self.inputs = _clone(tuple(inputs))
-        self.graph = torch.cuda.CUDAGraph()
-        with graph_if.capture(self.graph, pool) as cap:
-            self.outputs = fn(st, *self.inputs)
-        self.pool_bytes = cap.pool_bytes    # what the capture added to it
-        torch.cuda.synchronize()
+            with tracer.span("graph.warmup"):
+                copy = (tuple(map(scratch, st)) if isinstance(st, tuple)
+                        else scratch(st))
+                with warming(), (_sync_errors() if i == CAPTURE_PASSES - 1
+                                 else contextlib.nullcontext()):
+                    fn(copy, *inputs)
+                del copy
+        with tracer.span("graph.capture"):
+            torch.cuda.synchronize()
+            self.inputs = _clone(tuple(inputs))
+            self.stages = (trace.Stages(torch.cuda.current_device())
+                           if marks and tracer.active else None)
+            self.graph = torch.cuda.CUDAGraph()
+            with graph_if.capture(self.graph, pool) as cap, \
+                    trace.marking(self.stages):
+                self.outputs = fn(st, *self.inputs)
+            self.pool_bytes = cap.pool_bytes  # what the capture added to it
+            torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0   # warm-up and capture
         self.replays = 0
 
     def __call__(self, *inputs):
-        _copy_into(self.inputs, inputs)
-        self.graph.replay()
+        with trace.tracer().span("graph.replay"):
+            _copy_into(self.inputs, inputs)
+            self.graph.replay()
         self.replays += 1
         return self.outputs
 

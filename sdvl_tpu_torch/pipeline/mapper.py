@@ -29,6 +29,7 @@ from ..core import geometry, se3
 from ..solvers import ba
 from ..state.map_state import (MapState, best_connections, kf_slot_to_evict,
                                scatter, set_row, store_pyramid)
+from ..utils import trace
 from . import depth_filter, matcher
 
 
@@ -276,52 +277,75 @@ def global_ba(m: MapState, intr, mesh=None, stage_iters=(8, 12),
     collectives cannot be captured, and ``graphs=True`` with one raises.
     ``stats``, a dict, receives ``cg_iterations`` (the result's per-LM-step
     counts, a device tensor) and ``chi2``, and on the graph path the
-    graph's ``capture_s``, ``pool_bytes`` and ``replays``."""
-    gloo = (mesh is not None and torch.distributed.get_backend(
-        mesh.get_group(mesh_dim=axis)) == "gloo")
-    if gloo and graphs:
-        raise ValueError("global_ba(mesh=...) over a gloo mesh runs "
-                         "eagerly: gloo collectives cannot be captured in "
-                         "a CUDA graph (graphs=True needs nccl)")
-    if graphs is None:
-        graphs = not gloo and m.kf_pose.is_cuda
-    if graphs and not m.kf_pose.is_cuda:
-        raise ValueError("graphs=True needs a CUDA device")
+    graph's ``capture_s``, ``pool_bytes`` and ``replays``.
 
-    def solve(map_):
-        problem = extract_global_ba(map_, intr)
-        if mesh is None:
-            res = ba.solve(problem, huber=huber_threshold(intr),
-                           stage_iters=tuple(stage_iters))
+    Tracing (``utils/trace.py``): the call is a ``global_ba`` span, its
+    output clones ``global_ba.read`` and the graph's release
+    ``graph.release``. While the tracer is active the graph holds stage
+    marks (``extract``, then ``ba.solve``'s, ``writeback``, ``end``), and
+    the call reads them once, after its result, into the tracer and into
+    ``stats["stage_ms"]`` (device ms per stage)."""
+    tracer = trace.tracer()
+    with tracer.span("global_ba"):
+        gloo = (mesh is not None and torch.distributed.get_backend(
+            mesh.get_group(mesh_dim=axis)) == "gloo")
+        if gloo and graphs:
+            raise ValueError("global_ba(mesh=...) over a gloo mesh runs "
+                             "eagerly: gloo collectives cannot be captured "
+                             "in a CUDA graph (graphs=True needs nccl)")
+        if graphs is None:
+            graphs = not gloo and m.kf_pose.is_cuda
+        if graphs and not m.kf_pose.is_cuda:
+            raise ValueError("graphs=True needs a CUDA device")
+
+        def solve(map_):
+            trace.mark("extract")
+            problem = extract_global_ba(map_, intr)
+            if mesh is None:
+                res = ba.solve(problem, huber=huber_threshold(intr),
+                               stage_iters=tuple(stage_iters))
+            else:
+                from ..dist import ba_sharded
+
+                res = ba_sharded.solve_sharded(
+                    problem, mesh, huber=huber_threshold(intr),
+                    stage_iters=tuple(stage_iters), axis=axis)
+            trace.mark("writeback")
+            free = ~problem.fixed
+            removed = problem.obs_mask & ~res.inlier_mask         # (P, K)
+            out = (torch.where(free[:, None], res.poses, map_.kf_pose),
+                   torch.where(map_.pt_valid[:, None], res.points,
+                               map_.pt_pos),
+                   map_.obs_mask & ~removed.T, res.cg_iterations, res.chi2)
+            trace.mark("end")
+            return out
+
+        stages = None
+        if graphs:
+            from .device_fsm import StageGraph, StepState
+
+            g = StageGraph("global_ba", lambda st: solve(st.m),
+                           StepState(m, None, inplace=True), (),
+                           shared_map=True, marks=True)
+            with tracer.span("global_ba.read"):
+                out = tuple(t.clone() for t in g())
+            if stats is not None:
+                stats.update(capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                             replays=g.replays)
+            stages = g.stages
+            with tracer.span("graph.release"):
+                del g
         else:
-            from ..dist import ba_sharded
-
-            res = ba_sharded.solve_sharded(
-                problem, mesh, huber=huber_threshold(intr),
-                stage_iters=tuple(stage_iters), axis=axis)
-        free = ~problem.fixed
-        removed = problem.obs_mask & ~res.inlier_mask             # (P, K)
-        return (torch.where(free[:, None], res.poses, map_.kf_pose),
-                torch.where(map_.pt_valid[:, None], res.points, map_.pt_pos),
-                map_.obs_mask & ~removed.T, res.cg_iterations, res.chi2)
-
-    if graphs:
-        from .device_fsm import StageGraph, StepState
-
-        g = StageGraph("global_ba", lambda st: solve(st.m),
-                       StepState(m, None, inplace=True), (),
-                       shared_map=True)
-        out = tuple(t.clone() for t in g())
+            out = solve(m)
+        kf_pose, pt_pos, obs_mask, cg_iterations, chi2 = out
         if stats is not None:
-            stats.update(capture_s=g.capture_s, pool_bytes=g.pool_bytes,
-                         replays=g.replays)
-        del g
-    else:
-        out = solve(m)
-    kf_pose, pt_pos, obs_mask, cg_iterations, chi2 = out
-    if stats is not None:
-        stats.update(cg_iterations=cg_iterations, chi2=chi2)
-    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, obs_mask=obs_mask)
+            stats.update(cg_iterations=cg_iterations, chi2=chi2)
+        if stages is not None:
+            read = stages.read()
+            tracer.record_stages("global_ba", read)
+            if stats is not None:
+                stats["stage_ms"] = {n: st["ms"] for n, st in read.items()}
+        return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, obs_mask=obs_mask)
 
 
 def prune_weak_points(m: MapState, min_obs: int = 2,

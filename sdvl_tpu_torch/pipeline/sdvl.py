@@ -60,7 +60,7 @@ import torch
 from .. import require_device
 from ..core import se3
 from ..state.map_state import MapState, empty_map
-from ..utils.trace import Tracer
+from ..utils import trace
 from . import (bootstrap, device_fsm, mapper, matcher, relocalize, tracker)
 from .config import Config, intrinsics
 from .stream import HostUploads, NoiseSource
@@ -128,8 +128,7 @@ class SDVL:
         if graphs and self.device.type != "cuda":
             raise ValueError("graphs=True needs a CUDA device")
         self.graphs = graphs
-        self.tracer = (tracer if tracer is not None
-                       else Tracer(enabled=False, device=self.device))
+        self.tracer = tracer if tracer is not None else trace.tracer()
         self.cfg = config
         s = config.sdvl
         self.intr = intrinsics(config)

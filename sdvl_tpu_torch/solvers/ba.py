@@ -34,6 +34,16 @@ moves) read on the host every ``CG_CHECK_EVERY`` iterations to stop early.
 Each LM step's CG iteration count stays on the device
 (``BAResult.cg_iterations``).
 
+Stage marks (``utils/trace.mark``, captured into a graph only while the
+tracer is active) at the boundaries, never inside the CG body: ``gate``
+(each LM stage's opening cost and the gating between stages),
+``linearize`` (residuals, robust weights, the normal equations), on the
+PCG route ``pcg_setup`` (``Vinv``, ``WVinv``, the right-hand side,
+``U_d``, the block-Jacobi ``D`` and its inverse, ``r0``, ``z0``) and
+``pcg_loop`` (the CG's WHILE node), on the dense route ``schur`` (the
+reduced system, its Cholesky and solves), then ``update``
+(back-substitution, ``boxplus``, the candidate's cost, accept).
+
 Every solve takes the reference's reduction hook (its ``axis``): ``group``,
 a ``torch.distributed`` process group the POINT dimension of the problem is
 sharded over (``dist/ba_sharded.py``). Each rank then holds its own point
@@ -53,6 +63,7 @@ import torch
 
 from ..core import camera as cam
 from ..core import geometry, se3
+from ..utils import trace
 
 
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
@@ -135,6 +146,7 @@ def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     """Solve the damped normal equations by marginalizing point blocks.
     A reduced system that is not positive definite gives a NaN step.
     ``group``: the points are sharded over it (see the module note)."""
+    trace.mark("schur")
     U, b_c = _psum(U, group), _psum(b_c, group)
     K = U.shape[0]
     dev = U.device
@@ -169,6 +181,7 @@ def _schur_solve(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     dc = torch.linalg.solve_triangular(L.mT, y, upper=True).reshape(K, 6)
     dc = torch.where(info != 0, torch.full_like(dc, float("nan")), dc)
 
+    trace.mark("update")
     # back-substitute points: dp = Vinv (b_p - sum_k W_pk^T dc_k)
     t = b_p - torch.einsum("pkij,ki->pj", Wm, dc)
     dp = torch.einsum("pij,pj->pi", Vinv, t)
@@ -200,6 +213,7 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     """
     from ..pipeline.device_fsm import device_while
 
+    trace.mark("pcg_setup")
     K = U.shape[0]
     dev = U.device
     eye3 = torch.eye(3, dtype=V.dtype, device=dev)
@@ -257,10 +271,12 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam, group=None):
         rz = torch.where(active, rz_new, rz)
         return x, r, p, rz, i + active.to(torch.int32)
 
+    trace.mark("pcg_loop")
     x, _, _, _, n_iter = device_while(
         cond, body, (torch.zeros_like(rhs), r0, z0, rz0,
                      torch.zeros((), dtype=torch.int32, device=dev)),
         max_iters=ceiling, check_every=CG_CHECK_EVERY)
+    trace.mark("update")
     dc = x * free[:, None]
 
     t = b_p - torch.einsum("pkij,ki->pj", Wm, dc)
@@ -314,6 +330,7 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
     def lm_run(poses, points, counts, w_mask, iters, first_step):
         def step(i, c):
             poses, points, lam, prev_chi2, counts = c
+            trace.mark("linearize")
             r, _, w0 = _residuals(poses, points, problem.obs_uv, w_mask)
             w = _robust_weights(r, w0, huber)
             system = _build_system(poses, points, r, w)
@@ -335,6 +352,7 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
             prev_chi2 = torch.where(accept, chi2, prev_chi2)
             return poses, points, lam, prev_chi2, counts
 
+        trace.mark("gate")
         lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
         poses, points, _, chi2, counts = device_fori(
             iters, step, (poses, points, lam,
@@ -347,6 +365,7 @@ def solve(problem: BAProblem, huber: float, stage_iters=(5, 10),
                                       w_mask, stage_iters[0], 0)
 
     # outlier gating between stages
+    trace.mark("gate")
     r, p_cam, _ = _residuals(poses, points, problem.obs_uv, w_mask)
     err2 = torch.sum(r * r, dim=-1)
     keep = (err2 < gate_thresh * gate_thresh) & (p_cam[..., 2] > 1e-4)

@@ -35,7 +35,7 @@ from sdvl_tpu_torch.io.synthetic import PlaneScene
 from sdvl_tpu_torch.pipeline import mapper
 from sdvl_tpu_torch.pipeline.config import intrinsics, load_cfg
 from sdvl_tpu_torch.pipeline.stream import SdvlStream
-from sdvl_tpu_torch.utils.trace import Tracer, torch_profile
+from sdvl_tpu_torch.utils.trace import Tracer
 
 torch.set_num_threads(1)
 
@@ -106,13 +106,14 @@ def frame_states(lines):
 @pytest.fixture(scope="module")
 def stream_run(seq, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("stream")
-    paths = dict(out=str(tmp / "traj.txt"), snap=str(tmp / "snap.npz"))
+    paths = dict(out=str(tmp / "traj.txt"), snap=str(tmp / "snap.npz"),
+                 trace=str(tmp / "trace.json"))
     buf = io.StringIO()     # (capsys is function-scoped)
     with contextlib.redirect_stdout(buf):
         rc = trun.main(["--device", "cpu", "--config", seq["cfg"],
                         "--images", seq["dir"], "--stream", "--global-ba",
                         "--output", paths["out"], "--snapshot",
-                        paths["snap"], "--quiet"])
+                        paths["snap"], "--trace", paths["trace"], "--quiet"])
     assert rc == 0
     return paths, buf.getvalue().splitlines()
 
@@ -151,6 +152,22 @@ def test_stream_global_ba_output(seq, stream_run):
     assert ate < 0.03 * extent, (ate, extent)
 
 
+def test_stream_trace_holds_the_global_ba_span(stream_run):
+    """``--trace`` on the stream driver: the end-of-run global BA is one
+    span (eager on the CPU: no graph spans, no stage marks), and the JSON
+    holds the kernels' build counters, and tracing is off after the run."""
+    from sdvl_tpu_torch.utils import trace
+
+    paths, lines = stream_run
+    tj = json.loads(open(paths["trace"]).read())
+    assert set(tj) == {"spans", "stages", "counters"}
+    assert tj["spans"]["global_ba"]["n"] == 1
+    assert not any(n.startswith("graph.") for n in tj["spans"])
+    assert tj["stages"] == {}
+    assert f"[INFO] trace summary written to {paths['trace']}" in lines
+    assert not trace.tracer().enabled
+
+
 def test_host_trace_snapshot_then_resume(seq, capsys, tmp_path):
     trace, snap = str(tmp_path / "trace.json"), str(tmp_path / "s.npz")
     lines, summary = run_cli(capsys, "--config", seq["cfg"], "--images",
@@ -161,8 +178,11 @@ def test_host_trace_snapshot_then_resume(seq, capsys, tmp_path):
     states = frame_states(lines)
     assert len(states) == N_FRAMES and states[-1] == "RUNNING"
     tj = json.loads(open(trace).read())
-    assert "preprocess" in tj and "track" in tj and "map_update" in tj
-    assert tj["preprocess"]["n"] == N_FRAMES
+    spans = tj["spans"]
+    assert "preprocess" in spans and "track" in spans
+    assert "map_update" in spans
+    assert spans["preprocess"]["n"] == N_FRAMES
+    assert set(tj) == {"spans", "stages", "counters"}
     lines, summary = run_cli(capsys, "--config", seq["cfg"], "--images",
                              seq["dir"], "--resume", snap, "--max-frames",
                              "6", "--quiet")
@@ -409,25 +429,16 @@ def test_disabled_tracer_is_noop():
 
 def test_report_json_and_events(tmp_path):
     tr = Tracer(device="cpu")
-    tr.keep_events()
     with tr.span("stage", block=True):
         pass
+    tr.count("kernels.builds")
     assert "stage" in tr.report()
     p = tmp_path / "t.json"
     tr.write_json(str(p))
-    assert json.loads(p.read_text())["stage"]["n"] == 1
-    tr.write_events_jsonl(str(tmp_path / "e.jsonl"))
-    ev = [json.loads(ln) for ln in open(tmp_path / "e.jsonl")]
-    assert [e["name"] for e in ev] == ["stage"]
+    tj = json.loads(p.read_text())
+    assert tj["spans"]["stage"]["n"] == 1
+    assert tj["counters"] == {"kernels.builds": 1} and tj["stages"] == {}
+    assert [e["name"] for e in tr.events] == ["stage"]
     tr.reset()
-    assert tr.summary() == {}
-
-
-def test_torch_profile_writes_the_table(tmp_path):
-    with torch_profile(str(tmp_path / "a")):
-        torch.ones(8) @ torch.ones(8)
-    assert (tmp_path / "a" / "key_averages.txt").exists()
-    assert not (tmp_path / "a" / "trace.json").exists()
-    with torch_profile(str(tmp_path / "b"), timeline=True):
-        torch.ones(8) @ torch.ones(8)
-    assert (tmp_path / "b" / "trace.json").exists()
+    assert tr.summary() == {} and tr.events == []
+    assert tr.counters == {"kernels.builds": 1}
