@@ -52,6 +52,12 @@ ending the run with a non-zero exit code:
    with empty bodies (the condition kernel's own time per node); 1000
    if/else pairs with empty bodies; a ``device_fori`` of 1000 iterations
    with an empty body (1001 condition launches and no other kernel).
+   And the whole-map BA's CG kernels (``ops/cuda/ba_pcg.py``) against
+   their plain versions at the Zurich map's shape (4096 points, 1000
+   slots, 320 filled) and two ragged ones, each error over the magnitude
+   of its terms' sum; two replays of a captured iteration bit for bit; a
+   refused launch raising; each kernel's device time (graph replay)
+   beside its bytes bound, the plain version's and the ``ptxas`` lines.
 4. slam    -- ``SdvlStream`` in full SLAM mode at the tum_f1 preset shape
    (640x480, 5 levels, ORB gate, 1000 features, 200 match lanes, 100
    keyframe / 4096 point / 512 candidate slots, the Pallas border rule as
@@ -303,7 +309,13 @@ ending the run with a non-zero exit code:
    ``per_branch_launches_by_path`` their sum (what a condition per branch
    would launch), the time of one IF node with an empty body beside the
    eager host read it takes the place of, and the times of an if/else
-   pair, a counted iteration, a WHILE iteration and the launch floor.
+   pair, a counted iteration, a WHILE iteration and the launch floor;
+   ``ba_pcg_wt_x``, ``ba_pcg_wvinv_t`` and ``ba_pcg_cg_tail`` give each BA
+   CG kernel's launches in global BA on the zurich and euroc maps
+   (``launches_by_path``, counted by the kernel) beside the CG's calls by
+   route there (``routes_by_path``: the plain route must read 0), its
+   error against the plain version, its time at the Zurich shape beside
+   its bytes bound and the plain version's, and its ``ptxas`` figures.
 
 It imports the port (``sdvl_tpu_torch``) only: no JAX, nothing of
 ``sdvl_tpu``. The fixtures under ``tests/data/`` are made by
@@ -727,8 +739,15 @@ def ptxas_report(lib: str) -> dict:
         if m and name:
             out.setdefault(name, {})["registers"] = int(m.group(1))
     names = ("eigh_kernel", "svd3_kernel", "set_condition_kernel",
-             "launch_floor_kernel")
-    return {next((k for k in names if k in f), f): v for f, v in out.items()}
+             "launch_floor_kernel", "cg_tail_kernel")
+
+    def short(f):
+        for k in ("wt_x_kernel", "wvinv_t_kernel"):   # <vec> and <scalar>
+            if k in f:
+                return f"{k}<{'vec' if 'ILb1E' in f else 'scalar'}>"
+        return next((k for k in names if k in f), f)
+
+    return {short(f): v for f, v in out.items()}
 
 
 def library_device_ms(fn, reps: int = 20) -> tuple:
@@ -904,6 +923,184 @@ def replay_ms_per(g, count: int, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / count)
     return statistics.median(times)
+
+
+# the whole-map BA's CG at the Zurich map's shape (tools/zurich_scale_smoke:
+# 4096 points, 1000 keyframe slots, 320 of them filled)
+PCG_SHAPE = (4096, 1000, 320)
+
+
+def ba_pcg_system(P: int, K: int, filled: int, seed: int = 0) -> dict:
+    """A seeded CG system on the card at (P, K) with ``filled`` slots
+    observed: ``Wm`` and ``WVinv`` (P, K, 6, 3), zero past ``filled`` and
+    on three quarters of the rest (the BA's dense grid at that fill);
+    ``U_d`` and ``Dinv`` (K, 6, 6) symmetric positive definite, the first
+    two slots fixed; a carry ``(x, r, p, rz, i)`` and its ``max_it``,
+    ``tol``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def normal(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    seen = (torch.rand((P, K), generator=g, device=dev) < 0.25)
+    seen[:, filled:] = False
+    Wm = normal(P, K, 6, 3, scale=0.1) * seen[..., None, None]
+    WVinv = normal(P, K, 6, 3, scale=0.1) * seen[..., None, None]
+    A = normal(K, 6, 6)
+    eye = torch.eye(6, device=dev)
+    U_d = A @ A.mT + 50.0 * eye
+    B = normal(K, 6, 6)
+    Dinv = torch.linalg.inv(B @ B.mT + 50.0 * eye).contiguous()
+    free = torch.ones(K, device=dev)
+    free[:2] = 0.0
+    p = normal(K, 6) * free[:, None]
+    r = normal(K, 6) * free[:, None]
+    carry = (normal(K, 6), r, p, (r * p).sum().abs(),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    return dict(Wm=Wm, WVinv=WVinv, U_d=U_d, Dinv=Dinv, free=free,
+                carry=carry, x=normal(K, 6),
+                max_it=torch.tensor(10 ** 9, dtype=torch.int32, device=dev),
+                tol=torch.zeros((), device=dev))
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor, scale) -> float:
+    """max |got - want| / scale, elementwise ``scale`` where a tensor."""
+    return float(((got - want).abs() / scale).max())
+
+
+def check_ba_pcg(floor_ms: float) -> dict:
+    """The whole-map BA's CG kernels (``ops/cuda/ba_pcg.py``) against their
+    plain versions (the einsums and the CG step of ``solvers/ba.py``) on
+    the card, at the Zurich shape and at ragged ones, each error over what
+    float32 sums of the terms' magnitudes allow; two replays of a captured
+    iteration bit for bit; a launch the runtime refuses raises. Then each
+    kernel's device time at the Zurich shape (graph replay) beside its
+    bytes bound at 3.35 TB/s and the plain version's, the whole iteration
+    both ways, and the ``ptxas`` lines of the library."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg
+
+    checks = {}
+    for name, shape in (("zurich", PCG_SHAPE), ("ragged_odd", (37, 13, 13)),
+                        ("ragged_even", (300, 130, 100))):
+        m = ba_pcg_system(*shape)
+        Wm, WVinv, free = m["Wm"], m["WVinv"], m["free"]
+        x = m["x"]
+        t = ba_pcg.wt_x(Wm, x, free)
+        t_bound = ba_pcg.wt_x_plain(Wm.abs(), x.abs(), free)
+        s = ba_pcg.wvinv_t(WVinv, t)
+        s_bound = ba_pcg.wvinv_t_plain(WVinv.abs(), t.abs())
+        got = ba_pcg.cg_tail(s, m["U_d"], m["Dinv"], free,
+                             tuple(c.clone() for c in m["carry"]),
+                             m["max_it"], m["tol"])
+        want = ba_pcg.cg_tail_plain(s, m["U_d"], m["Dinv"], free,
+                                    m["carry"], m["max_it"], m["tol"])
+        torch.cuda.synchronize()
+        c = dict(
+            wt_x=rel_err(t, ba_pcg.wt_x_plain(Wm, x, free),
+                         t_bound.clamp_min(1e-30)),
+            wt_x_unmasked=rel_err(
+                ba_pcg.wt_x(Wm, x), ba_pcg.wt_x_plain(Wm, x),
+                ba_pcg.wt_x_plain(Wm.abs(), x.abs()).clamp_min(1e-30)),
+            wvinv_t=rel_err(s, ba_pcg.wvinv_t_plain(WVinv, t),
+                            s_bound.clamp_min(1e-30)),
+            cg_tail=max(rel_err(a, b, b.abs().max().clamp_min(1e-30))
+                        for a, b in zip(got[:4], want[:4])),
+            iterations=(int(got[4]), int(want[4])))
+        assert c["wt_x"] < 3e-5 and c["wt_x_unmasked"] < 3e-5, (name, c)
+        assert c["wvinv_t"] < 3e-5 and c["cg_tail"] < 1e-4, (name, c)
+        assert c["iterations"] == (1, 1), (name, c)
+        checks[name] = c
+    # a captured iteration, replayed twice from the same carry
+    m = ba_pcg_system(*PCG_SHAPE, seed=1)
+    scratch = ba_pcg.Scratch(m["WVinv"])
+    init = m["carry"]
+    bufs = tuple(c.clone() for c in init)
+
+    def iteration():
+        t = ba_pcg.wt_x(m["Wm"], bufs[2], m["free"])
+        s = ba_pcg.wvinv_t(m["WVinv"], t, scratch)
+        ba_pcg.cg_tail(s, m["U_d"], m["Dinv"], m["free"], bufs, m["max_it"],
+                       m["tol"])
+
+    iteration()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for b, c in zip(bufs, init):
+            b.copy_(c)
+        iteration()
+    outs = []
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        outs.append(tuple(b.clone() for b in bufs))
+    assert all(torch.equal(a, b) for a, b in zip(*outs)), \
+        "two replays of a CG iteration differ"
+    lib = ba_pcg.load_library()
+    err = lib.sdvl_ba_wt_x(m["Wm"].data_ptr(), m["x"].data_ptr(), None,
+                           m["x"].data_ptr(), 1, 100000, 1, 0,
+                           ba_pcg._counter(m["Wm"].device).data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+    assert err != 0, "a launch with 2.4 MB of shared memory was taken"
+    try:
+        ba_pcg._launch(err, "wt_x")
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("a refused launch did not raise")
+    del g, outs
+
+    # times at the Zurich shape
+    P, K, _ = PCG_SHAPE
+    m = ba_pcg_system(*PCG_SHAPE, seed=2)
+    Wm, WVinv, free, x = m["Wm"], m["WVinv"], m["free"], m["x"]
+    t = ba_pcg.wt_x(Wm, x, free)
+    s = ba_pcg.wvinv_t(WVinv, t, scratch)
+    carry = m["carry"]
+    block_bytes = P * K * 72
+    tail_bytes = 4 * (K * 6 * (1 + 3 * 2) + K * 72 + K + 4)
+    res = {"shape": dict(P=P, K=K, filled=PCG_SHAPE[2]), "checks": checks,
+           "launch_floor_ms": floor_ms}
+    for name, fn, plain, moved, n in (
+            ("wt_x", lambda: ba_pcg.wt_x(Wm, x, free),
+             lambda: ba_pcg.wt_x_plain(Wm, x, free), block_bytes, 50),
+            ("wvinv_t", lambda: ba_pcg.wvinv_t(WVinv, t, scratch),
+             lambda: ba_pcg.wvinv_t_plain(WVinv, t), block_bytes, 50),
+            ("cg_tail", lambda: ba_pcg.cg_tail(
+                s, m["U_d"], m["Dinv"], free, carry, m["max_it"], m["tol"]),
+             lambda: ba_pcg.cg_tail_plain(
+                 s, m["U_d"], m["Dinv"], free, carry, m["max_it"],
+                 m["tol"]), tail_bytes, 200)):
+        ms = graph_ms(fn, launches=n)
+        bound = moved / PEAK_BYTES_PER_S * 1e3
+        res[name] = dict(ms=ms, plain_ms=graph_ms(plain, launches=10),
+                         bound_ms=bound, bound_by="bytes",
+                         of_bound=bound / ms)
+    res["iteration_ms"] = graph_ms(lambda: ba_pcg.cg_tail(
+        ba_pcg.wvinv_t(WVinv, ba_pcg.wt_x(Wm, carry[2], free), scratch),
+        m["U_d"], m["Dinv"], free, carry, m["max_it"], m["tol"]),
+        launches=50)
+    res["plain_iteration_ms"] = graph_ms(lambda: ba_pcg.cg_tail_plain(
+        ba_pcg.wvinv_t_plain(WVinv, ba_pcg.wt_x_plain(Wm, carry[2], free)),
+        m["U_d"], m["Dinv"], free, carry, m["max_it"], m["tol"]),
+        launches=10)
+    res["iteration_bound_ms"] = (2 * block_bytes + tail_bytes) \
+        / PEAK_BYTES_PER_S * 1e3
+    res["ptxas"] = {k: v for k, v in ptxas_report(
+        "libsdvl_graph_if.so").items() if k.startswith(
+            ("wt_x", "wvinv_t", "cg_tail"))}
+    for name in ("wt_x", "wvinv_t", "cg_tail"):
+        r = res[name]
+        say("kernel", f"BA CG {name} at P {P}, K {K}: {r['ms']:.5f} ms "
+                      f"(bound {r['bound_ms']:.5f} ms by bytes, "
+                      f"{100 * r['of_bound']:.1f} % of it), plain "
+                      f"{r['plain_ms']:.5f} ms; ptxas "
+                      f"{ {k: v for k, v in res['ptxas'].items() if k.startswith(name)} }")
+    say("kernel", f"BA CG iteration: kernels {res['iteration_ms']:.5f} ms, "
+                  f"plain {res['plain_iteration_ms']:.5f} ms, bound "
+                  f"{res['iteration_bound_ms']:.5f} ms; checks {checks}")
+    return res
 
 
 def check_conditional_nodes(floor_ms: float) -> dict:
@@ -1237,17 +1434,27 @@ def count_captures() -> None:
     StageGraph.__init__ = counted
 
 
+# the process tracer's BA CG route counters when the counts were last reset
+PCG_ROUTES = ("ba.pcg.kernel", "ba.pcg.plain")
+PCG_ROUTES_AT_RESET = {}
+
+
 def reset_counts() -> None:
     """Just before a path is driven: the kernels' launch counters (on the
     device, added to by the kernels themselves: detection, the small
-    eigensolver, the conditional nodes' condition kernel) and the capture
-    count to 0."""
-    from sdvl_tpu_torch.ops.cuda import detect, graph_if, small_eig
+    eigensolver, the conditional nodes' condition kernel, the BA's CG
+    kernels) and the capture count to 0; the BA CG route counters of the
+    process tracer noted."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg, detect, graph_if, small_eig
+    from sdvl_tpu_torch.utils import trace
 
     count_captures()
     detect.reset_launches()
     small_eig.reset_launches()
     graph_if.reset_launches()
+    ba_pcg.reset_launches()
+    counters = trace.tracer().counters
+    PCG_ROUTES_AT_RESET.update({k: counters.get(k, 0) for k in PCG_ROUTES})
     CAPTURES[0] = 0
 
 
@@ -1255,12 +1462,37 @@ def side_counts() -> dict:
     """Just after a path was driven: the small eigensolver's launches (both
     kernels, and each), the condition kernel's (one per IF node, if/else
     pair, WHILE node and WHILE iteration that ran) and the if/else pairs
-    among them, as the kernels counted them."""
-    from sdvl_tpu_torch.ops.cuda import graph_if, small_eig
+    among them, as the kernels counted them; each BA CG kernel's launches
+    (``ba_pcg_<kernel>``, counted by the kernel) and the calls of the CG's
+    kernel and plain routes since the reset (the tracer's ``ba.pcg.kernel``
+    and ``ba.pcg.plain``)."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg, graph_if, small_eig
+    from sdvl_tpu_torch.utils import trace
 
+    counters = trace.tracer().counters
     return dict(small_eig=small_eig.launches(),
                 **{k: small_eig.launches(kernel=k) for k in small_eig.KERNELS},
-                conditions=graph_if.launches(), pairs=graph_if.pairs())
+                conditions=graph_if.launches(), pairs=graph_if.pairs(),
+                **{f"ba_pcg_{k}": ba_pcg.launches(kernel=k)
+                   for k in ba_pcg.KERNELS},
+                **{k: counters.get(k, 0) - PCG_ROUTES_AT_RESET.get(k, 0)
+                   for k in PCG_ROUTES})
+
+
+def pcg_counts(side: dict) -> dict:
+    """The BA CG kernels' launches and the CG's routes of ``side``."""
+    return {k: v for k, v in side.items()
+            if k.startswith("ba_pcg_") or k in PCG_ROUTES}
+
+
+def check_pcg_route(side: dict, where: str) -> None:
+    """A global BA over the PCG route on the card took the kernels: the
+    route counted at least once, never the plain route, and each kernel
+    launched."""
+    assert side["ba.pcg.kernel"] >= 1 and side["ba.pcg.plain"] == 0, (
+        where, {k: side[k] for k in PCG_ROUTES})
+    assert min(side[f"ba_pcg_{k}"] for k in ("wt_x", "wvinv_t",
+                                             "cg_tail")) >= 1, (where, side)
 
 
 def read_counts() -> tuple:
@@ -2952,7 +3184,7 @@ def run_cli_phase(card: str, device: str = "cuda",
         dm = np.abs(np.asarray(r3["n_matches"]) - res2.n_matches)[run2]
         assert dm.max() <= 1 and (dm > 0).mean() <= 0.15, dm.tolist()
         with open(p["s3.json"]) as f:
-            trace = json.load(f)
+            trace = json.load(f)["spans"]
         assert "preprocess" in trace and "track" in trace, sorted(trace)
         assert r3["frame_launches"] == n
         syncs3 = tracking_syncs(r3)
@@ -3321,6 +3553,7 @@ def run_zurich_phase(card: str) -> dict:
     reset_counts()
     ba = z.run_global_ba(m, intr, *noise, proto["stage_iters"])
     b_side = side_counts()
+    check_pcg_route(b_side, "zurich global BA")
     e0_j, e1_j = float(rec["reproj_px_before"]), float(
         rec["reproj_px_after"])
     assert ba["replays"] == 1 and not ba["sync_sites"], (
@@ -3356,7 +3589,8 @@ def run_zurich_phase(card: str) -> dict:
                   f"camera centres {d_c:.3e} from JAX's, points "
                   f"{d_p:.3e}, gated observations apart {obs_apart}; CG "
                   f"iterations per LM step {ba['cg_iterations']} (JAX "
-                  f"{cg_j}); condition kernel {b_side['conditions']}")
+                  f"{cg_j}); condition kernel {b_side['conditions']}; BA "
+                  f"CG kernels {pcg_counts(b_side)}")
     say("zurich", f"global BA: first call (warm-up, capture, replay) "
                   f"{ba['seconds']:.3f} s, capture {ba['capture_s']:.3f} s, "
                   f"replay {1e3 * ba['replay_s']:.1f} ms, pool "
@@ -3726,6 +3960,7 @@ def run_euroc_phase(card: str) -> dict:
         reset_counts()
         g = timed_global_ba(m, intrinsics(cfg), graphs=True)
         b_side = side_counts()
+        check_pcg_route(b_side, "euroc global BA")
         assert g["replays"] == 1 and not g["sync_sites"], (g["replays"],
                                                            g["sync_sites"])
         assert g["cg_iterations"], "global BA did not take the PCG path"
@@ -3753,7 +3988,8 @@ def run_euroc_phase(card: str) -> dict:
                      f"{json.dumps(sp['own']['centres'])}; gated "
                      f"observations apart {sp['obs_apart']} (own "
                      f"{sp['own_obs_apart']}); CG iterations per LM step "
-                     f"{g['cg_iterations']}")
+                     f"{g['cg_iterations']}; BA CG kernels "
+                     f"{pcg_counts(b_side)}")
         say("euroc", f"global BA: {g['ms']:.1f} ms with the warm-up and "
                      f"capture ({g['capture_s']:.3f} s), replay "
                      f"{g['replay_ms']:.1f} ms, pool "
@@ -3884,7 +4120,8 @@ def main() -> int:
                     for lib in libs]:
             job.result()
     say("build", f"csrc/detect.cu -> _build/libsdvl_detect.so, "
-                 f"csrc/graph_if.cu -> _build/libsdvl_graph_if.so and "
+                 f"csrc/graph_if.cu and csrc/ba_pcg.cu -> "
+                 f"_build/libsdvl_graph_if.so and "
                  f"csrc/small_eig.cu -> _build/libsdvl_small_eig.so in "
                  f"{time.perf_counter() - t0:.1f} s ({' '.join(detect.NVCC_FLAGS)})")
     # ---------------------------------------------------------- 3 kernel
@@ -3895,6 +4132,7 @@ def main() -> int:
                   f"{floor:.5f} ms of device time each")
     eig = check_small_eig(floor)
     cond = check_conditional_nodes(floor)
+    pcg = check_ba_pcg(floor)
     say("kernel", f"phase took {time.perf_counter() - t0:.1f} s")
     cfg = preset_config()
     query = dict(np.load(QUERY_NPZ))
@@ -4181,7 +4419,38 @@ def main() -> int:
         "while_iteration_ms": cond["iteration_ms"],
         "ptxas": cond["ptxas"].get("set_condition_kernel"),
         "card": card,
-    }]}
+    }, *({
+        "name": f"ba_pcg_{kernel}",
+        "route": "cuda",
+        "source": "sdvl_tpu_torch/csrc/ba_pcg.cu",
+        # the port's own: the reference's CG products are XLA einsums
+        "replaces": "none (the port's own; in place of the einsums of "
+                    "solvers/ba.py::_schur_solve_cg on the card, the "
+                    "reference's in sdvl_tpu/solvers/ba.py::_schur_solve_cg)",
+        # launches counted by the kernel in global BA's replay (with the
+        # capture's warm-up passes) on the zurich and euroc maps, beside
+        # the CG's calls by route there (the plain route never)
+        "launches_by_path": {
+            "zurich_ba": zurich["ba_side_counts"][f"ba_pcg_{kernel}"],
+            "euroc_ba": euroc["ba"]["side_counts"][f"ba_pcg_{kernel}"]},
+        "routes_by_path": {
+            "zurich_ba": {k: zurich["ba_side_counts"][k]
+                          for k in PCG_ROUTES},
+            "euroc_ba": {k: euroc["ba"]["side_counts"][k]
+                         for k in PCG_ROUTES}},
+        "max_rel_err": max(c[kernel] for c in pcg["checks"].values()),
+        "ms": pcg[kernel]["ms"],
+        "plain_ms": pcg[kernel]["plain_ms"],
+        "bound_ms": pcg[kernel]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": pcg["shape"],
+        "iteration_ms": pcg["iteration_ms"],
+        "plain_iteration_ms": pcg["plain_iteration_ms"],
+        "ptxas": {k: v for k, v in pcg["ptxas"].items()
+                  if k.startswith(kernel)},
+        "card": card,
+    } for kernel in ("wt_x", "wvinv_t", "cg_tail"))]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

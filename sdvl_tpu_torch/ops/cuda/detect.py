@@ -101,15 +101,23 @@ def _find_nvcc() -> str:
     )
 
 
-def build_library(verbose: bool = False, source: str = SOURCE,
+def build_library(verbose: bool = False, source=SOURCE,
                   name: str = "libsdvl_detect.so") -> str:
-    """Compile ``source`` (default ``csrc/detect.cu``) into
-    ``_build/<name>`` and return its path. Raises when the compiler is
-    missing or fails. Every build counts in the process tracer's
-    ``kernels.builds``, and the compiler's seconds in ``kernels.build_s``
-    (``utils/trace.py``), failed builds too."""
+    """Compile ``source`` (default ``csrc/detect.cu``; a path, or a tuple
+    of paths) into ``_build/<name>`` and return its path. Several sources
+    are one translation unit (``_build/<name>.cu`` includes them in turn):
+    ``nvcc`` compiles each unit's host code and headers anew, some two
+    seconds of set-up a file. Raises when the compiler is missing or fails.
+    Every build counts in the process tracer's ``kernels.builds``, and the
+    compiler's seconds in ``kernels.build_s`` (``utils/trace.py``), failed
+    builds too."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, name)
+    if not isinstance(source, str):
+        unit = out + ".cu"
+        with open(unit, "w") as f:
+            f.writelines(f'#include "{os.path.abspath(p)}"\n' for p in source)
+        source = unit
     cmd = [_find_nvcc(), *NVCC_FLAGS]
     if verbose:
         cmd += ["-Xptxas", "-v"]

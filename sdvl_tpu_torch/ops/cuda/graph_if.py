@@ -15,8 +15,10 @@ live in the condition kernel.
 ``csrc/graph_if.cu`` adds the nodes (torch of this version has no binding
 for conditional nodes); it is built with ``nvcc`` at first use into
 ``sdvl_tpu_torch/_build/`` and bound through ``ctypes``, as the detection
-kernel is. Conditional nodes nested in another's body need CUDA 12.4 or
-later, in the runtime and the driver: loading the library checks both.
+kernel is, in one translation unit with ``csrc/ba_pcg.cu`` (the whole-map
+BA's CG kernels, ``ops/cuda/ba_pcg.py``). Conditional nodes nested in
+another's body need CUDA 12.4 or later, in the runtime and the driver:
+loading the library checks both.
 
 Every condition kernel adds one to a launch counter on the card
 (:func:`launches`): once per IF node or if/else pair and per WHILE node,
@@ -51,6 +53,10 @@ import torch
 from . import detect
 
 SOURCE = os.path.join(detect._PKG_DIR, "csrc", "graph_if.cu")
+# the library holds the whole-map BA's CG kernels too (``ops/cuda/ba_pcg``):
+# the BA's graph path loads it anyway, and one build of one translation unit
+# costs set-up less than a second library or a second file
+SOURCES = (SOURCE, os.path.join(detect._PKG_DIR, "csrc", "ba_pcg.cu"))
 
 # the oldest CUDA (runtime and driver) whose graphs take conditional nodes
 # nested in a conditional node's body
@@ -76,7 +82,7 @@ def load_library(verbose: bool = False):
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(detect.build_library(
-                verbose=verbose, source=SOURCE, name="libsdvl_graph_if.so"))
+                verbose=verbose, source=SOURCES, name="libsdvl_graph_if.so"))
             vp, ull, ci = ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int
             p_ull = ctypes.POINTER(ull)
             lib.sdvl_if_begin.argtypes = [vp] * 4 + [p_ull,

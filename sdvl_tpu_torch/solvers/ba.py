@@ -22,7 +22,12 @@ finite partial factor whose step could be accepted; so the port calls
 Above ``CG_KF_THRESHOLD`` keyframe slots :func:`solve` takes the matrix-free
 block-Jacobi PCG of :func:`_schur_solve_cg` instead, as the reference does:
 whole-map BA at the shipped 1000-slot capacity never forms the (6K, 6K)
-system.
+system. On CUDA tensors its products with ``Wm`` and ``WVinv`` and each CG
+iteration's vector work are the kernels of ``ops/cuda/ba_pcg.py``, which
+read the two (P, K, 6, 3) tensors in their stored layout (an einsum on the
+card copies each into a transposed layout first); on the CPU the same
+functions are their plain versions, einsums. Each call counts its route on
+the process tracer: ``ba.pcg.kernel`` or ``ba.pcg.plain``.
 
 Loops. The reference's CG is a ``while_loop`` that stops at an iteration
 bound computed on the device or at a residual tolerance, and its two LM
@@ -63,6 +68,7 @@ import torch
 
 from ..core import camera as cam
 from ..core import geometry, se3
+from ..ops.cuda import ba_pcg
 from ..utils import trace
 
 
@@ -208,6 +214,11 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     ``group``: the points are sharded over it (see the module note): the
     per-iteration wire cost is one (K, 6) all-reduce, whatever P and K.
 
+    An iteration is ``ops/cuda/ba_pcg.py``'s ``wt_x``, ``wvinv_t`` and
+    ``cg_tail``, the all-reduce between the last two: on CUDA tensors
+    three kernels, ``cg_tail`` writing the carry in place (so a captured
+    WHILE body copies nothing back); on CPU tensors their plain versions.
+
     Returns ``(dc, dp, n_iter)``, ``n_iter`` a () int32 tensor: the
     iterations the reference's loop runs on the same numbers.
     """
@@ -219,33 +230,25 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     eye3 = torch.eye(3, dtype=V.dtype, device=dev)
     eye6 = torch.eye(6, dtype=U.dtype, device=dev)
     free = (~fixed).to(U.dtype)
+    trace.tracer().count("ba.pcg.kernel" if Wm.is_cuda else "ba.pcg.plain")
 
     V_d = V + (lam + 1e-8) * eye3[None]
     Vinv = torch.linalg.inv_ex(V_d).inverse                    # (P,3,3)
     WVinv = torch.einsum("pkij,pjl->pkil", Wm, Vinv)           # (P,K,6,3)
+    scratch = ba_pcg.Scratch(WVinv)
 
-    rhs = _psum(b_c - torch.einsum("pkil,pl->ki", WVinv, b_p),
+    rhs = _psum(b_c - ba_pcg.wvinv_t(WVinv, b_p, scratch),
                 group) * free[:, None]
     U_d = _psum(U, group) + (lam + 1e-8) * eye6[None]
 
-    def matvec(x):                                             # x (K,6)
-        x = x * free[:, None]
-        t = torch.einsum("pkij,ki->pj", Wm, x)                 # (P,3)
-        y = torch.einsum("kij,kj->ki", U_d, x)
-        y = y - _psum(torch.einsum("pkil,pl->ki", WVinv, t), group)
-        # fixed cameras act as identity rows (keeps the operator PD)
-        return y * free[:, None] + x * (1.0 - free)[:, None]
-
-    # block-Jacobi preconditioner: exact 6x6 diagonal blocks of S
+    # block-Jacobi preconditioner: exact 6x6 diagonal blocks of S, each
+    # inverse row-major as cg_tail reads it (inv_ex's are column-major)
     D = U_d - _psum(torch.einsum("pkil,pkjl->kij", WVinv, Wm), group)
     D = D * free[:, None, None] + eye6[None] * (1.0 - free)[:, None, None]
-    Dinv = torch.linalg.inv_ex(D + 1e-8 * eye6[None]).inverse
-
-    def precond(r):
-        return torch.einsum("kij,kj->ki", Dinv, r)
+    Dinv = torch.linalg.inv_ex(D + 1e-8 * eye6[None]).inverse.contiguous()
 
     r0 = rhs
-    z0 = precond(r0)
+    z0 = torch.einsum("kij,kj->ki", Dinv, r0)
     rz0 = torch.sum(r0 * z0)
     tol = 1e-12 * rz0.clamp_min(1e-30)
     ceiling = max(64, K)
@@ -257,19 +260,11 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam, group=None):
         return (i < max_it) & (rz > tol)
 
     def body(c):
-        x, r, p, rz, i = c
-        active = cond(c)
-        Ap = matvec(p)
-        alpha = rz / torch.sum(p * Ap).clamp_min(1e-30)
-        alpha = torch.where(active, alpha, torch.zeros_like(alpha))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / rz.clamp_min(1e-30)
-        p = torch.where(active, z + beta * p, p)
-        rz = torch.where(active, rz_new, rz)
-        return x, r, p, rz, i + active.to(torch.int32)
+        # S p: t = W^T (free p), s = sum_p W V^-1 t, reduced over the
+        # group; then the rest of the iteration (on CUDA in place)
+        t = ba_pcg.wt_x(Wm, c[2], free)
+        s = _psum(ba_pcg.wvinv_t(WVinv, t, scratch), group)
+        return ba_pcg.cg_tail(s, U_d, Dinv, free, c, max_it, tol)
 
     trace.mark("pcg_loop")
     x, _, _, _, n_iter = device_while(
@@ -279,7 +274,7 @@ def _schur_solve_cg(U, V, Wm, b_c, b_p, fixed, lam, group=None):
     trace.mark("update")
     dc = x * free[:, None]
 
-    t = b_p - torch.einsum("pkij,ki->pj", Wm, dc)
+    t = b_p - ba_pcg.wt_x(Wm, dc)
     dp = torch.einsum("pij,pj->pi", Vinv, t)
     return dc, dp, n_iter
 

@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain torch versions, on the card: the
-detection kernel and the small eigensolver.
+detection kernel, the small eigensolver and the whole-map BA's CG kernels.
 
 Needs an NVIDIA GPU and ``nvcc``; skips with a reason anywhere else (a CUDA
 kernel has no CPU mode). This file imports no JAX, so it also runs on a
@@ -30,6 +30,12 @@ bit for bit, against the float64 numpy model of its parallel sweep
 index order, ranks 0 to 2, 1000 matrices). ``ptxas`` (``-Xptxas -v``)
 reports no stack frame and no spill for any kernel of
 ``csrc/small_eig.cu`` and ``csrc/graph_if.cu``.
+
+The whole-map BA's CG kernels (``ops/cuda/ba_pcg.py``) against their plain
+versions at the Zurich map's shape and ragged ones, each tolerance stated
+with its reason in its test; two replays of a captured iteration bit for
+bit; refusals raise; ``ba.solve(method="cg")`` on the card takes them and
+never the plain route.
 
 The relocalizer's lane choice on the card (``torch.argmin`` of the lane
 errors, the stable descending sort of the lane keys) follows the rules
@@ -382,10 +388,13 @@ def test_small_svd3_matches_plain_on_card(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("source", ["small_eig.cu", "graph_if.cu"])
+@pytest.mark.parametrize("source", ["small_eig.cu", "graph_if.cu",
+                                    "ba_pcg.cu"])
 def test_kernels_keep_no_stack_and_spill_nothing(cuda_device, source):
     """``-Xptxas -v`` of a verbose build (into a library of its own name):
-    every kernel of the source uses no stack frame and spills nothing."""
+    every kernel of the source uses no stack frame and spills nothing
+    (``ba_pcg.cu``'s two streaming kernels in both of their forms, 16-byte
+    and single loads)."""
     name = f"libsdvl_ptxas_{source.split('.')[0]}.so"
     detect.build_library(verbose=True, source=os.path.join(
         detect._PKG_DIR, "csrc", source), name=name)
@@ -398,12 +407,14 @@ def test_kernels_keep_no_stack_and_spill_nothing(cuda_device, source):
                       r"(\d+) bytes spill loads", line)
         if m and kernel:
             found[kernel] = tuple(int(x) for x in m.groups())
-    want = {"small_eig.cu": ("eigh_kernel", "svd3_kernel"),
-            "graph_if.cu": ("set_condition_kernel",
-                            "launch_floor_kernel")}[source]
-    for k in want:
+    want = {"small_eig.cu": {"eigh_kernel": 1, "svd3_kernel": 1},
+            "graph_if.cu": {"set_condition_kernel": 1,
+                            "launch_floor_kernel": 1},
+            "ba_pcg.cu": {"wt_x_kernel": 2, "wvinv_t_kernel": 2,
+                          "cg_tail_kernel": 1}}[source]
+    for k, n in want.items():
         got = [v for f, v in found.items() if k in f]
-        assert got == [(0, 0, 0)], (k, found)
+        assert got == [(0, 0, 0)] * n, (k, found)
 
 
 @pytest.mark.cuda
@@ -457,3 +468,209 @@ def test_lane_choice_on_card(cuda_device, n):
     got = torch.sort(torch.from_numpy(key).to(cuda_device), descending=True,
                      stable=True)[1].cpu().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------- the whole-map BA's CG
+def _pcg_system(P, K, filled, dev, seed=0):
+    """A seeded CG system on the card, as ``chip_smoke.ba_pcg_system``
+    makes it: ``Wm``, ``WVinv`` (P, K, 6, 3) zero past ``filled`` slots
+    and on three quarters of the rest, ``U_d`` and ``Dinv`` symmetric
+    positive definite (row-major), the first two slots fixed, a carry."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    seen = torch.rand((P, K), generator=g, device=dev) < 0.25
+    seen[:, filled:] = False
+    eye = torch.eye(6, device=dev)
+    A, B = normal(K, 6, 6), normal(K, 6, 6)
+    free = torch.ones(K, device=dev)
+    free[:2] = 0.0
+    r, p = normal(K, 6) * free[:, None], normal(K, 6) * free[:, None]
+    return dict(
+        Wm=normal(P, K, 6, 3, scale=0.1) * seen[..., None, None],
+        WVinv=normal(P, K, 6, 3, scale=0.1) * seen[..., None, None],
+        U_d=A @ A.mT + 50.0 * eye,
+        Dinv=torch.linalg.inv(B @ B.mT + 50.0 * eye).contiguous(),
+        free=free, x=normal(K, 6),
+        carry=(normal(K, 6), r, p, (r * p).sum().abs(),
+               torch.zeros((), dtype=torch.int32, device=dev)),
+        max_it=torch.tensor(10 ** 9, dtype=torch.int32, device=dev),
+        tol=torch.zeros((), device=dev))
+
+
+PCG_SHAPES = {"zurich": (4096, 1000, 320), "ragged_odd": (37, 13, 13),
+              "ragged_even": (300, 130, 100)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PCG_SHAPES))
+def test_ba_pcg_kernels_match_plain_on_card(cuda_device, case):
+    """``wt_x``, ``wvinv_t`` (16-byte loads where K is even, single ones
+    where it is odd) and ``cg_tail`` against their plain versions on the
+    card, at the Zurich map's shape (4096 points, 1000 slots, 320 filled)
+    and ragged ones (a partial slot tile and point chunk). Tolerance: each
+    product entry within 3e-5 of the sum of its terms' magnitudes (both
+    sides are float32 sums in other orders, of at most some 200 terms in
+    sequence: 200 roundings of 2^-24 each, on each side); the tail's
+    vectors and ``rz`` within 1e-4 of their largest entry (``alpha`` and
+    ``beta`` are quotients of two sums of 6K products, each taken in
+    another order); the count exactly."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg
+
+    m = _pcg_system(*PCG_SHAPES[case], cuda_device)
+    Wm, WVinv, free, x = m["Wm"], m["WVinv"], m["free"], m["x"]
+    for mask in (free, None):
+        t = ba_pcg.wt_x(Wm, x, mask)
+        err = (t - ba_pcg.wt_x_plain(Wm, x, mask)).abs()
+        assert bool((err <= 3e-5 * ba_pcg.wt_x_plain(
+            Wm.abs(), x.abs(), mask)).all()), float(err.max())
+    t = ba_pcg.wt_x(Wm, x, free)
+    s = ba_pcg.wvinv_t(WVinv, t)
+    err = (s - ba_pcg.wvinv_t_plain(WVinv, t)).abs()
+    assert bool((err <= 3e-5 * ba_pcg.wvinv_t_plain(WVinv.abs(),
+                                                      t.abs())).all())
+    got = ba_pcg.cg_tail(s, m["U_d"], m["Dinv"], free,
+                         tuple(c.clone() for c in m["carry"]), m["max_it"],
+                         m["tol"])
+    want = ba_pcg.cg_tail_plain(s, m["U_d"], m["Dinv"], free, m["carry"],
+                                m["max_it"], m["tol"])
+    for a, b in zip(got[:4], want[:4]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert int(got[4]) == int(want[4]) == 1
+
+
+@pytest.mark.cuda
+def test_ba_pcg_frozen_lane_leaves_the_carry_on_card(cuda_device):
+    """A carry whose condition is false (the count at its bound, or ``rz``
+    at the tolerance) comes back from ``cg_tail`` bit for bit."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg
+
+    m = _pcg_system(300, 130, 100, cuda_device)
+    s = ba_pcg.wvinv_t(m["WVinv"], ba_pcg.wt_x(m["Wm"], m["carry"][2],
+                                               m["free"]))
+    for max_it, tol in ((m["carry"][4].clone(), m["tol"]),
+                        (m["max_it"], m["carry"][3].clone())):
+        carry = tuple(c.clone() for c in m["carry"])
+        ba_pcg.cg_tail(s, m["U_d"], m["Dinv"], m["free"], carry, max_it, tol)
+        for a, b in zip(carry, m["carry"]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ba_pcg_replays_give_the_same_bits_on_card(cuda_device):
+    """A CG iteration (``wt_x``, ``wvinv_t`` with its scratch, ``cg_tail``
+    in place) captured once: two replays from the same carry give the same
+    bits (no float atomics; the last block of a tile sums its chunks in
+    chunk order), equal to the eager launches', and each replay counts one
+    launch of each kernel."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg
+
+    m = _pcg_system(4096, 1000, 320, cuda_device, seed=1)
+    scratch = ba_pcg.Scratch(m["WVinv"])
+    bufs = tuple(c.clone() for c in m["carry"])
+
+    def iteration():
+        t = ba_pcg.wt_x(m["Wm"], bufs[2], m["free"])
+        s = ba_pcg.wvinv_t(m["WVinv"], t, scratch)
+        ba_pcg.cg_tail(s, m["U_d"], m["Dinv"], m["free"], bufs, m["max_it"],
+                       m["tol"])
+
+    iteration()
+    eager = tuple(b.clone() for b in bufs)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for b, c in zip(bufs, m["carry"]):
+            b.copy_(c)
+        iteration()
+    ba_pcg.reset_launches(cuda_device)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(bufs, eager))
+    assert [ba_pcg.launches(cuda_device, k) for k in ba_pcg.KERNELS] == [
+        2, 2, 2]
+    assert scratch.tickets.tolist() == [0] * len(scratch.tickets)
+
+
+@pytest.mark.cuda
+def test_ba_pcg_refuses_what_the_kernels_cannot_take(cuda_device):
+    """The wrapper raises on a tensor the kernels cannot take (type, shape,
+    layout, more slots than shared memory holds), and a launch that the
+    runtime refuses (too much shared memory) raises too."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg
+
+    m = _pcg_system(37, 14, 14, cuda_device)
+    Wm, x, free = m["Wm"], m["x"], m["free"]
+    for bad in (Wm.double(), Wm[:, :13], Wm.transpose(2, 3).contiguous()
+                .transpose(2, 3)):
+        with pytest.raises(ValueError):
+            ba_pcg.wt_x(bad, x[:bad.shape[1]], None)
+    with pytest.raises(ValueError):
+        ba_pcg.wvinv_t(m["WVinv"], torch.zeros((37, 2), device=cuda_device))
+    with pytest.raises(ValueError):
+        ba_pcg.cg_tail(x, m["U_d"], m["Dinv"].mT, free, m["carry"],
+                       m["max_it"], m["tol"])
+    big = torch.zeros((1, ba_pcg.MAX_K + 2, 6, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        ba_pcg.wt_x(big, torch.zeros((ba_pcg.MAX_K + 2, 6),
+                                     device=cuda_device))
+    lib = ba_pcg.load_library()
+    counter = ba_pcg._counter(Wm.device).data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.sdvl_ba_wt_x(Wm.data_ptr(), x.data_ptr(), None, x.data_ptr(),
+                           1, 100000, 1, 0, counter, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError):
+        ba_pcg._launch(err, "wt_x")
+    # the refusal is not reported again by the next launch
+    t = ba_pcg.wt_x(Wm, x, free)
+    torch.cuda.synchronize()
+    assert torch.isfinite(t).all()
+
+
+@pytest.mark.cuda
+def test_ba_solve_cg_takes_the_kernels_on_card(cuda_device):
+    """``ba.solve(method="cg")`` on the card counts the kernel route and
+    never the plain one, launches each kernel, and ends where the CPU's
+    plain route ends (the tolerances of ``tests/test_torch_global_ba.py``,
+    5e-4 on poses and 5e-3 on points)."""
+    from sdvl_tpu_torch.ops.cuda import ba_pcg
+    from sdvl_tpu_torch.solvers import ba
+    from sdvl_tpu_torch.utils import trace
+
+    rs = np.random.default_rng(3)
+    K, P = 8, 96
+    pts = rs.uniform([-3, -3, 4], [3, 3, 10], (P, 3)).astype(np.float32)
+    poses = np.zeros((K, 7), np.float32)
+    poses[:, 0] = 1.0
+    poses[:, 4] = 0.08 * np.arange(K)
+    p_cam = pts[:, None] + poses[None, :, 4:]
+    uv = (p_cam[..., :2] / p_cam[..., 2:3]).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[:2] = True
+    init = poses.copy()
+    init[2:, 4:] += rs.normal(0, 0.02, (K - 2, 3)).astype(np.float32)
+    arrays = (init, fixed, pts, uv, np.ones((P, K), bool))
+    counters = trace.tracer().counters
+    before = (counters.get("ba.pcg.kernel", 0),
+              counters.get("ba.pcg.plain", 0))
+    ba_pcg._counter(cuda_device)   # made eagerly
+    ba_pcg.reset_launches(cuda_device)
+    got = ba.solve(ba.BAProblem(*(torch.from_numpy(a).to(cuda_device)
+                                  for a in arrays)),
+                   huber=0.05, stage_iters=(3, 4), method="cg")
+    torch.cuda.synchronize()
+    assert (counters.get("ba.pcg.kernel", 0) - before[0],
+            counters.get("ba.pcg.plain", 0) - before[1]) == (7, 0)
+    n = [ba_pcg.launches(cuda_device, k) for k in ba_pcg.KERNELS]
+    cg = int(got.cg_iterations.sum())
+    assert n[0] >= cg + 7 and n[1] >= cg + 7 and n[2] >= cg, (n, cg)
+    want = ba.solve(ba.BAProblem(*(torch.from_numpy(a) for a in arrays)),
+                    huber=0.05, stage_iters=(3, 4), method="cg")
+    np.testing.assert_allclose(got.poses.cpu().numpy(), want.poses.numpy(),
+                               atol=5e-4)
+    np.testing.assert_allclose(got.points.cpu().numpy(),
+                               want.points.numpy(), atol=5e-3)
